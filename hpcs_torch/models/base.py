@@ -31,8 +31,6 @@ class HypHCNet(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.model_name != "vn_dgcnn_partseg":
-            raise NotImplementedError(f"backbone {cfg.model_name!r} is not ported yet")
         self.nn_feat = VNDGCNNPartSeg(cfg.eucl_dim, k=cfg.k,
                                       num_categories=cfg.num_categories, pooling=cfg.pooling)
         self.nn_emb = make_embedder(cfg.eucl_dim, cfg.hyp_dim)

@@ -8,7 +8,6 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class ModelConfig:
-    model_name: str = "vn_dgcnn_partseg"
     num_class: int = 50
     num_categories: int = 16
     eucl_dim: int = 2

@@ -13,11 +13,14 @@
 // weights split into the difference half W[:, :C] and the centre half
 // W[:, C:]; the centre half's product is computed once per point.
 //
-// What bounds it on an H100: fp32 FMAs, 2 (C 21 3 2 + 21 21 3 2) operations
-// per edge with two convs (3.5 GFLOP at B=16, N=1024, K=20, C=21) against
-// 67 TFLOP/s; the bytes it must move (the cloud, the indices, the output)
-// take a few microseconds at 3.35 TB/s, and the repeated neighbour reads hit
-// the 50 MB L2.
+// What bounds it on an H100: fp32 operations against 67 TFLOP/s.  The least
+// work per edge is conv2's 2 (21 21 3 2) operations and the two gates: conv1
+// is linear, W1 e = Wa x_j + (Wb - Wa) x_i, so both its products can be made
+// once per point (2.4 GFLOP in all at B=16, N=1024, K=20, C=21).  This
+// kernel still forms the difference half per edge, 2 (C 21 3 2) operations
+// more.  The bytes it must move (the cloud, the indices, the output) take a
+// few microseconds at 3.35 TB/s, and the repeated neighbour reads hit the
+// 50 MB L2.
 //
 // Design: one warp per point, lane o < 21 owns output channel o and keeps
 // its rows of the four weight matrices in registers.  For each edge the warp

@@ -8,8 +8,9 @@
 // device memory.
 //
 // What bounds it on an H100: the score FMAs, 2 B N^2 D operations (2.1
-// GFLOP at B=16, N=1024, D=63) against 67 TFLOP/s of fp32, plus k passes of
-// selection over each row's N scores; it reads only B N D floats.
+// GFLOP at B=16, N=1024, D=63) against 67 TFLOP/s of fp32, plus one compare
+// per score for a running top-k; it reads only B N D floats.  This kernel
+// selects by k passes over each row's N scores, k compares per score.
 //
 // Design: one block of 256 threads per (cloud, tile of TR rows).  The row
 // tile is staged transposed in shared memory; the cloud streams through in

@@ -9,9 +9,9 @@ import ctypes
 
 import torch
 
-from ..nn.vn.layers import BN_EPS, EPS, channel_mix, vn_leaky_relu
 from . import _build
 from .knn import gather_neighbors, knn
+from .vn_math import BN_EPS, EPS, channel_mix, vn_leaky_relu
 
 KERNEL_C_IN = (1, 21)
 KERNEL_C_OUT = 21
@@ -58,25 +58,6 @@ def edgeconv_infer_plain(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_co
     if n_convs == 2:
         h = _vn_llr_folded(h, W2, Wd2, ab2)
     return h.reshape(B, N, K, -1, 3).mean(dim=2)
-
-
-def min_prenorm(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2):
-    """Smallest pre-BatchNorm vector norm |p| that each output [B, N, C_out]
-    of the stage depends on.
-
-    The folded BatchNorm scales p by (a |p| + b) / |p|, so where |p| is near
-    zero the output follows p's direction, which fp32 cannot fix: two fp32
-    implementations that sum in another order may differ there by far more
-    than rounding.  On the first stage (C=1) the self-edge makes every p of
-    a point parallel to x_i, so some |p| are near zero at flagship sizes.
-    """
-    B, N, K = idx.shape
-    e, _ = graph_feature_vn(x, K, idx)
-    p1 = channel_mix(e, W1).norm(dim=-1)  # [B, N, K, C_mid]
-    if n_convs == 1:
-        return p1.amin(dim=2)
-    p2 = channel_mix(_vn_llr_folded(e, W1, Wd1, ab1), W2).norm(dim=-1)
-    return torch.minimum(p2, p1.amin(dim=-1, keepdim=True)).amin(dim=2)
 
 
 def _check(t, name, shape, dtype=torch.float32):

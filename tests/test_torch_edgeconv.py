@@ -12,6 +12,8 @@ from hpcs_tpu.ops.pallas.edgeconv_pallas import (_affine_from_bn, _edgeconv_xla,
                                                  fused_edgeconv_infer)
 from hpcs_torch.nn.vn.layers import VNLinearLeakyReLU, mean_pool
 from hpcs_torch.ops import edgeconv as E
+from hpcs_torch.ops.vn_math import channel_mix
+from hpcs_torch.testing import check_planted_eps, planted_eps_stage
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -66,6 +68,59 @@ def test_edgeconv_plain_matches_pallas_interpret(n_convs):
                                 a["Wd1"].T, bns[0], a["W2"].T, a["Wd2"].T, bns[1],
                                 interpret=True, n_convs=n_convs)
     np.testing.assert_allclose(_plain(a, n_convs).numpy(), np.asarray(want), **TOL)
+
+
+PLANTED = [(1, 2, "conv1"), (1, 2, "conv2"), (21, 2, "conv1"), (21, 2, "conv2"), (21, 1, "conv1")]
+
+
+@pytest.mark.parametrize("C,n_convs,variant", PLANTED)
+def test_edgeconv_plain_matches_xla_near_gate_eps(C, n_convs, variant):
+    """Pre-BatchNorm vectors of order EPS, exact in fp32: the port's gate
+    places EPS as hpcs_tpu's does (atol 1e-5 / rtol 1e-4 against
+    _edgeconv_xla), and agrees with itself in float64."""
+    x, idx, w = planted_eps_stage(2, 64, 8, C, n_convs, variant, seed=C)
+    got = E.edgeconv_infer_plain(x, idx, *w, n_convs=n_convs)
+    j = [jnp.asarray(t.numpy()) for t in w]
+    want = _edgeconv_xla(jnp.asarray(x.numpy()), jnp.asarray(idx.numpy()), j[0].T, j[1].T, j[2],
+                         j[3].T, j[4].T, j[5], 0.2, n_convs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    check_planted_eps(E.edgeconv_infer, 2, 64, 8, C, n_convs, variant, "cpu", seed=C)
+
+
+def _gate_without(eps_term):
+    """A select-style EdgeConv stage, as the CUDA kernel computes it, with one
+    of the gate's EPS terms left out."""
+    def gate(e, W, Wd, ab):
+        p, d = channel_mix(e, W), channel_mix(e, Wd)
+        eps = 0.0 if eps_term == "norm" else 1e-6
+        norm = torch.sqrt((p * p).sum(-1) + eps * eps) + eps
+        p = p * ((ab[0] * norm + ab[1]) / norm)[..., None]
+        dot, dsq = (p * d).sum(-1, keepdim=True), (d * d).sum(-1, keepdim=True)
+        coeff = torch.where(dot < 0, dot / (dsq + (0.0 if eps_term == "dsq" else 1e-6)), 0.0)
+        return 0.2 * p + 0.8 * (p - coeff * d)
+
+    def stage(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs=2):
+        B, N, K = idx.shape
+        e = E.graph_feature_vn(x, K, idx)[0].reshape(B * N * K, -1, 3)
+        h = gate(e, W1, Wd1, ab1)
+        if n_convs == 2:
+            h = gate(h, W2, Wd2, ab2)
+        return h.reshape(B, N, K, -1, 3).mean(dim=2)
+
+    return stage
+
+
+@pytest.mark.parametrize("eps_term", ["norm", "dsq", None])
+@pytest.mark.parametrize("C,n_convs,variant", PLANTED)
+def test_planted_check_catches_a_gate_without_eps(eps_term, C, n_convs, variant):
+    """The check the GPU kernel is held to fails a stage that drops either
+    EPS term of the gate, and passes the stage that keeps both."""
+    args = (_gate_without(eps_term), 2, 64, 8, C, n_convs, variant, "cpu")
+    if eps_term is None:
+        check_planted_eps(*args)
+    else:
+        with pytest.raises(AssertionError):
+            check_planted_eps(*args)
 
 
 def test_graph_feature_vn_matches_jax():
