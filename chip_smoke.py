@@ -6,8 +6,11 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
 
 1. prints the card's identity;
 2. holds kernel B1 (kNN) against knn_plain on synthetic clouds and on the
-   model's stage-2/3 features at B=16, N=1024, k=20, and on clouds whose
-   points each appear twice (exact ties);
+   model's stage-2/3 features at B=16, N=1024, k=20, and, index for index,
+   on clouds whose scores are exact: integer points that each appear twice
+   (far apart or adjacent), a line of points whose rows' scores rise (the
+   selection's worst case) and equal points; and times it on clouds whose
+   selection work differs, beside the warp queue's insertions per row;
 3. holds kernel B2 (EdgeConv stage) against edgeconv_infer_plain at the
    three stage shapes of the model: atol 1e-5 / rtol 1e-4 wherever fp32
    can fix the result, and a bound scaled by the conditioning elsewhere
@@ -196,7 +199,7 @@ def main():
     from hpcs_torch.ops import _build
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
-    from hpcs_torch.testing import check_edgeconv, check_planted_eps
+    from hpcs_torch.testing import check_edgeconv, check_planted_eps, knn_queue_insertions
 
     t0 = time.time()
     _build.build()
@@ -254,20 +257,39 @@ def main():
             half = rng.integers(-r, r + 1, size=(B, N // 2, d)).astype(np.float32)
             return torch.from_numpy(np.concatenate([half, half], 1)).to(device)
 
+        def adjacent_cloud(d, r):  # x[2m] == x[2m+1]: ties inside one 32-column group
+            half = rng.integers(-r, r + 1, size=(B, N // 2, d)).astype(np.float32)
+            return torch.from_numpy(np.repeat(half, 2, axis=1)).to(device)
+
+        # x_j = (j, 0, 0): exact scores 2 i j - j^2 that rise with j up to the
+        # row's own column, so the last rows insert nearly every column
+        line = torch.zeros(B, N, 3, device=device)
+        line[:, :, 0] = torch.arange(N, device=device, dtype=torch.float32)
+        equal = torch.full((B, N, 3), 0.5, device=device)  # all ties: only k columns go in
+        gauss = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)).to(device)
         cases = {"points_d3": (pts, False), "stage2_d63": (f1, False), "stage3_d63": (f2, False),
-                 "ties_d3": (tie_cloud(3, 8), True), "ties_d63": (tie_cloud(63, 2), True)}
+                 "gauss_d3": (gauss, False), "ties_d3": (tie_cloud(3, 8), True),
+                 "ties_d63": (tie_cloud(63, 2), True), "line_d3": (line, True),
+                 "adjacent_d3": (adjacent_cloud(3, 8), True),
+                 "adjacent_d63": (adjacent_cloud(63, 2), True), "equal_d3": (equal, True)}
         knn_rows, knn_err = {}, 0.0
         for case, (x, ties) in cases.items():
             got, want = KN.knn(x, K), KN.knn_plain(x, K)
             near, err = knn_check(x, got, want, ties)
             knn_err = max(knn_err, err)
             knn_rows[case] = dict(D=x.shape[-1], differing_near_ties=near, max_score_gap=err)
-        knn_ms = {d: cuda_ms(lambda x=x: KN.knn(x, K), 20) for d, x in (("d3", pts), ("d63", f1))}
+        # the kernel's time against the selection's data-dependent work: the
+        # warp queue's mean insertions per row (every 16th row)
+        selection = {case: dict(ms=cuda_ms(lambda x=x: KN.knn(x, K), 20),
+                                insertions_per_row=knn_queue_insertions(x, K, row_step=16))
+                     for case, x in (("equal_d3", equal), ("gauss_d3", gauss), ("points_d3", pts),
+                                     ("line_d3", line), ("stage2_d63", f1), ("stage3_d63", f2))}
+        knn_ms = {"d3": selection["points_d3"]["ms"], "d63": selection["stage2_d63"]["ms"]}
         plain_ms = {d: cuda_ms(lambda x=x: KN.knn_plain(x, K), 5) for d, x in (("d3", pts), ("d63", f1))}
         w3, w63 = knn_work(B, N, 3, K), knn_work(B, N, 63, K)
         knn_b = {d: bound_ms(*w) for d, w in (("d3", w3), ("d63", w63))}
         emit("knn", cases=knn_rows, B=B, N=N, k=K, ms=knn_ms, plain_ms=plain_ms,
-             bound_ms={d: v[0] for d, v in knn_b.items()}, card=card)
+             bound_ms={d: v[0] for d, v in knn_b.items()}, selection=selection, card=card)
 
         # 3. kernel B2 against edgeconv_infer_plain at the three stage shapes
         stages = {"stage1_c1": (x0, idx1, w12, 2), "stage2_c21": (x1, idx2, w34, 2),

@@ -9,17 +9,22 @@
 //
 // What bounds it on an H100: the score FMAs, 2 B N^2 D operations (2.1
 // GFLOP at B=16, N=1024, D=63) against 67 TFLOP/s of fp32, plus one compare
-// per score for a running top-k; it reads only B N D floats.  This kernel
-// selects by k passes over each row's N scores, k compares per score.
+// per score for a running top-k; it reads only B N D floats.
 //
 // Design: one block of 256 threads per (cloud, tile of TR rows).  The row
 // tile is staged transposed in shared memory; the cloud streams through in
 // tiles of TC=128 columns, also transposed, so each thread computes a
 // register tile of TR/8 rows x 4 columns from one broadcast load per row
 // and one float4 load per dimension.  The block keeps all N scores of its
-// rows in shared memory; then each warp selects its rows' k best by k
-// rounds of first-argmax-and-mask, as the TPU kernel does, so ties go to
-// the smallest index.
+// rows in shared memory; then each warp selects its rows' k best with a
+// warp queue: lane q < k holds the q-th best (score, index) seen so far,
+// sorted across lanes, and (s, i) ranks above (s', i') if s > s', or
+// s == s' and i < i', so ties go to the smallest index whatever order the
+// columns arrive in, as the TPU kernel's first-argmax does.  The warp scans
+// the row 32 columns at a time, one load and one compare against the k-th
+// best per score; only the columns that beat it (a ballot) are inserted,
+// lowest lane first, each re-checked against the moving k-th best.  NaN
+// scores never rank; a slot no score reached reports -1.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
@@ -110,32 +115,43 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d, int
   __syncthreads();
 
   // selection: warp w owns rows w*RT .. w*RT+RT-1 of the tile
+  const unsigned below_k = k == 32 ? 0xffffffffu : (1u << k) - 1u;
   for (int r = 0; r < RT; ++r) {
     const int lr = warp * RT + r;
     const int row = row0 + lr;
     if (row >= n) break;
-    float* srow = scores + lr * np;
-    int* out = idx + ((size_t)b * n + row) * k;
-    for (int j = 0; j < k; ++j) {
-      float best = -INFINITY;
-      int bi = INT_MAX;
-      for (int c = lane; c < n; c += 32) {  // increasing c: the first max wins
-        const float v = srow[c];
-        if (v > best) { best = v; bi = c; }
+    const float* srow = scores + lr * np;
+    float qs = -INFINITY;  // this lane's queue entry
+    int qi = INT_MAX;
+    float ts = -INFINITY;  // the threshold: entry k-1
+    int ti = INT_MAX;
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      const int c = c0 + lane;
+      const float v = c < n ? srow[c] : -INFINITY;
+      unsigned cand = __ballot_sync(0xffffffffu, c < n && (v > ts || (v == ts && c < ti)));
+      while (cand) {
+        const int src = __ffs(cand) - 1;
+        cand &= cand - 1;
+        const float cv = __shfl_sync(0xffffffffu, v, src);
+        const int ci = c0 + src;
+        if (!(cv > ts || (cv == ts && ci < ti))) continue;  // the queue moved past it
+        const bool above = qs > cv || (qs == cv && qi < ci);
+        const int pos = __popc(__ballot_sync(0xffffffffu, above) & below_k);
+        const float us = __shfl_up_sync(0xffffffffu, qs, 1);
+        const int ui = __shfl_up_sync(0xffffffffu, qi, 1);
+        if (lane == pos) {
+          qs = cv;
+          qi = ci;
+        } else if (lane > pos) {
+          qs = us;
+          qi = ui;
+        }
+        ts = __shfl_sync(0xffffffffu, qs, k - 1);
+        ti = __shfl_sync(0xffffffffu, qi, k - 1);
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
-      }
-      if (lane == 0) {
-        // only NaN scores are left when no index was found: report -1
-        out[j] = bi < n ? bi : -1;
-        if (bi < n) srow[bi] = -INFINITY;
-      }
-      __syncwarp();
     }
+    // only NaN scores were left for a slot still at INT_MAX: report -1
+    if (lane < k) idx[((size_t)b * n + row) * k + lane] = qi < n ? qi : -1;
   }
 }
 

@@ -17,15 +17,19 @@ MAX_K = 32
 MAX_N = 4096
 
 
+def knn_scores(x):
+    """Ranking scores [B, N, N] fp32, 2 x_i.x_j - |x_j|^2, of x [B, N, D]."""
+    x = x.float()
+    return 2.0 * torch.bmm(x, x.transpose(1, 2)) - torch.sum(x * x, dim=-1)[:, None, :]
+
+
 def knn_plain(x, k):
     """Indices [B, N, k] (int32) of the k nearest neighbours of each point.
 
     x: [B, N, D].  A stable descending sort keeps tied scores in index order,
     so ties go to the smallest index (torch.topk does not promise that).
     """
-    x = x.float()
-    scores = 2.0 * torch.bmm(x, x.transpose(1, 2)) - torch.sum(x * x, dim=-1)[:, None, :]
-    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    order = torch.sort(knn_scores(x), dim=-1, descending=True, stable=True).indices
     return order[..., :k].to(torch.int32).contiguous()
 
 

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from .ops.edgeconv import _vn_llr_folded, edgeconv_infer_plain, graph_feature_vn
+from .ops.knn import knn_scores
 from .ops.vn_math import channel_mix
 
 ATOL, RTOL = 1e-5, 1e-4
@@ -123,3 +124,22 @@ def check_planted_eps(fn, b, n, k, c, n_convs, variant, device, seed=0):
         f"edgeconv planted {variant} C={c}: {int(bad.sum())} outputs beyond atol {ATOL} / "
         f"rtol {RTOL} of the float64 twin, max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def knn_queue_insertions(x, k, row_step=1):
+    """Mean insertions per row of kernel B1's warp queue on x [B, N, D],
+    over rows 0, row_step, 2 row_step, ... of each cloud.
+
+    The queue takes the columns in index order, so after column c it holds
+    the k best of columns 0..c: c goes in iff fewer than k earlier columns
+    score at least as high (the earlier one wins a tie), and a NaN score
+    never does.  This is the selection's data-dependent work.
+    """
+    s = knn_scores(x)[:, ::row_step]  # [B, R, N]
+    n = s.shape[-1]
+    earlier = torch.ones(n, n, dtype=torch.bool, device=s.device).tril(-1)  # [c, j]: j < c
+    total = 0
+    for sb in s:
+        ahead = ((sb[:, None, :] >= sb[:, :, None]) & earlier).sum(-1)  # [R, c]
+        total += int(((ahead < k) & ~torch.isnan(sb)).sum())
+    return total / (s.shape[0] * s.shape[1])

@@ -67,3 +67,19 @@ def lattice_cloud(rng, b, n):
     """Points on a small integer lattice: many distinct neighbours at exactly
     equal distances, with scores exact in fp32."""
     return rng.integers(-3, 4, size=(b, n, 3)).astype(np.float32)
+
+
+def line_cloud(b, n, d=3):
+    """x_j = (j, 0, ..., 0): exact scores 2 i j - j^2 (n <= 2048), which rise
+    with the column index up to the row's own, so the last rows rise all
+    the way."""
+    x = np.zeros((b, n, d), np.float32)
+    x[:, :, 0] = np.arange(n)
+    return x
+
+
+def adjacent_dup_cloud(rng, b, n, d, r=4):
+    """Integer clouds with x[2m] == x[2m+1]: exact ties inside one 32-column
+    group of the kernel's scan."""
+    half = rng.integers(-r, r + 1, size=(b, (n + 1) // 2, d)).astype(np.float32)
+    return np.repeat(half, 2, axis=1)[:, :n]

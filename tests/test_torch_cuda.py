@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import lattice_cloud, require_cuda, tie_cloud
+from _torch_port import adjacent_dup_cloud, lattice_cloud, line_cloud, require_cuda, tie_cloud
 from hpcs_torch.data import SyntheticPartDataset
 from hpcs_torch.models import HypHCSystem, ModelConfig, decode_vector_for_batch
 from hpcs_torch.ops import edgeconv as E
@@ -128,6 +128,22 @@ def test_knn_kernel_ragged_and_large_shapes(B, N, D, k):
     layout; integer coordinates keep every score exact, so indices match."""
     require_cuda()
     x = np.random.default_rng(N).integers(-4, 5, size=(B, N, D)).astype(np.float32)
+    x = torch.from_numpy(x).cuda()
+    torch.testing.assert_close(K.knn(x, k), K.knn_plain(x, k), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud", ["line", "adjacent_dups"])
+@pytest.mark.parametrize("B,N,D,k", [(4, 1024, 3, 20), (3, 37, 5, 4)])
+def test_knn_kernel_selection_worst_cases(cloud, B, N, D, k):
+    """The warp queue's hard rows, with exact scores: rising scores on the
+    line's last rows insert nearly every column, and adjacent duplicates tie
+    inside one 32-column group."""
+    require_cuda()
+    if cloud == "line":
+        x = line_cloud(B, N, D)
+    else:
+        x = adjacent_dup_cloud(np.random.default_rng(N), B, N, D)
     x = torch.from_numpy(x).cuda()
     torch.testing.assert_close(K.knn(x, k), K.knn_plain(x, k), rtol=0, atol=0)
 
