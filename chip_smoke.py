@@ -16,7 +16,9 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    can fix the result, and a bound scaled by the conditioning elsewhere
    (hpcs_torch.testing.check_edgeconv); and, in full, against the plain
    twin in float64 on planted inputs whose pre-BatchNorm vectors are near
-   the gate's EPS yet exact in fp32 (testing.check_planted_eps);
+   the gate's EPS yet exact in fp32 (testing.check_planted_eps); times each
+   stage whole and, by kernel under torch.profiler, its projection and its
+   edge kernel apart, beside ptxas's registers and spills of each;
 4. answers requests of 16 synthetic clouds of 1024 points with the flagship
    model (eucl = hyp = 32, k = 20, 16 categories, random weights and random
    BatchNorm statistics from a seed), counts the kernels' launches, compares
@@ -33,6 +35,7 @@ without the last line.  --json also writes every phase's results to PATH.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,6 +79,51 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps):
+    """Device time of fn() in ms per call, by kernel (or copy) name, over
+    `reps` calls after one warm-up (torch.profiler, CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def ptxas_summary(log):
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc's -Xptxas -v
+    output, names demangled by c++filt where it is installed."""
+    rows, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            rows[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            rows[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows[name]["registers"] = int(m[1])
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(rows), capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except OSError:
+        plain = []
+    if len(plain) != len(rows):
+        plain = list(rows)
+    names = [p.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+             for p in plain]
+    return dict(zip(names, rows.values()))
 
 
 def bound_ms(ops, nbytes):
@@ -203,9 +251,8 @@ def main():
 
     t0 = time.time()
     _build.build()
-    emit("build", seconds=round(time.time() - t0, 3),
-         ptxas={name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                       if "registers" in ln or "spill" in ln] for name in _build.SOURCES})
+    ptxas = {name: ptxas_summary(_build.build_log(name)) for name in _build.SOURCES}
+    emit("build", seconds=round(time.time() - t0, 3), ptxas=ptxas)
 
     # 1. card identity
     device = torch.device("cuda")
@@ -304,14 +351,32 @@ def main():
                        for v in (("conv1", "conv2") if nc == 2 else ("conv1",))}
             ec_err = max(ec_err, checked["max_abs_err"], *planted.values())
             ops, nbytes = edgeconv_work(B, N, x.shape[2], K, nc)
+            bound, by = bound_ms(ops, nbytes)
+
+            def stage():
+                return E.edgeconv_infer(x, idx, *w, n_convs=nc)
+
+            # the stage's device time by kernel: the projection (C=21), the
+            # edge kernel and conv2's weights' copies to constant memory; ms
+            # is their sum, call_ms the CUDA-event time of back-to-back calls,
+            # which includes the host's time to launch them
+            parts = kernel_ms(stage, 20)
+            ms = sum(parts.values())
             ec_rows[st] = dict(C=x.shape[2], n_convs=nc, **checked,
-                               max_abs_err_planted_eps_vs_float64=planted,
-                               ms=cuda_ms(lambda: E.edgeconv_infer(x, idx, *w, n_convs=nc), 20),
+                               max_abs_err_planted_eps_vs_float64=planted, ms=ms,
+                               call_ms=cuda_ms(stage, 20),
+                               projection_ms=sum(v for k, v in parts.items() if "project" in k),
+                               edge_kernel_ms=sum(v for k, v in parts.items() if "edge" in k),
+                               by_kernel_ms=parts,
                                plain_ms=cuda_ms(lambda: E.edgeconv_infer_plain(
                                    x, idx, *w, n_convs=nc), 5),
-                               bound_ms=bound_ms(ops, nbytes)[0], bound_by=bound_ms(ops, nbytes)[1])
-        emit("edgeconv", stages=ec_rows, atol=1e-5, rtol=1e-4, ill_conditioned_below=1e-4,
-             ill_conditioned_limit="1e-5 + 2^-23 max|b| / |p|", card=card)
+                               bound_ms=bound, bound_by=by, roofline_share=bound / ms)
+        ec_ms = sum(r["ms"] for r in ec_rows.values())
+        ec_bound = sum(r["bound_ms"] for r in ec_rows.values())
+        emit("edgeconv", stages=ec_rows, ms_per_forward=ec_ms, bound_ms_per_forward=ec_bound,
+             roofline_share=ec_bound / ec_ms, ptxas=ptxas["edgeconv"], atol=1e-5, rtol=1e-4,
+             ill_conditioned_below=1e-4, ill_conditioned_limit="1e-5 + 2^-23 max|b| / |p|",
+             card=card)
 
         # 4. the main path: requests through HypHCSystem.embed
         dvs = [decode_vector_for_batch(cfg, cat) for _, cat, _ in batches]

@@ -15,6 +15,7 @@ from .vn_math import BN_EPS, EPS, channel_mix, vn_leaky_relu
 
 KERNEL_C_IN = (1, 21)
 KERNEL_C_OUT = 21
+WORKSPACE_ROW = 128  # floats per point in each of the kernel's two workspace arrays
 
 
 def graph_feature_vn(x, k, idx=None):
@@ -88,12 +89,17 @@ def _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs):
     out = torch.empty((B, N, KERNEL_C_OUT, 3), dtype=torch.float32, device=x.device)
     if B * N == 0:
         return out
+    # conv1's per-point products for C=21 (the kernel's projection): two
+    # rows of WORKSPACE_ROW floats per point, read back from L2
+    workspace = (torch.empty((2, B * N, WORKSPACE_ROW), dtype=torch.float32, device=x.device)
+                 if C == 21 else None)
     ptr = ctypes.c_void_p
-    fn = _build.function("edgeconv", "hpcs_edgeconv", [ptr] * 9 + [ctypes.c_int] * 5 + [ptr])
+    fn = _build.function("edgeconv", "hpcs_edgeconv", [ptr] * 10 + [ctypes.c_int] * 5 + [ptr])
     w2_ptrs = [t.data_ptr() for t in second] if n_convs == 2 else [None] * 3
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), idx.data_ptr(), W1.data_ptr(), Wd1.data_ptr(), ab1.data_ptr(),
-                 *w2_ptrs, out.data_ptr(), B, N, C, K, n_convs, _build.stream_of(x))
+                 *w2_ptrs, out.data_ptr(), None if workspace is None else workspace.data_ptr(),
+                 B, N, C, K, n_convs, _build.stream_of(x))
     _build.check(err, "edgeconv")
     edgeconv_infer.launches += 1
     return out

@@ -7,8 +7,8 @@ import numpy as np
 import torch
 
 from .ops.edgeconv import _vn_llr_folded, edgeconv_infer_plain, graph_feature_vn
-from .ops.knn import knn_scores
-from .ops.vn_math import channel_mix
+from .ops.knn import gather_neighbors, knn_scores
+from .ops.vn_math import EPS, NEGATIVE_SLOPE, channel_mix
 
 ATOL, RTOL = 1e-5, 1e-4
 ILL_CONDITIONED = 1e-4  # pre-BatchNorm |p| below which fp32 cannot fix the output
@@ -124,6 +124,65 @@ def check_planted_eps(fn, b, n, k, c, n_convs, variant, device, seed=0):
         f"edgeconv planted {variant} C={c}: {int(bad.sum())} outputs beyond atol {ATOL} / "
         f"rtol {RTOL} of the float64 twin, max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def split_conv1(x, idx, W1, Wd1):
+    """conv1's p and d [B, N, K, 21, 3] on every edge, in kernel B2's order.
+
+    For C = 1 each edge forms Wa (x_j - x_i) + Wb x_i itself.  Otherwise the
+    kernel's projection makes U = Wa x, Ud = Wda x, Pc = Wb x and Dc = Wdb x
+    once per point, and an edge forms p = (U_j - U_i) + Pc_i and
+    d = (Ud_j - Ud_i) + Dc_i, so the self-edge's p is Wb x_i exactly.
+    """
+    C = x.shape[2]
+    if C == 1:
+        xi = x[:, :, None]
+        diff = gather_neighbors(x, idx) - xi  # [B, N, K, 1, 3]
+        return [W[:, :1] * diff + W[:, 1:] * xi for W in (W1, Wd1)]
+    out = []
+    for W in (W1, Wd1):
+        u, centre = channel_mix(x, W[:, :C]), channel_mix(x, W[:, C:])
+        out.append((gather_neighbors(u, idx) - u[:, :, None]) + centre[:, :, None])
+    return out
+
+
+def _kernel_gate(p, d, ab):
+    """The kernel's gate: the folded BatchNorm as p (a |p| + b) / |p|, then
+    the direction-gated leaky ReLU."""
+    norm = torch.sqrt((p * p).sum(-1) + EPS * EPS) + EPS
+    p = p * ((ab[0] * norm + ab[1]) / norm)[..., None]
+    dot, dsq = (p * d).sum(-1, keepdim=True), (d * d).sum(-1, keepdim=True)
+    coeff = torch.where(dot < 0, dot / (dsq + EPS), torch.zeros_like(dot))
+    return NEGATIVE_SLOPE * p + (1 - NEGATIVE_SLOPE) * (p - coeff * d)
+
+
+def edgeconv_split_model(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2):
+    """A plain model of kernel B2's order of operations (not on any forward
+    path; `csrc/edgeconv.cu` and this function change together).
+
+    conv1 as split_conv1; the gate per edge; conv2 accumulated one conv1
+    channel at a time into all its outputs; the mean over K as a sum in edge
+    order times 1/K.  An index outside [0, N) makes its point's output NaN.
+    Same arguments and result as edgeconv_infer_plain.
+    """
+    B, N, K = idx.shape
+    bad = ((idx < 0) | (idx >= N)).any(-1)
+    idx = idx.clamp(0, N - 1)
+    p, d = split_conv1(x, idx, W1, Wd1)
+    h = _kernel_gate(p, d, ab1)
+    if n_convs == 2:
+        p2 = h.new_zeros(h.shape[:-2] + (W2.shape[0], 3))
+        d2 = torch.zeros_like(p2)
+        for o in range(h.shape[-2]):
+            p2 = p2 + W2[:, o, None] * h[..., o:o + 1, :]
+            d2 = d2 + Wd2[:, o, None] * h[..., o:o + 1, :]
+        h = _kernel_gate(p2, d2, ab2)
+    acc = torch.zeros_like(h[:, :, 0])
+    for kk in range(K):
+        acc = acc + h[:, :, kk]
+    out = acc * (1.0 / K)
+    out[bad] = float("nan")
+    return out
 
 
 def knn_queue_insertions(x, k, row_step=1):

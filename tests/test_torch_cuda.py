@@ -160,3 +160,54 @@ def test_edgeconv_kernel_ragged_point_count():
     w[2][0] += 1
     w[5][0] += 1
     check_edgeconv(E.edgeconv_infer(x, idx, *w), E.edgeconv_infer_plain(x, idx, *w), x, idx, w, 2)
+
+
+def _edgeconv_case(rng, B, N, K, C):
+    x = torch.from_numpy(rng.standard_normal((B, N, C, 3)).astype(np.float32)).cuda()
+    idx = rng.integers(0, N, (B, N, K)).astype(np.int32)
+    idx[..., 0] = np.arange(N)  # the self-edge, as a kNN graph has it
+    w = [torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).cuda()
+         for s in ((21, 2 * C), (21, 2 * C), (2, 21), (21, 21), (21, 21), (2, 21))]
+    w[2][0] += 1
+    w[5][0] += 1
+    return x, torch.from_numpy(idx).cuda(), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 7, 20, 32, 40])
+@pytest.mark.parametrize("C,n_convs", [(1, 2), (21, 2), (21, 1), (1, 1)])
+def test_edgeconv_kernel_any_k_on_ragged_blocks(C, n_convs, K):
+    """Every kernel instance at K in {4, 7, 20, 32}, and K=40 (two rounds of
+    32 and 8 edges), on B*N = 3003 points, which no block's point count
+    divides."""
+    require_cuda()
+    x, idx, w = _edgeconv_case(np.random.default_rng(100 + K), 3, 1001, K, C)
+    before = E.edgeconv_infer.launches
+    got = E.edgeconv_infer(x, idx, *w, n_convs=n_convs)
+    torch.cuda.synchronize()
+    assert E.edgeconv_infer.launches == before + 1
+    check_edgeconv(got, E.edgeconv_infer_plain(x, idx, *w, n_convs=n_convs), x, idx, w, n_convs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,n_convs", [(1, 2), (21, 2), (21, 1)])
+def test_edgeconv_kernel_out_of_cloud_index_gives_nan_for_its_point_only(C, n_convs):
+    require_cuda()
+    x, idx, w = _edgeconv_case(np.random.default_rng(7), 2, 256, 20, C)
+    idx[0, 5, 3], idx[1, 9, 19] = 256, -1
+    got = E.edgeconv_infer(x, idx, *w, n_convs=n_convs)
+    nan = torch.isnan(got).all(-1).all(-1)
+    assert nan[0, 5] and nan[1, 9] and int(nan.sum()) == 2
+    assert int(torch.isfinite(got).sum()) == got.numel() - 2 * 63
+
+
+@pytest.mark.cuda
+def test_edgeconv_launches_count_one_per_stage_call():
+    require_cuda()
+    rng = np.random.default_rng(8)
+    before = E.edgeconv_infer.launches
+    for C, n_convs in ((1, 2), (21, 2), (21, 1)):
+        x, idx, w = _edgeconv_case(rng, 2, 128, 20, C)
+        E.edgeconv_infer(x, idx, *w, n_convs=n_convs)
+    torch.cuda.synchronize()
+    assert E.edgeconv_infer.launches == before + 3
