@@ -26,7 +26,19 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    (atol 1e-4 / rtol 1e-3 when run from the kernel's stage-1 output; within
    1e-4 + 1e-3 max|output| in full, see forward_diff) and with the plain
    forward on the CPU on a small input, and times both;
-5. prints one JSON line per kernel summary, the card's name and power
+5. holds B1's wide route (knn_wide_kernel, the shapes knn_kernel refuses:
+   k = 33 and 40, N = 4097 and 8192, D = 128) against knn_plain, index for
+   index on the exact-score clouds and up to near-ties on a random one,
+   times it beside its bound, and checks that the forward's requests made
+   no wide launch;
+6. answers the same requests with HypHCSystem.test_step (so3 rotation from
+   a seeded generator, labels from the synthetic parts): counts the
+   kernels' launches, checks the card's distance matrices against the CPU
+   port's (within 1e-6), the card's linkage, prediction, best k and best
+   score against the CPU port's from the same distances (exactly), and
+   the linkage's heights and sizes against scipy's complete linkage
+   (within 1e-6); times the decode and the whole step;
+7. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -79,6 +91,20 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps):
+    """Median host-clock time of fn() in ms, each run ending in a
+    synchronize, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return sorted(times)[reps // 2] * 1e3
 
 
 def kernel_ms(fn, reps):
@@ -233,6 +259,179 @@ def profile_forward(system, batches, dvs):
                      for ms, k, c in rows[:12]])
 
 
+def knn_wide_phase(KN, rng, card):
+    """B1's wide route at the shapes knn_kernel refuses, against knn_plain.
+
+    Exact-score clouds (integer points each there twice, far apart or
+    adjacent; all-equal points; the line x_j = (j, 0, ...) where N <= 2048
+    keeps its scores exact) must match index for index; a Gaussian cloud
+    may differ at near-ties only.  Times the kernel on the Gaussian cloud.
+    """
+    shapes = [(B, 1024, 3, 33), (B, 1024, 3, 40), (4, 4097, 3, 20), (4, 4097, 63, 20),
+              (4, 8192, 3, 20), (4, 8192, 63, 20), (B, 1024, 128, 20)]
+    rows, gap = [], 0.0
+    for b, n, d, k in shapes:
+        r = 2 if d > 3 else 8
+
+        def lattice(adjacent):
+            half = rng.integers(-r, r + 1, size=(b, (n + 1) // 2, d)).astype(np.float32)
+            x = np.repeat(half, 2, axis=1) if adjacent else np.concatenate([half, half], 1)
+            return torch.from_numpy(np.ascontiguousarray(x[:, :n])).cuda()
+
+        clouds = {"ties": (lattice(False), True), "adjacent": (lattice(True), True),
+                  "equal": (torch.full((b, n, d), 0.5, device="cuda"), True),
+                  "gauss": (torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32))
+                            .cuda(), False)}
+        if n <= 2048:
+            line = torch.zeros(b, n, d, device="cuda")
+            line[:, :, 0] = torch.arange(n, device="cuda", dtype=torch.float32)
+            clouds["line"] = (line, True)
+        cases = {}
+        for name, (x, exact) in clouds.items():
+            before = (KN.knn.launches, KN.knn.wide_launches)
+            got = KN.knn(x, k)
+            torch.cuda.synchronize()
+            if (KN.knn.launches - before[0], KN.knn.wide_launches - before[1]) != (1, 1):
+                fail(f"knn_wide: {(b, n, d, k)} did not make one wide launch")
+            near, err = knn_check(x, got, KN.knn_plain(x, k), exact)
+            gap = max(gap, err)
+            cases[name] = dict(differing_near_ties=near, max_score_gap=err)
+        x = clouds["gauss"][0]
+        ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 5)
+        plain = cuda_ms(lambda: KN.knn_plain(x, k), 2)
+        bound, by = bound_ms(*knn_work(b, n, d, k))
+        rows.append(dict(B=b, N=n, D=d, k=k, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         roofline_share=bound / ms, cases=cases))
+    out = dict(shapes=rows, max_score_gap=gap, ms=sum(r["ms"] for r in rows),
+               plain_ms=sum(r["plain_ms"] for r in rows),
+               bound_ms=sum(r["bound_ms"] for r in rows), card=card)
+    out["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in rows)
+                       else "bytes")
+    emit("knn_wide", **out)
+    return out
+
+
+@torch.no_grad()
+def decode_phase(system, cfg, batches, card):
+    """HypHCSystem.test_step on the forward phase's requests, then its decode
+    held against the CPU port and scipy."""
+    from scipy.cluster.hierarchy import linkage as scipy_linkage
+    from scipy.spatial.distance import squareform
+
+    from hpcs_torch.decode import cosine_distance_matrix, get_optimal_k, linkage_from_distances_mnn
+    from hpcs_torch.geometry import project
+    from hpcs_torch.loss import normalize_to_radius
+    from hpcs_torch.models.base import decode_batch
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+
+    requests = [{"points": p, "category": c, "labels": seg} for p, c, seg in batches]
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KN.knn.launches = KN.knn.wide_launches = 0
+    E.edgeconv_infer.launches = 0
+    outs, step_s = [], []
+    for req in requests:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs, ext = system.test_step(req, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        outs.append((logs, ext))
+    launches = {"knn": KN.knn.launches, "knn_wide": KN.knn.wide_launches,
+                "edgeconv": E.edgeconv_infer.launches}
+    if launches != {"knn": 3 * REQUESTS, "knn_wide": 0, "edgeconv": 3 * REQUESTS}:
+        fail(f"decode: launch counts {launches}, expected 3 B1 and 3 B2 per request")
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    scale = system.net.scale[0]
+    decode_s = []
+    for (_, ext), req in zip(outs, requests):
+        labels = torch.as_tensor(req["labels"], device=system.device).long()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decode_batch(ext["x_poincare"], labels, scale, cfg.num_class)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t)
+    for logs, ext in outs:
+        if ext["linkage"].shape != (B, N - 1, 4) or ext["pred"].shape != (B, N):
+            fail("decode: output shapes")
+        score = float(logs["score"])
+        if not 0.0 <= score <= 1.0:
+            fail(f"decode: score {score} outside [0, 1]")
+
+    # request 0: the card's distances against the CPU port's, then the card's
+    # linkage and sweep against the CPU port's on the card's distances
+    ext, labels = outs[0][1], torch.as_tensor(requests[0]["labels"]).long()
+    x_p = ext["x_poincare"]
+    D = cosine_distance_matrix(project(normalize_to_radius(x_p, scale)))
+    D_cpu = cosine_distance_matrix(project(normalize_to_radius(x_p.cpu(), scale.cpu())))
+    d_err = float((D.cpu() - D_cpu).abs().max())
+    if d_err > 1e-6:
+        fail(f"decode: card and CPU distances differ by {d_err:.3e} > 1e-6")
+    Z, lockstep, rounds = linkage_from_distances_mnn(D, "complete", return_rounds=True)
+    # the decode's parts on request 0, each the median of 3 host-clock runs
+    leaves = project(normalize_to_radius(x_p, scale))
+    parts = {"distances": lambda: cosine_distance_matrix(leaves),
+             "linkage": lambda: linkage_from_distances_mnn(D, "complete"),
+             "sweep": lambda: get_optimal_k(labels.to(system.device), Z, cfg.num_class)}
+    parts_ms = {name: host_ms(fn, 3) for name, fn in parts.items()}
+    # the linkage's device time against its wall time, and its kernel count
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        parts["linkage"]()
+        torch.cuda.synchronize()
+        link_wall = (time.perf_counter() - t) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    link_profile = dict(wall_ms=link_wall,
+                        device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
+                        kernels=sum(e.count for e in dev))
+    # why the norms take their square root in float64: float32 sqrt on the card
+    q = torch.rand(1 << 20, generator=torch.Generator().manual_seed(SEED)) + 0.5
+    sqrt_mismatch = int((torch.sqrt(q.to(system.device)).cpu() != torch.sqrt(q)).sum())
+    Z_cpu = linkage_from_distances_mnn(D.cpu(), "complete")
+    if not torch.equal(Z.cpu(), Z_cpu):
+        bad = int((Z.cpu() != Z_cpu).any(-1).any(-1).sum())
+        fail(f"decode: the card's linkage differs from the CPU port's in {bad} objects")
+    if not torch.equal(Z, ext["linkage"]):
+        fail("decode: test_step's linkage differs from the decode of its own embeddings")
+    sweep = get_optimal_k(labels.to(system.device), Z, cfg.num_class)
+    sweep_cpu = get_optimal_k(labels, Z_cpu, cfg.num_class)
+    for name, g, c, t in zip(("pred", "best_k", "best_score"), sweep, sweep_cpu,
+                             (ext["pred"], ext["best_k"], ext["best_score"])):
+        if not (torch.equal(g.cpu(), c) and torch.equal(g, t)):
+            fail(f"decode: {name} differs between the card, the CPU port and test_step")
+    scipy_h, scipy_sizes = 0.0, True
+    for b in range(B):
+        D64 = D_cpu[b].double().numpy()
+        np.fill_diagonal(D64, 0.0)
+        Zs = scipy_linkage(squareform(D64, checks=False), method="complete")
+        scipy_h = max(scipy_h, float(np.abs(np.sort(Z_cpu[b, :, 2].double().numpy())
+                                            - np.sort(Zs[:, 2])).max()))
+        scipy_sizes &= bool(np.array_equal(np.sort(Z_cpu[b, :, 3].numpy()), np.sort(Zs[:, 3])))
+    if scipy_h > 1e-6 or not scipy_sizes:
+        fail(f"decode: heights differ from scipy's by {scipy_h:.3e} or sizes differ")
+
+    dec = sorted(decode_s[WARMUP:])[len(decode_s[WARMUP:]) // 2]
+    step = sorted(step_s[WARMUP:])[len(step_s[WARMUP:]) // 2]
+    out = dict(B=B, N=N, requests=REQUESTS, test_rotation=cfg.test_rotation, launches=launches,
+               decode_ms_median=dec * 1e3, decode_ms_all=[t * 1e3 for t in decode_s],
+               objects_per_s=B / dec, test_step_ms_median=step * 1e3,
+               test_step_ms_all=[t * 1e3 for t in step_s],
+               decode_parts_ms=parts_ms, linkage_profile=link_profile,
+               float32_sqrt_values_differing_from_cpu_of_2_20=sqrt_mismatch,
+               mnn_rounds_lockstep=lockstep, mnn_rounds_per_object=rounds.tolist(),
+               scores=[float(logs["score"]) for logs, _ in outs],
+               best_k=ext["best_k"].tolist(), max_abs_err_d_vs_cpu=d_err,
+               max_height_err_vs_scipy=scipy_h, peak_memory_mb=peak_mb, card=card)
+    emit("decode", **out)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every phase's results to this file")
@@ -379,8 +578,9 @@ def main():
              card=card)
 
         # 4. the main path: requests through HypHCSystem.embed
-        dvs = [decode_vector_for_batch(cfg, cat) for _, cat, _ in batches]
-        KN.knn.launches = 0
+        dvs = [decode_vector_for_batch(cfg, {"points": p, "category": cat})
+               for p, cat, _ in batches]
+        KN.knn.launches = KN.knn.wide_launches = 0
         E.edgeconv_infer.launches = 0
         outputs, times = [], []
         for (p, _, _), dv in zip(batches, dvs):
@@ -390,9 +590,11 @@ def main():
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             outputs.append(out)
-        launches = {"knn": KN.knn.launches, "edgeconv": E.edgeconv_infer.launches}
-        if launches != {"knn": 3 * REQUESTS, "edgeconv": 3 * REQUESTS}:
-            fail(f"launch counts {launches}, expected 3 of each per forward x {REQUESTS}")
+        launches = {"knn": KN.knn.launches, "knn_wide": KN.knn.wide_launches,
+                    "edgeconv": E.edgeconv_infer.launches}
+        if launches != {"knn": 3 * REQUESTS, "knn_wide": 0, "edgeconv": 3 * REQUESTS}:
+            fail(f"launch counts {launches}, expected 3 B1 and 3 B2 per forward x {REQUESTS} "
+                 f"and no wide kNN launch")
         for x_e, x_p in outputs:
             if x_e.shape != (B, N, EUCL) or x_p.shape != (B, N, HYP):
                 fail(f"output shapes {tuple(x_e.shape)}, {tuple(x_p.shape)}")
@@ -454,7 +656,11 @@ def main():
          peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20, card=card)
     emit("profile", **profile, card=card)
 
-    # 5. summary lines
+    with torch.no_grad():
+        wide = knn_wide_phase(KN, rng, card)
+    decode = decode_phase(system, cfg, batches, card)
+
+    # 7. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
     knn_plain_total = plain_ms["d3"] + 2 * plain_ms["d63"]
     knn_ops = w3[0] + 2 * w63[0]
@@ -465,13 +671,19 @@ def main():
         ec_ops, ec_bytes = ec_ops + o, ec_bytes + b_
     kernels = [
         dict(name="knn", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
-             replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49", launches=launches["knn"],
+             replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
+             launches=launches["knn"] + decode["launches"]["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
+        dict(name="knn_wide", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
+             replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
+             launches=launches["knn_wide"] + decode["launches"]["knn_wide"],
+             max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
+             bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
-             launches=launches["edgeconv"], max_abs_err=ec_err,
+             launches=launches["edgeconv"] + decode["launches"]["edgeconv"], max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),
              bound_ms=bound_ms(ec_ops, ec_bytes)[0], bound_by=bound_ms(ec_ops, ec_bytes)[1],

@@ -3,7 +3,11 @@
 Each forward clamps its input and each backward differentiates at the
 clamped point, so embeddings pinned at the Poincare-ball boundary keep a
 gradient (plain autograd through a clamp would give zero there).
+The decode's norms (`l2_normalize`) round their sums of squares and their
+square roots exactly, so the card and the CPU give the same bits.
 """
+import math
+
 import torch
 
 ARTANH_EPS = 1e-5
@@ -64,3 +68,66 @@ def arsinh(x):
 def tanh(x):
     """tanh with a +-15 input clamp."""
     return torch.tanh(torch.clamp(x, -TANH_CLAMP, TANH_CLAMP))
+
+
+class _FMA(torch.autograd.Function):
+    """float32 a * b + c, rounded once; the gradient is that of a * b + c."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.c_shape = c.shape
+        p = a.double() * b.double()  # exact
+        c = c.double()
+        s = c + p
+        bb = s - c
+        err = (c - (s - bb)) + (p - bb)  # TwoSum: s + err == c + p exactly
+        even = (s.view(torch.int64) & 1) == 0
+        s = torch.where((err != 0) & even, torch.nextafter(s, err * math.inf), s)
+        return s.float()  # rounded to odd in float64, then to nearest in float32
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        return ((grad * b).sum_to_size(a.shape), (grad * a).sum_to_size(b.shape),
+                grad.sum_to_size(ctx.c_shape))
+
+
+def fma(a, b, c):
+    """a * b + c rounded once, as a fused multiply-add does (broadcasting).
+
+    For float32 the sum is made exactly in float64 (a * b is exact there,
+    TwoSum gives the rest), rounded to odd and then to float32, which is
+    the one correctly rounded fp32 result.  Other types round twice.
+    """
+    if torch.result_type(a, c) != torch.float32:
+        return a * b + c
+    return _FMA.apply(a, b, c)
+
+
+def sum_of_squares(x, keepdim=False):
+    """Sum of x^2 over the last axis as fp32 FMAs in dimension order.
+
+    It is how XLA's fused CPU code sums a row of 32 (hpcs_tpu's norms and
+    distances at the flagship's ball width), so there the port's distance
+    matrices equal the JAX package's bit for bit.
+    """
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for f in range(x.shape[-1]):
+        acc = fma(x[..., f], x[..., f], acc)
+    return acc[..., None] if keepdim else acc
+
+
+def sqrt_rn(x):
+    """The correctly rounded square root.  For float32 it is taken in
+    float64: PyTorch's float32 sqrt on the card is not correctly rounded
+    (it differs from the CPU's in ~0.7 % of values)."""
+    if x.dtype != torch.float32:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
+def l2_normalize(x, eps=1e-12):
+    """x / max(|x|, eps) over the last axis, |x| from `sum_of_squares` and
+    `sqrt_rn`."""
+    return x / torch.clamp(sqrt_rn(sum_of_squares(x, keepdim=True)), min=eps)

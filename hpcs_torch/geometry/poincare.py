@@ -5,7 +5,7 @@ over the leading axes.  Denominators are floored at MIN_NORM.
 """
 import torch
 
-from .math_ops import artanh, tanh
+from .math_ops import artanh, sqrt_rn, sum_of_squares, tanh
 
 MIN_NORM = 1e-15
 BALL_EPS_F32 = 4e-3
@@ -33,9 +33,10 @@ def logmap0(x):
 
 
 def project(x, eps=None):
-    """Clamp points to the open ball of radius 1 - eps."""
+    """Clamp points to the open ball of radius 1 - eps (the decode's leaves;
+    the norm from `sum_of_squares` and `sqrt_rn`)."""
     if eps is None:
         eps = BALL_EPS_F64 if x.dtype == torch.float64 else BALL_EPS_F32
-    norm = _norm(x)
+    norm = sqrt_rn(torch.clamp(sum_of_squares(x, keepdim=True), min=MIN_NORM * MIN_NORM))
     maxnorm = 1.0 - eps
     return torch.where(norm > maxnorm, x / norm * maxnorm, x)

@@ -166,6 +166,97 @@ cudaError_t launch(const float* x, int* idx, int b, int n, int d, int k, cudaStr
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The wide route: the shapes knn_kernel refuses (k > 32, D > 64 or N > 4096).
+//
+// The same function as knn_kernel, with the TPU kernel's own selection kept
+// simple: one block of 256 threads per (cloud, row).  The block stages the
+// row in shared memory, scores all N columns into dynamic shared memory
+// (column j read from global memory, i.e. from L2, by thread j mod 256, the
+// score accumulated with fp32 FMAs in dimension order exactly as
+// knn_kernel does), then runs k passes of a block-wide first-argmax: each
+// pass takes the largest score, the smallest index among equal ones, and
+// marks the chosen column NaN so it never ranks again.  NaN scores never
+// rank; a slot no score reached reports -1.  Any D and any k <= N; N + D
+// floats must fit in WIDE_SMEM_BYTES.
+//
+// What bounds it: nothing here is tuned.  The scores cost 2 B N^2 D FMAs as
+// in knn_kernel, but every block re-reads the whole cloud (B N^2 D floats
+// from L2 in all), and the selection reads the row's scores k times.
+
+constexpr int WIDE_SMEM_BYTES = 192 * 1024;
+
+__host__ inline size_t wide_smem_bytes(int n, int d) {
+  return sizeof(float) * ((size_t)n + d) + (sizeof(float) + sizeof(int)) * WARPS;
+}
+
+__global__ void __launch_bounds__(THREADS)
+knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d, int k) {
+  extern __shared__ float4 smem4[];
+  float* scores = reinterpret_cast<float*>(smem4);  // [n]
+  float* xi = scores + n;                           // [d]
+  float* red_s = xi + d;                            // [WARPS]
+  int* red_i = reinterpret_cast<int*>(red_s + WARPS);  // [WARPS]
+
+  const int row = blockIdx.x;
+  const int b = blockIdx.y;
+  const float* xb = x + (size_t)b * n * d;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  for (int dd = tid; dd < d; dd += THREADS) xi[dd] = xb[(size_t)row * d + dd];
+  __syncthreads();
+  for (int j = tid; j < n; j += THREADS) {
+    const float* xj = xb + (size_t)j * d;
+    float acc = 0.f, sq = 0.f;
+    for (int dd = 0; dd < d; ++dd) {
+      const float v = xj[dd];
+      acc = fmaf(xi[dd], v, acc);
+      sq = fmaf(v, v, sq);
+    }
+    scores[j] = 2.f * acc - sq;
+  }
+  __syncthreads();
+
+  int* out = idx + ((size_t)b * n + row) * k;
+  for (int q = 0; q < k; ++q) {
+    float bs = -INFINITY;
+    int bi = INT_MAX;
+    for (int j = tid; j < n; j += THREADS) {
+      const float v = scores[j];
+      if (v > bs || (v == bs && j < bi)) {  // false for NaN
+        bs = v;
+        bi = j;
+      }
+    }
+    for (int off = 16; off > 0; off /= 2) {
+      const float os = __shfl_down_sync(0xffffffffu, bs, off);
+      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+      if (os > bs || (os == bs && oi < bi)) {
+        bs = os;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      red_s[warp] = bs;
+      red_i[warp] = bi;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < WARPS; ++w) {
+        if (red_s[w] > bs || (red_s[w] == bs && red_i[w] < bi)) {
+          bs = red_s[w];
+          bi = red_i[w];
+        }
+      }
+      out[q] = bi < n ? bi : -1;
+      if (bi < n) scores[bi] = NAN;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // x [b, n, d] fp32 and idx [b, n, k] int32, both contiguous on the device.
@@ -179,4 +270,21 @@ extern "C" int hpcs_knn(const float* x, int* idx, int b, int n, int d, int k, vo
   if (smem_bytes(32, n, d) <= 113 * 1024) return (int)launch<32>(x, idx, b, n, d, k, s);
   if (smem_bytes(16, n, d) <= 113 * 1024) return (int)launch<16>(x, idx, b, n, d, k, s);
   return (int)launch<8>(x, idx, b, n, d, k, s);
+}
+
+// The wide route: x [b, n, d] fp32 and idx [b, n, k] int32, both contiguous
+// on the device; any d, any k <= n, n + d floats within WIDE_SMEM_BYTES.
+// Returns the cudaError_t of the launch.
+extern "C" int hpcs_knn_wide(const float* x, int* idx, int b, int n, int d, int k,
+                             void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || d < 1 || k < 1 || k > n ||
+      wide_smem_bytes(n, d) > (size_t)WIDE_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wide_smem_bytes(n, d);
+  cudaError_t err = cudaFuncSetAttribute(knn_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  knn_wide_kernel<<<dim3(n, b), THREADS, smem, s>>>(x, idx, n, d, k);
+  return (int)cudaGetLastError();
 }

@@ -14,6 +14,9 @@ import torch
 
 from _torch_port import adjacent_dup_cloud, lattice_cloud, line_cloud, require_cuda, tie_cloud
 from hpcs_torch.data import SyntheticPartDataset
+from hpcs_torch.decode import cosine_distance_matrix, linkage_from_distances_mnn
+from hpcs_torch.geometry import project
+from hpcs_torch.loss import normalize_to_radius
 from hpcs_torch.models import HypHCSystem, ModelConfig, decode_vector_for_batch
 from hpcs_torch.ops import edgeconv as E
 from hpcs_torch.ops import knn as K
@@ -29,6 +32,15 @@ def test_knn_kernel_rejects_shapes_it_does_not_take():
         K._knn_cuda(torch.zeros(1, 16, 3, dtype=torch.float64), 4)
     with pytest.raises(ValueError, match="contiguous"):
         K._knn_cuda(torch.zeros(1, 3, 16).transpose(1, 2), 4)
+
+
+def test_wide_knn_kernel_rejects_shapes_it_does_not_take():
+    with pytest.raises(ValueError, match="N \\+ D <= 49136"):
+        K._knn_wide_cuda(torch.zeros(1, 49100, 40), 4)
+    with pytest.raises(ValueError, match="k <= N"):
+        K._knn_wide_cuda(torch.zeros(1, 30, 3), 31)
+    with pytest.raises(ValueError, match="float32"):
+        K._knn_wide_cuda(torch.zeros(1, 16, 3, dtype=torch.float64), 4)
 
 
 def test_edgeconv_kernel_rejects_shapes_it_does_not_take():
@@ -115,7 +127,7 @@ def test_embed_on_gpu_goes_through_both_kernels():
     tsys = HypHCSystem(cfg)
     pts, cat, _ = SyntheticPartDataset(2, 256, 4).batch(0, 2)
     k0, e0 = K.knn.launches, E.edgeconv_infer.launches
-    got_e, got_p = tsys.embed(pts, decode_vector_for_batch(cfg, cat))
+    got_e, got_p = tsys.embed(pts, decode_vector_for_batch(cfg, {"points": pts, "category": cat}))
     assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 3)
     assert torch.isfinite(got_e).all() and (got_p.norm(dim=-1) < 1).all()
 
@@ -211,3 +223,94 @@ def test_edgeconv_launches_count_one_per_stage_call():
         E.edgeconv_infer(x, idx, *w, n_convs=n_convs)
     torch.cuda.synchronize()
     assert E.edgeconv_infer.launches == before + 3
+
+
+def _exact_cloud(kind, B, N, D):
+    """Clouds whose scores are exact in fp32 (integer coordinates, small
+    enough): index-for-index equality with knn_plain holds."""
+    rng = np.random.default_rng(N + D)
+    if kind == "ties":
+        half = rng.integers(-4, 5, size=(B, (N + 1) // 2, D)).astype(np.float32)
+        x = np.concatenate([half, half], 1)[:, :N]
+    elif kind == "adjacent":
+        x = adjacent_dup_cloud(rng, B, N, D)
+    elif kind == "line":
+        x = line_cloud(B, N, D)
+    else:
+        x = np.full((B, N, D), 0.5, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+
+_WIDE_SHAPES = [(1024, 3, 33), (1024, 3, 40), (4097, 3, 20), (4097, 63, 20), (1024, 128, 20),
+                (37, 5, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,D,k", [(kind, *shape) for kind in ("ties", "adjacent", "line",
+                                                                     "equal")
+                                        for shape in _WIDE_SHAPES
+                                        if kind != "line" or shape[0] <= 2048])
+def test_wide_knn_kernel_matches_plain(kind, N, D, k):
+    """The shapes kernel B1 refuses go to the wide kernel: exact on clouds
+    whose scores are exact (the line only up to N = 2048 keeps them so)."""
+    require_cuda()
+    x = _exact_cloud(kind, 2, N, D)
+    before, wide = K.knn.launches, K.knn.wide_launches
+    got = K.knn(x, k)
+    torch.cuda.synchronize()
+    assert (K.knn.launches - before, K.knn.wide_launches - wide) == (1, 1)
+    torch.testing.assert_close(got, K.knn_plain(x, k), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_wide_knn_kernel_near_ties_only_on_random_clouds():
+    require_cuda()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 4200, 3))
+                         .astype(np.float32)).cuda()
+    got, want = K._knn_wide_cuda(x, 20), K.knn_plain(x, 20)
+    assert (got == want).float().mean() > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,k,wide", [(1024, 3, 20, False), (4096, 64, 32, False),
+                                        (1024, 3, 33, True), (4097, 3, 20, True),
+                                        (256, 65, 8, True)])
+def test_knn_routes_by_shape(N, D, k, wide):
+    require_cuda()
+    x = torch.randn(1, N, D, device="cuda")
+    before, wide_before = K.knn.launches, K.knn.wide_launches
+    assert K.knn(x, k).shape == (1, N, k)
+    assert (K.knn.launches - before, K.knn.wide_launches - wide_before) == (1, int(wide))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["complete", "single", "average"])
+@pytest.mark.parametrize("kind", ["untied", "tied"])
+def test_mnn_linkage_on_gpu_equals_cpu(method, kind):
+    """The same D on the card and on the CPU gives the same Z, bit for bit."""
+    require_cuda()
+    rng = np.random.default_rng(2)
+    if kind == "tied":
+        x = np.repeat(rng.standard_normal((3, 12, 5)), 25, axis=1)  # 300 points, 12 groups
+    else:
+        x = rng.standard_normal((3, 300, 8))
+    D = torch.cdist(torch.from_numpy(x), torch.from_numpy(x)).float()
+    got = linkage_from_distances_mnn(D.cuda(), method)
+    torch.testing.assert_close(got.cpu(), linkage_from_distances_mnn(D, method), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cosine_distances_on_gpu_equal_cpu():
+    """Near-parallel embeddings, as an untrained model gives: the card's
+    leaves and distances are the CPU port's, bit for bit."""
+    require_cuda()
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, 1, 32)) + 0.05 * rng.standard_normal((2, 300, 32)))
+    x = torch.from_numpy(x.astype(np.float32))
+    scale = torch.tensor(1e-3)
+
+    def distances(t, s):
+        return cosine_distance_matrix(project(normalize_to_radius(t, s)))
+
+    torch.testing.assert_close(distances(x.cuda(), scale.cuda()).cpu(), distances(x, scale),
+                               rtol=0, atol=0)

@@ -47,7 +47,7 @@ def _pair(eucl, hyp, N, k, B=2, C=4, seed=0):
 @pytest.mark.parametrize("eucl,hyp", [(8, 8), (8, 4)])
 def test_embed_matches_flax_graph_and_fast_forward(eucl, hyp):
     jsys, variables, tsys, pts, cat = _pair(eucl, hyp, N=96, k=8)
-    dv = decode_vector_for_batch(tsys.cfg, cat)
+    dv = decode_vector_for_batch(tsys.cfg, {"points": pts, "category": cat})
     got_e, got_p = tsys.embed(pts, dv)
     assert got_e.shape == (2, 96, eucl) and got_p.shape == (2, 96, hyp)
 
@@ -65,7 +65,7 @@ def test_embed_matches_flax_graph_and_fast_forward(eucl, hyp):
 @pytest.mark.slow
 def test_embed_matches_flax_graph_at_flagship_width():
     jsys, variables, tsys, pts, cat = _pair(32, 32, N=1024, k=20, C=16)
-    dv = decode_vector_for_batch(tsys.cfg, cat)
+    dv = decode_vector_for_batch(tsys.cfg, {"points": pts, "category": cat})
     got_e, got_p = tsys.embed(pts, dv)
     apply = jax.jit(lambda v, p, d: jsys.net.apply(v, p, d, train=False))
     want_e, want_p = apply(variables, jnp.asarray(pts), jnp.asarray(dv.numpy()))
@@ -75,7 +75,7 @@ def test_embed_matches_flax_graph_at_flagship_width():
 
 def test_idx_override_feeds_the_graphs():
     _, _, tsys, pts, cat = _pair(8, 8, N=64, k=8)
-    dv = decode_vector_for_batch(tsys.cfg, cat)
+    dv = decode_vector_for_batch(tsys.cfg, {"points": pts, "category": cat})
     x = torch.from_numpy(pts)
     idx1 = K.knn(x, 8)
     want = tsys.embed(pts, dv)
@@ -122,12 +122,16 @@ def test_port_runs_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['hpcs_tpu'] = None\n"
         "import numpy as np, hpcs_torch.models as m, hpcs_torch.ops.edgeconv, "
-        "hpcs_torch.utils.jax_params, hpcs_torch.data\n"
+        "hpcs_torch.utils.jax_params, hpcs_torch.data, hpcs_torch.decode, "
+        "hpcs_torch.trainer, hpcs_torch.utils.rotations\n"
         "cfg = m.ModelConfig(num_class=6, num_categories=2, eucl_dim=4, hyp_dim=3, k=4)\n"
         "s = m.HypHCSystem(cfg, device='cpu')\n"
-        "e, p = s.embed(np.random.default_rng(0).standard_normal((1, 32, 3)),\n"
-        "               m.decode_vector_for_batch(cfg, [1]))\n"
+        "x = np.random.default_rng(0).standard_normal((1, 32, 3)).astype(np.float32)\n"
+        "e, p = s.embed(x, m.decode_vector_for_batch(cfg, {'points': x, 'category': [1]}))\n"
         "assert p.shape == (1, 32, 3) and bool((p.norm(dim=-1) < 1).all())\n"
+        "batch = {'points': x, 'category': [1], 'labels': np.arange(32)[None] % 6}\n"
+        "logs = hpcs_torch.trainer.test(s, [batch])\n"
+        "assert 0 <= logs['score'] <= 1\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'hpcs_tpu', 'flax'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
