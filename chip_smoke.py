@@ -38,7 +38,16 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    score against the CPU port's from the same distances (exactly), and
    the linkage's heights and sizes against scipy's complete linkage
    (within 1e-6); times the decode and the whole step;
-7. prints one JSON line per kernel summary, the card's name and power
+7. trains (phase train): one HypHCSystem.train_step at B=2, N=256 on the
+   card against the CPU port from the same weights, triplets and kNN graphs
+   (hpcs_torch.testing.check_train_step_card_vs_cpu); then the flagship
+   training step (B=8, N=1024, k=20, eucl = hyp = 32, 50 classes, t_per_anchor
+   50, temperature 0.05, lr 0.005, dropout 0.5, so3 rotations; synthetic
+   clouds of 6 parts, seed 5): 2 warm-up and 8 timed steps, B1 launched 3
+   times a step and B2 never, every loss and parameter finite; a profile of
+   2 steps; and trainer.fit for 1 epoch of 2 training batches and 1
+   validation batch, whose validation launches B2 3 times;
+8. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -120,7 +129,8 @@ def kernel_ms(fn, reps):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)):
             out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
     return out
 
@@ -232,30 +242,33 @@ def forward_diff(got, want, scale_tol=False):
     return err, bad
 
 
-def profile_forward(system, batches, dvs):
-    """Device time by kernel over a few requests (torch.profiler, CUPTI):
-    the busy share of the wall time and the top kernels by self time."""
+def profile_calls(fn, calls):
+    """Device time by kernel over `calls` calls of fn(i) (torch.profiler,
+    CUPTI): the busy share of the wall time and the top kernels by self
+    time, per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for (p, _, _), dv in zip(batches, dvs):
-            system.embed(p, dv)
+        for i in range(calls):
+            fn(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = []  # device-side events only: the ops that launch them would count twice
+    rows = []  # device-side kernels only: the ops that launch them, and the ranges
+    # of user annotations (Optimizer.step) on the device, would count twice
     for e in prof.key_averages():
         ms = e.self_device_time_total / 1e3
-        if e.device_type == torch.autograd.DeviceType.CUDA and ms > 0:
+        if (e.device_type == torch.autograd.DeviceType.CUDA and ms > 0
+                and not getattr(e, "is_user_annotation", False)):
             rows.append((ms, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    per = len(batches)
-    return dict(requests=per, wall_ms_per_request=wall_ms / per,
-                device_ms_per_request=device_ms / per,
+    return dict(calls=calls, wall_ms_per_call=wall_ms / calls,
+                device_ms_per_call=device_ms / calls,
                 device_busy_share=device_ms / wall_ms if wall_ms else None,
-                top=[dict(name=k[:90], ms_per_request=ms / per, calls_per_request=c / per)
+                kernels_per_call=sum(r[2] for r in rows) / calls,
+                top=[dict(name=k[:90], ms_per_call=ms / calls, calls_per_call=c / calls)
                      for ms, k, c in rows[:12]])
 
 
@@ -326,7 +339,7 @@ def decode_phase(system, cfg, batches, card):
     from hpcs_torch.ops import knn as KN
 
     requests = [{"points": p, "category": c, "labels": seg} for p, c, seg in batches]
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KN.knn.launches = KN.knn.wide_launches = 0
@@ -360,19 +373,24 @@ def decode_phase(system, cfg, batches, card):
         score = float(logs["score"])
         if not 0.0 <= score <= 1.0:
             fail(f"decode: score {score} outside [0, 1]")
+        if not all(bool(torch.isfinite(v)) for v in logs.values()):
+            fail(f"decode: non-finite test_step logs {logs}")
 
     # request 0: the card's distances against the CPU port's, then the card's
     # linkage and sweep against the CPU port's on the card's distances
     ext, labels = outs[0][1], torch.as_tensor(requests[0]["labels"]).long()
     x_p = ext["x_poincare"]
-    D = cosine_distance_matrix(project(normalize_to_radius(x_p, scale)))
-    D_cpu = cosine_distance_matrix(project(normalize_to_radius(x_p.cpu(), scale.cpu())))
+    def leaves_of(x, s):
+        return project(normalize_to_radius(x, s, exact=True), exact=True)
+
+    D = cosine_distance_matrix(leaves_of(x_p, scale))
+    D_cpu = cosine_distance_matrix(leaves_of(x_p.cpu(), scale.cpu()))
     d_err = float((D.cpu() - D_cpu).abs().max())
     if d_err > 1e-6:
         fail(f"decode: card and CPU distances differ by {d_err:.3e} > 1e-6")
     Z, lockstep, rounds = linkage_from_distances_mnn(D, "complete", return_rounds=True)
     # the decode's parts on request 0, each the median of 3 host-clock runs
-    leaves = project(normalize_to_radius(x_p, scale))
+    leaves = leaves_of(x_p, scale)
     parts = {"distances": lambda: cosine_distance_matrix(leaves),
              "linkage": lambda: linkage_from_distances_mnn(D, "complete"),
              "sweep": lambda: get_optimal_k(labels.to(system.device), Z, cfg.num_class)}
@@ -426,9 +444,130 @@ def decode_phase(system, cfg, batches, card):
                float32_sqrt_values_differing_from_cpu_of_2_20=sqrt_mismatch,
                mnn_rounds_lockstep=lockstep, mnn_rounds_per_object=rounds.tolist(),
                scores=[float(logs["score"]) for logs, _ in outs],
+               test_losses=[float(logs["test_loss"]) for logs, _ in outs],
                best_k=ext["best_k"].tolist(), max_abs_err_d_vs_cpu=d_err,
                max_height_err_vs_scipy=scipy_h, peak_memory_mb=peak_mb, card=card)
     emit("decode", **out)
+    return out
+
+
+TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 8, 2, 8
+
+
+def train_phase(card):
+    """The training path on the card: a small step against the CPU port, the
+    flagship step timed, a profile of two steps, and trainer.fit."""
+    from hpcs_torch import trainer
+    from hpcs_torch.data import SyntheticPartDataset
+    from hpcs_torch.models import HypHCSystem, ModelConfig
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.testing import check_train_step_card_vs_cpu
+
+    def batch_of(data, start, size):
+        p, c, seg = data.batch(start, size)
+        return {"points": p, "category": c, "labels": seg}
+
+    def counts():
+        return {"knn": KN.knn.launches, "knn_wide": KN.knn.wide_launches,
+                "edgeconv": E.edgeconv_infer.launches}
+
+    def zero_counts():
+        KN.knn.launches = KN.knn.wide_launches = 0
+        E.edgeconv_infer.launches = 0
+
+    widths = dict(num_class=50, num_categories=CATEGORIES, eucl_dim=EUCL, hyp_dim=HYP, k=K)
+    # 1. one step on the card against the CPU port, B=2, N=256 (8 categories
+    # of 6 parts: labels < 48 < 50 classes)
+    small = HypHCSystem(ModelConfig(**widths, dropout=0.0, train_rotation="none",
+                                    t_per_anchor=50, temperature=0.05),
+                        generator=torch.Generator().manual_seed(SEED))
+    t = time.perf_counter()
+    vs_cpu = check_train_step_card_vs_cpu(
+        small, batch_of(SyntheticPartDataset(2, 256, 8, parts_per_object=6, seed=5), 0, 2))
+    vs_cpu["seconds"] = time.perf_counter() - t
+
+    # 2. the flagship step, as bench.py's train_step_ms_b8_n1024 configures it
+    cfg = ModelConfig(**widths, t_per_anchor=50, temperature=0.05, lr=0.005)
+    system = HypHCSystem(cfg, generator=torch.Generator().manual_seed(SEED))
+    batch = batch_of(SyntheticPartDataset(TRAIN_B, N, CATEGORIES, parts_per_object=6, seed=5),
+                     0, TRAIN_B)
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_s, logs_trace = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = system.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        logs_trace.append({k: float(v) for k, v in logs.items()})
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    launches = counts()
+    if launches != {"knn": 3 * steps, "knn_wide": 0, "edgeconv": 0}:
+        fail(f"train: launch counts {launches} over {steps} steps, expected 3 B1 launches a "
+             f"step and no B2 or wide kNN launch")
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(np.isfinite(v) for logs in logs_trace for v in logs.values()):
+        fail("train: non-finite losses")
+    if not all(bool(torch.isfinite(p).all()) for p in system.net.parameters()):
+        fail("train: non-finite parameters")
+    timed = sorted(step_s[TRAIN_WARMUP:])
+
+    # 3. a profile of two steps, and of their parts: the gradients, the
+    # optimizer, and the three plain EdgeConv stages forward and backward
+    profile = profile_calls(lambda i: system.train_step(batch, gen), 2)
+    net = system.net.nn_feat
+    pts = torch.as_tensor(batch["points"], device=system.device)
+    with torch.no_grad():
+        graphs = [KN.knn(pts.contiguous(), K)]
+        x1 = net._edge_stage(pts[:, :, None, :], graphs[0], net.conv1, net.conv2)
+        graphs.append(KN.knn(x1.reshape(TRAIN_B, N, -1).contiguous(), K))
+        x2 = net._edge_stage(x1, graphs[1], net.conv3, net.conv4)
+        graphs.append(KN.knn(x2.reshape(TRAIN_B, N, -1).contiguous(), K))
+
+    def edge_stages(_):
+        x = pts[:, :, None, :]
+        y1 = net._edge_stage(x, graphs[0], net.conv1, net.conv2)
+        y2 = net._edge_stage(y1, graphs[1], net.conv3, net.conv4)
+        y3 = net._edge_stage(y2, graphs[2], net.conv5)
+        (y1.sum() + y2.sum() + y3.sum()).backward()
+
+    parts = {"grads_and_logs": profile_calls(lambda i: system.grads_and_logs(batch, gen), 2),
+             "optimizer_step": profile_calls(lambda i: system.apply_gradients(), 2),
+             "edge_stages_forward_backward": profile_calls(edge_stages, 2)}
+    system.optimizer.zero_grad(set_to_none=True)
+
+    # 4. trainer.fit, 1 epoch: 2 training batches, 1 validation batch (8
+    # categories: labels < 50)
+    data = SyntheticPartDataset(3 * TRAIN_B, N, 8, parts_per_object=6, seed=5)
+    train_batches = [batch_of(data, 0, TRAIN_B), batch_of(data, TRAIN_B, TRAIN_B)]
+    zero_counts()
+    t = time.perf_counter()
+    state, best = trainer.fit(system, train_batches, [batch_of(data, 2 * TRAIN_B, TRAIN_B)],
+                              epochs=1, seed=SEED, log=lambda line: None)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    fit_launches = counts()
+    if fit_launches != {"knn": 3 * 3, "knn_wide": 0, "edgeconv": 3}:
+        fail(f"train: fit's launch counts {fit_launches}, expected 3 B1 a batch and 3 B2 for "
+             f"the validation batch")
+    if not np.isfinite(best) or state["step"] != system.step:
+        fail(f"train: fit returned val_loss {best}, step {state['step']}")
+    out = dict(vs_cpu_b2_n256=vs_cpu, B=TRAIN_B, N=N, k=K, eucl=EUCL, hyp=HYP,
+               t_per_anchor=50, triplets_per_step=50 * TRAIN_B * N, steps=steps,
+               launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
+               train_step_ms_median=timed[len(timed) // 2] * 1e3,
+               train_step_ms_all=[t * 1e3 for t in step_s], peak_memory_mb=peak_mb,
+               loss_trace=[lg["total_loss"] for lg in logs_trace],
+               scale_trace=[lg["scale"] for lg in logs_trace],
+               optimizer_params=sum(len(g["params"]) for g in system.optimizer.param_groups),
+               profile_2_steps=profile, profile_parts=parts, fit_seconds=fit_s,
+               fit_launches=fit_launches,
+               fit_val_loss=best, card=card)
+    emit("train", **out)
     return out
 
 
@@ -644,7 +783,7 @@ def main():
         cpu_small = cpu.embed(ps.cpu(), dvs_small, idx_override=(g1.cpu(), g2.cpu(), g3.cpu()))
         cpu_err, cpu_bad = forward_diff([t.cpu() for t in gpu_small], cpu_small, scale_tol=True)
 
-    profile = profile_forward(system, batches[:2], dvs[:2])
+    profile = profile_calls(lambda i: system.embed(batches[i][0], dvs[i]), 2)
     timed = sorted(times[WARMUP:])
     fwd_s = timed[len(timed) // 2]
     emit("forward", B=B, N=N, k=K, eucl=EUCL, hyp=HYP, requests=REQUESTS, launches=launches,
@@ -659,6 +798,7 @@ def main():
     with torch.no_grad():
         wide = knn_wide_phase(KN, rng, card)
     decode = decode_phase(system, cfg, batches, card)
+    train = train_phase(card)
 
     # 7. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
@@ -672,18 +812,22 @@ def main():
     kernels = [
         dict(name="knn", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
-             launches=launches["knn"] + decode["launches"]["knn"],
+             launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
+             + train["fit_launches"]["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
         dict(name="knn_wide", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
-             launches=launches["knn_wide"] + decode["launches"]["knn_wide"],
+             launches=launches["knn_wide"] + decode["launches"]["knn_wide"]
+             + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"],
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
-             launches=launches["edgeconv"] + decode["launches"]["edgeconv"], max_abs_err=ec_err,
+             launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
+             + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"],
+             max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),
              bound_ms=bound_ms(ec_ops, ec_bytes)[0], bound_by=bound_ms(ec_ops, ec_bytes)[1],

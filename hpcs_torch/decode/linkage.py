@@ -35,7 +35,7 @@ def cosine_distance_matrix(x):
     """
     lead, (N, F) = x.shape[:-2], x.shape[-2:]
     x = x.reshape(-1, N, F)
-    xn = l2_normalize(x)
+    xn = l2_normalize(x, exact=True)
     D = torch.empty((x.shape[0], N, N), dtype=x.dtype, device=x.device)
     rows = max(1, _CHUNK_PAIRS // max(x.shape[0] * N, 1))
     for r0 in range(0, N, rows):

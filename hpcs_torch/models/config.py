@@ -1,19 +1,46 @@
-"""Static configuration of the model the eval forward and test_step build.
+"""Static configuration of the model, its losses and its training.
 
-The fields these paths read, with the defaults of the JAX package's
-ModelConfig.
+The fields the eval forward, test_step and the training path read, with
+the defaults of the JAX package's ModelConfig.
 """
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
+    # data / task
     dataset: str = "shapenet"  # 'shapenet' | 'partnet'
     num_class: int = 50
     num_categories: int = 16
+    # embedding dims
     eucl_dim: int = 2
     hyp_dim: int = 2
+    # backbone
     k: int = 10
+    dropout: float = 0.5
     pooling: str = "mean"
+    # loss
+    margin: float = 0.05
+    t_per_anchor: int = 50
+    fraction: float = 1.2
+    temperature: float = 1.0
+    anneal_factor: float = 2.0
+    anneal_step: int = 0
+    trade_off: float = 1.0
+    miner: bool = True
+    cosface: bool = True
+    hierarchical: bool = False
     class_vector: bool = False
-    test_rotation: str = "so3"  # 'so3' | 'z' | 'none'
+    num_triplets: Optional[int] = None
+    # augmentation: 'so3' | 'z' | 'none'
+    train_rotation: str = "so3"
+    test_rotation: str = "so3"
+    # optimization
+    lr: float = 0.005
+    # hierarchy (PartNet): nested per-level branch lists of leaf ids
+    hierarchy_list: Tuple = ()
+
+    @property
+    def use_hierarchical(self) -> bool:
+        return self.hierarchical and self.dataset == "partnet" and len(self.hierarchy_list) > 0

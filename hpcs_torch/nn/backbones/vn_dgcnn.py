@@ -1,21 +1,25 @@
-"""VN-DGCNN part-segmentation backbone, eval-mode forward.
+"""VN-DGCNN part-segmentation backbone.
 
 Channel geometry: 64 // 3 = 21 vector channels per EdgeConv stage, 63 after
 the three stages, 1024 // 3 = 341 global channels, doubled to 682 by the
 global-mean concat, and 2046 + 64 + 189 = 2299 head inputs.  Module names
 follow the reference's state_dict (conv1..conv6, std_feature, conv7..conv11
-as Sequential(Conv1d, BatchNorm1d[, LeakyReLU])).
+as Sequential(Conv1d, BatchNorm[, LeakyReLU])).
 
-Each EdgeConv stage is a kNN graph (`ops.knn.knn`) and one fused stage
-(`ops.edgeconv.edgeconv_infer`) with BatchNorm folded into the gate: on the
-GPU these are the two CUDA kernels, on the CPU their plain versions.
+Each EdgeConv stage starts from a kNN graph (`ops.knn.knn`, kernel B1 on the
+GPU, built on the detached features: no gradient flows through the graph).
+In eval mode the stage is one fused call (`ops.edgeconv.edgeconv_infer`,
+kernel B2 on the GPU) with BatchNorm folded into the gate.  In training the
+stage is the plain autograd stage, as in the JAX package: the edge features
+(`graph_feature_vn`), the VNLinearLeakyReLU modules with batch statistics,
+and the mean over the neighbours.  B2 is eval-only in both packages.
 """
 import torch
 from torch import nn
 
-from ...ops.edgeconv import edgeconv_infer, fold_bn
+from ...ops.edgeconv import edgeconv_infer, fold_bn, graph_feature_vn
 from ...ops.knn import knn
-from ..vn.layers import VNLinearLeakyReLU, VNStdFeature, invariant_project
+from ..vn.layers import BatchNorm, VNLinearLeakyReLU, VNStdFeature, invariant_project, mean_pool
 
 EDGE_CHANNELS = 64 // 3
 GLOBAL_CHANNELS = 1024 // 3
@@ -23,7 +27,7 @@ GLOBAL_CHANNELS = 1024 // 3
 
 def _head_block(in_features, out_features, relu=True):
     layers = [nn.Conv1d(in_features, out_features, kernel_size=1, bias=False),
-              nn.BatchNorm1d(out_features, eps=1e-5)]
+              BatchNorm(out_features, channel_dim=1)]
     if relu:
         layers.append(nn.LeakyReLU(0.2))
     return nn.Sequential(*layers)
@@ -39,16 +43,27 @@ def stage_weights(*convs):
     return out
 
 
+def dropout(x, p, generator):
+    """Keep each entry with probability 1 - p and scale it by 1 / (1 - p);
+    the mask is drawn from `generator`, on its device."""
+    if p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, 0.0)
+
+
 class VNDGCNNPartSeg(nn.Module):
     """Rotation-equivariant DGCNN returning per-point features [B, N, F]."""
 
-    def __init__(self, out_features, k=20, num_categories=16, pooling="mean"):
+    def __init__(self, out_features, k=20, num_categories=16, pooling="mean", dropout=0.5):
         super().__init__()
         if pooling != "mean":
             raise NotImplementedError(
                 "VNDGCNNPartSeg is ported for pooling='mean' only: the fused "
                 "EdgeConv stage mean-pools over the neighbours")
         self.k = k
+        self.dropout = dropout
         c = EDGE_CHANNELS
         self.conv1 = VNLinearLeakyReLU(2, c)
         self.conv2 = VNLinearLeakyReLU(c, c)
@@ -64,25 +79,37 @@ class VNDGCNNPartSeg(nn.Module):
         self.conv10 = _head_block(256, 128)
         self.conv11 = _head_block(128, out_features, relu=False)
 
-    def forward(self, points, label, idx_override=None):
+    def _edge_stage(self, x, idx, *convs):
+        """The plain autograd EdgeConv stage (training mode)."""
+        e, _ = graph_feature_vn(x, self.k, idx)
+        for conv in convs:
+            e = conv(e)
+        return mean_pool(e)
+
+    def forward(self, points, label, idx_override=None, generator=None):
         """points [B, N, 3], label [B, num_categories] -> features [B, N, F].
 
         idx_override: optional three kNN graphs [B, N, k] int32, one per
         EdgeConv stage, used in place of the graphs built from the features.
+        generator: the torch.Generator that draws the dropout masks after
+        conv8 and conv9 (training mode with dropout > 0 only).
         """
-        if self.training:
-            raise NotImplementedError("only the eval-mode forward is ported; call .eval()")
         B, N, _ = points.shape
 
         def graph(i, metric):
             if idx_override is not None:
                 return idx_override[i]
-            return knn(metric.reshape(B, N, -1).contiguous(), self.k)
+            return knn(metric.detach().reshape(B, N, -1).contiguous(), self.k)
 
         x = points[:, :, None, :].contiguous()
-        x1 = edgeconv_infer(x, graph(0, points), *stage_weights(self.conv1, self.conv2))
-        x2 = edgeconv_infer(x1, graph(1, x1), *stage_weights(self.conv3, self.conv4))
-        x3 = edgeconv_infer(x2, graph(2, x2), *stage_weights(self.conv5), n_convs=1)
+        if self.training:
+            x1 = self._edge_stage(x, graph(0, points), self.conv1, self.conv2)
+            x2 = self._edge_stage(x1, graph(1, x1), self.conv3, self.conv4)
+            x3 = self._edge_stage(x2, graph(2, x2), self.conv5)
+        else:
+            x1 = edgeconv_infer(x, graph(0, points), *stage_weights(self.conv1, self.conv2))
+            x2 = edgeconv_infer(x1, graph(1, x1), *stage_weights(self.conv3, self.conv4))
+            x3 = edgeconv_infer(x2, graph(2, x2), *stage_weights(self.conv5), n_convs=1)
         x123 = torch.cat([x1, x2, x3], dim=-2)  # [B, N, 63, 3]
 
         x = self.conv6(x123)  # [B, N, 341, 3]
@@ -96,5 +123,10 @@ class VNDGCNNPartSeg(nn.Module):
 
         fused = torch.cat([x_global, l], dim=-1)[:, None, :].expand(B, N, -1)
         h = torch.cat([fused, x123_inv], dim=-1).transpose(1, 2)  # [B, 2299, N]
-        h = self.conv11(self.conv10(self.conv9(self.conv8(h))))
+        p = self.dropout if self.training else 0.0
+        if p and generator is None:
+            raise ValueError("the training forward draws dropout masks: pass a generator")
+        h = dropout(self.conv8(h), p, generator)
+        h = dropout(self.conv9(h), p, generator)
+        h = self.conv11(self.conv10(h))
         return h.transpose(1, 2)

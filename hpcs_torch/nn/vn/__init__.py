@@ -1,4 +1,5 @@
 from .layers import (
+    BatchNorm,
     VNBatchNorm,
     VNLinear,
     VNLinearLeakyReLU,
@@ -8,5 +9,5 @@ from .layers import (
     vn_leaky_relu,
 )
 
-__all__ = ["VNBatchNorm", "VNLinear", "VNLinearLeakyReLU", "VNStdFeature",
+__all__ = ["BatchNorm", "VNBatchNorm", "VNLinear", "VNLinearLeakyReLU", "VNStdFeature",
            "invariant_project", "mean_pool", "vn_leaky_relu"]

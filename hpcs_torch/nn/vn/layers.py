@@ -1,13 +1,13 @@
-"""Vector-Neuron layers (SO(3)-equivariant point features), eval mode.
+"""Vector-Neuron layers (SO(3)-equivariant point features).
 
 Features use the channel-major layout [..., C, 3]: vector components last.
 Parameter names follow the reference's state_dict keys (`map_to_feat`,
 `map_to_dir`, `batchnorm.bn`, `std_feature.{vn1,vn2,vn_lin}`); weights are
 [out, in].  Every layer is equivariant: f(x R) = f(x) R on the last axis.
 
-Only the eval-mode forward is ported: BatchNorm uses running statistics.
-Train-mode BatchNorm must follow flax (biased variance, momentum 0.9), which
-torch's BatchNorm does not, so a module in training mode raises.
+BatchNorm follows flax's nn.BatchNorm, not torch's (`BatchNorm`): in
+training it normalises by the batch mean and the biased variance
+E[x^2] - E[x]^2 and moves the running statistics by 0.1 of the batch's.
 """
 import torch
 from torch import nn
@@ -15,17 +15,35 @@ from torch import nn
 from ...ops.vn_math import BN_EPS, EPS, NEGATIVE_SLOPE, channel_mix, vn_leaky_relu
 
 
-def _require_eval(module):
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only the eval-mode forward is ported; "
-            "call .eval() first")
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over every axis but `channel_dim`, with flax's rule.
 
+    Training: y = (x - mean) rsqrt(var + eps) weight + bias with the batch's
+    mean and biased variance max(E[x^2] - E[x]^2, 0); running_mean and
+    running_var become 0.9 old + 0.1 batch (the biased variance, where
+    torch's BatchNorm1d would take the unbiased one).  Eval: the same with
+    the running statistics.  The state_dict keys are BatchNorm1d's.
+    """
 
-def bn_eval(x, bn):
-    """Eval-mode BatchNorm over the last axis of x with `bn`'s running stats."""
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    return (x - bn.running_mean) * mul + bn.bias
+    def __init__(self, num_features, eps=BN_EPS, channel_dim=-1):
+        super().__init__(num_features, eps=eps)
+        self.channel_dim = channel_dim
+
+    def forward(self, x):
+        shape = [1] * x.dim()
+        shape[self.channel_dim] = x.shape[self.channel_dim]
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
+            mean = torch.mean(x, dim=axes)
+            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+                self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
 
 
 class VNLinear(nn.Module):
@@ -44,12 +62,11 @@ class VNBatchNorm(nn.Module):
 
     def __init__(self, num_features):
         super().__init__()
-        self.bn = nn.BatchNorm1d(num_features, eps=BN_EPS)
+        self.bn = BatchNorm(num_features)
 
     def forward(self, x):
-        _require_eval(self)
         norm = torch.sqrt(torch.sum(x * x, dim=-1) + EPS * EPS) + EPS
-        return x * (bn_eval(norm, self.bn) / norm).unsqueeze(-1)
+        return x * (self.bn(norm) / norm).unsqueeze(-1)
 
 
 class VNLinearLeakyReLU(nn.Module):

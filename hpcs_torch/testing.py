@@ -202,3 +202,147 @@ def knn_queue_insertions(x, k, row_step=1):
         ahead = ((sb[:, None, :] >= sb[:, :, None]) & earlier).sum(-1)  # [R, c]
         total += int(((ahead < k) & ~torch.isnan(sb)).sum())
     return total / (s.shape[0] * s.shape[1])
+
+
+def float64_train_step(system, batch, graphs):
+    """One training step of a float64 copy of `system` (on the CPU, in
+    training mode, on the kNN graphs `graphs`, without rotation or
+    dropout): its logs {"total_loss", "loss_metric", "loss_hyp"}, its
+    gradients by parameter name and its new state_dict, as numpy.  The
+    triplets are what the loss's sampler gives."""
+    import copy
+
+    from .models import decode_vector_for_batch
+
+    sys64 = copy.deepcopy(system)
+    sys64.optimizer.zero_grad(set_to_none=True)
+    net = sys64.net.cpu().double().train()
+    for st in sys64.optimizer.state.values():
+        st.update({k: v.cpu().double() for k, v in st.items() if torch.is_tensor(v)})
+    pts = torch.as_tensor(batch["points"]).double()
+    dv = torch.as_tensor(decode_vector_for_batch(system.cfg, batch)).double()
+    _, x_p = net(pts, dv, idx_override=[g.cpu() for g in graphs])
+    losses, _ = sys64._losses_and_metrics(torch.Generator(), x_p,
+                                          torch.as_tensor(batch["labels"]).long())
+    total = losses["loss_metric"] + losses["loss_hyp"]
+    total.backward()
+    logs = {"total_loss": float(total.detach()),
+            **{k: float(v.detach()) for k, v in losses.items()}}
+    grads = {name: p.grad.numpy().copy() for name, p in net.named_parameters()}
+    sys64.apply_gradients()
+    return logs, grads, {k: v.numpy() for k, v in net.state_dict().items()}
+
+
+NEAR_TIE = 1e-3  # |sim(a,p) - sim(a,n)| below which two fp32 'easy' masks may differ
+
+
+def check_train_step_card_vs_cpu(system, batch, seed=0):
+    """One train_step of `system` (on the card) against the same step of its
+    copy on the CPU, and both against the CPU copy's step in float64.
+
+    The system's config must have dropout 0 and train_rotation 'none'.  The
+    triplets are drawn once on the CPU (from `seed`) and given to both; the
+    CPU runs on the card's kNN graphs (kernel B1's) and takes the card's
+    'easy' mask after checking that its own differs only at near-ties.
+    Tolerances, those of the CPU-vs-JAX test (tests/test_torch_train_step.py)
+    at its first step: logs within atol 1e-5 / rtol 1e-3 (accuracy and IoU
+    atol 0.02); parameters within atol 2e-4 / rtol 1e-4; running statistics
+    within atol 2e-4 / rtol 1e-3; and the card's logs, parameters and
+    statistics at least as close to the float64 step's as the CPU's (4
+    times the CPU's largest distance, plus 1e-5 relative for logs and 1e-6
+    for the state).  Gradients are held by their Frobenius norm: the card's
+    distance to the float64 gradient at most 4 times the CPU's plus 5 % of
+    the gradient's norm.  (A few entries of a gradient are rounding noise
+    of the ill-conditioned stage 1, ~10 % of the leaf's largest entry on
+    the card and on the CPU alike, and the CPU's rounding follows the
+    float64 step's order of operations, the card's does not.)  Raises
+    AssertionError; returns the largest errors.
+    """
+    from .loss import joint
+    from .miner import cosine_similarity01, sample_balanced_triplets
+    from .models import HypHCSystem
+    from .nn.backbones import vn_dgcnn
+
+    cfg = system.cfg
+    if cfg.dropout or cfg.train_rotation != "none":
+        raise ValueError("the comparison needs dropout 0 and train_rotation 'none'")
+    cpu = HypHCSystem(cfg, device="cpu")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    labels = torch.as_tensor(batch["labels"]).reshape(-1).long()
+    trip = sample_balanced_triplets(torch.Generator().manual_seed(seed), labels, cfg.num_class,
+                                    cfg.t_per_anchor, cfg.fraction, num_triplets=cfg.num_triplets)
+    real_knn, real_filter, real_sampler = vn_dgcnn.knn, joint.margin_filter, \
+        joint.sample_balanced_triplets
+    graphs, state = [], {"flips": 0}
+
+    def sampler(generator, labels, *args, **kw):
+        return type(trip)(*(t.to(labels.device) for t in trip))
+
+    def card_knn(x, k):
+        graphs.append(real_knn(x, k))
+        return graphs[-1]
+
+    def margin_filter(emb, t, margin=0.0, type_of_triplets="easy"):
+        if "mask" not in state:  # the card's step
+            state["mask"] = real_filter(emb, t, margin, type_of_triplets).mask.cpu()
+        elif emb.dtype == torch.float32:  # the CPU's: near-ties only may differ
+            own = real_filter(emb, t, margin, type_of_triplets).mask
+            flipped = own != state["mask"]
+            a = emb[t.anchor[flipped]]
+            tm = (cosine_similarity01(a, emb[t.positive[flipped]])
+                  - cosine_similarity01(a, emb[t.negative[flipped]]))
+            assert bool((tm.abs() < NEAR_TIE).all()), "card and CPU masks differ beyond near-ties"
+            state["flips"] = int(flipped.sum())
+        return t._replace(mask=state["mask"].to(emb.device))
+
+    try:
+        joint.sample_balanced_triplets, joint.margin_filter = sampler, margin_filter
+        vn_dgcnn.knn = card_knn
+        logs = system.grads_and_logs(batch, torch.Generator(device=system.device))
+        ref_logs, ref_grads, ref_sd = float64_train_step(cpu, batch, graphs)
+        vn_dgcnn.knn = lambda x, k, it=iter(graphs): next(it).to(x.device)
+        cpu_logs = cpu.grads_and_logs(batch, torch.Generator())
+    finally:
+        vn_dgcnn.knn, joint.margin_filter = real_knn, real_filter
+        joint.sample_balanced_triplets = real_sampler
+    out = {"filter_flips": state["flips"]}
+
+    def near_float64(got, cpu_val, ref, slack, what):
+        got, cpu_val = np.asarray(got, np.float64), np.asarray(cpu_val, np.float64)
+        d, d_cpu = np.abs(got - ref).max(), np.abs(cpu_val - ref).max()
+        assert d <= 4 * d_cpu + slack, f"{what}: card {d:.3e} from float64, CPU {d_cpu:.3e}"
+
+    for k, v in logs.items():
+        g, c = float(v), float(cpu_logs[k])
+        tol = (0.02, 0.0) if k in ("acc", "iou") else (1e-5, 1e-3)
+        assert abs(g - c) <= tol[0] + tol[1] * abs(c), f"{k}: card {g}, CPU {c}"
+        if k in ref_logs:
+            near_float64(g, c, ref_logs[k], 1e-5 * abs(ref_logs[k]), k)
+        out.setdefault("max_rel_err_logs", 0.0)
+        out["max_rel_err_logs"] = max(out["max_rel_err_logs"], abs(g - c) / max(abs(c), 1e-12))
+    cpu_grads = dict(cpu.net.named_parameters())
+    out["max_grad_rel_err"] = 0.0
+    for name, p in system.net.named_parameters():
+        g, c = p.grad.cpu().double(), cpu_grads[name].grad.double()
+        r = torch.from_numpy(ref_grads[name])
+        d, d_cpu, norm = float((g - r).norm()), float((c - r).norm()), float(r.norm())
+        assert d <= 4 * d_cpu + 0.05 * norm, \
+            f"gradient of {name}: card {d:.3e} from float64, CPU {d_cpu:.3e}, norm {norm:.3e}"
+        out["max_grad_rel_err"] = max(out["max_grad_rel_err"],
+                                      float((g - c).norm()) / max(norm, 1e-30))
+    system.apply_gradients()
+    cpu.apply_gradients()
+    cpu_sd, out["max_abs_err_params"], out["max_abs_err_stats"] = cpu.net.state_dict(), 0.0, 0.0
+    for name, v in system.net.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        g, c = v.cpu().double().numpy(), cpu_sd[name].double().numpy()
+        running = "running" in name
+        atol, rtol = (2e-4, 1e-3) if running else (2e-4, 1e-4)
+        err = np.abs(g - c)
+        assert (err <= atol + rtol * np.abs(c)).all(), \
+            f"{name}: card and CPU differ by {err.max():.3e}"
+        near_float64(g, c, ref_sd[name], 1e-6, name)
+        key = "max_abs_err_stats" if running else "max_abs_err_params"
+        out[key] = max(out[key], float(err.max()))
+    return out

@@ -83,3 +83,98 @@ def adjacent_dup_cloud(rng, b, n, d, r=4):
     group of the kernel's scan."""
     half = rng.integers(-r, r + 1, size=(b, (n + 1) // 2, d)).astype(np.float32)
     return np.repeat(half, 2, axis=1)[:, :n]
+
+
+def synthetic_batch(B, N, categories=2, seed=0, parts=3):
+    """A batch dict of synthetic part-labelled clouds (numpy)."""
+    from hpcs_torch.data import SyntheticPartDataset
+
+    pts, cat, seg = SyntheticPartDataset(B, N, categories, parts_per_object=parts,
+                                         seed=seed).batch(0, B)
+    return {"points": pts, "labels": seg.astype(np.int32), "category": cat.astype(np.int32)}
+
+
+def jax_port_pair(eucl=8, hyp=8, B=2, N=64, k=8, seed=0, random_stats=False, **over):
+    """(JAX system, its TrainState, port system on the CPU, batch) on shared
+    weights (from_jax_params); `over` sets fields of both ModelConfigs.
+    JAX is imported here, so test_torch_cuda.py can import this module."""
+    import jax
+    import jax.numpy as jnp
+
+    from hpcs_tpu.models import HypHCSystem as JSystem
+    from hpcs_tpu.models import ModelConfig as JConfig
+    from hpcs_torch.models import HypHCSystem, ModelConfig
+    from hpcs_torch.utils.jax_params import from_jax_params
+
+    kw = dict(dataset="shapenet", num_class=6, num_categories=2, eucl_dim=eucl, hyp_dim=hyp,
+              k=k, **over)
+    jsys = JSystem(JConfig(fixed_points=N, **kw))
+    batch = synthetic_batch(B, N, seed=seed)
+    state = jsys.init(jax.random.PRNGKey(seed), {k_: jnp.asarray(v) for k_, v in batch.items()})
+    if random_stats:
+        stats = randomize_batch_stats(to_numpy_tree(state.batch_stats),
+                                      np.random.default_rng(seed))
+        state = state.replace(batch_stats=jax.tree_util.tree_map(jnp.asarray, stats))
+    tsys = HypHCSystem(ModelConfig(**kw), device="cpu")
+    tsys.net.load_state_dict(from_jax_params(to_numpy_tree(state.params),
+                                             to_numpy_tree(state.batch_stats)))
+    return jsys, state, tsys, batch
+
+
+def numpy_opt_state(opt):
+    """hpcs_tpu's inject_hyperparams(riemannian_adam_fused) state with its
+    count and packed moments as numpy."""
+    inner = opt.inner_state
+    return opt._replace(inner_state=inner._replace(
+        count=np.asarray(inner.count), exp_avg=to_numpy_tree(inner.exp_avg),
+        exp_avg_sq=to_numpy_tree(inner.exp_avg_sq)))
+
+
+def load_opt_state(system, moments):
+    """Set the port system's optimizer state from from_jax_opt_state's
+    {name: state} map."""
+    for name, p in system.net.named_parameters():
+        system.optimizer.state[p] = {k: v.clone() if torch.is_tensor(v) else v
+                                     for k, v in moments[name].items()}
+
+
+class InjectedTriplets:
+    """Patches the port's sampler (hpcs_torch.loss.joint) and 'easy' filter
+    with hpcs_tpu's draws from a key and its mask on JAX's embeddings
+    (`add`, as hpcs_tpu's compute_losses draws them from its key).  The
+    port's own mask may differ from JAX's only where |sim(a,p) - sim(a,n)|
+    < NEAR_TIE.  Each `add` serves until the next one."""
+
+    NEAR_TIE = 1e-3
+
+    def __init__(self, monkeypatch):
+        from hpcs_torch.loss import joint
+
+        real_filter = joint.margin_filter
+        monkeypatch.setattr(joint, "sample_balanced_triplets", lambda *a, **k: self.trip)
+
+        def margin_filter(emb, trip, margin=0.0, type_of_triplets="easy"):
+            if emb.dtype == torch.float32:
+                got = real_filter(emb, trip, margin, type_of_triplets).mask.numpy()
+                flipped = got != self.mask
+                assert (np.abs(self.tm[flipped]) < self.NEAR_TIE).all()
+            return trip._replace(mask=torch.from_numpy(self.mask))
+
+        monkeypatch.setattr(joint, "margin_filter", margin_filter)
+
+    def add(self, k_loss, labels, x_p, cfg):
+        import jax
+
+        from hpcs_tpu.miner import margin_filter as j_margin_filter
+        from hpcs_tpu.miner import sample_balanced_triplets as j_balanced
+        from hpcs_torch.miner import Triplets, cosine_similarity01
+
+        k_hyp, _ = jax.random.split(k_loss)
+        trip = j_balanced(k_hyp, labels.reshape(-1), cfg.num_class, cfg.t_per_anchor,
+                          cfg.fraction, num_triplets=cfg.num_triplets)
+        flat = x_p.reshape(-1, x_p.shape[-1])
+        self.mask = np.array(j_margin_filter(flat, trip, 0.0, "easy").mask)
+        a, p, n = (torch.from_numpy(np.array(t, np.int64)) for t in trip[:3])
+        e = torch.from_numpy(np.array(flat))
+        self.tm = (cosine_similarity01(e[a], e[p]) - cosine_similarity01(e[a], e[n])).numpy()
+        self.trip = Triplets(a, p, n, torch.from_numpy(np.array(trip.mask)))

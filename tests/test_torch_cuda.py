@@ -20,7 +20,7 @@ from hpcs_torch.loss import normalize_to_radius
 from hpcs_torch.models import HypHCSystem, ModelConfig, decode_vector_for_batch
 from hpcs_torch.ops import edgeconv as E
 from hpcs_torch.ops import knn as K
-from hpcs_torch.testing import check_edgeconv, check_planted_eps
+from hpcs_torch.testing import check_edgeconv, check_planted_eps, check_train_step_card_vs_cpu
 
 
 def test_knn_kernel_rejects_shapes_it_does_not_take():
@@ -310,7 +310,44 @@ def test_cosine_distances_on_gpu_equal_cpu():
     scale = torch.tensor(1e-3)
 
     def distances(t, s):
-        return cosine_distance_matrix(project(normalize_to_radius(t, s)))
+        return cosine_distance_matrix(project(normalize_to_radius(t, s, exact=True), exact=True))
 
     torch.testing.assert_close(distances(x.cuda(), scale.cuda()).cpu(), distances(x, scale),
                                rtol=0, atol=0)
+
+
+def _train_batch(B, N, seed=0):
+    pts, cat, seg = SyntheticPartDataset(B, N, 2, seed=seed).batch(0, B)
+    return {"points": pts, "category": cat, "labels": seg}
+
+
+@pytest.mark.cuda
+def test_train_step_on_gpu_matches_cpu():
+    """One step at B=2, N=128 on the card against the CPU port from the same
+    weights, triplets and kNN graphs (hpcs_torch.testing); B1 builds the
+    three graphs, B2 is not launched."""
+    require_cuda()
+    cfg = ModelConfig(num_class=6, num_categories=2, eucl_dim=8, hyp_dim=8, k=8, dropout=0.0,
+                      train_rotation="none", t_per_anchor=10, temperature=0.1)
+    tsys = HypHCSystem(cfg)
+    k0, e0 = K.knn.launches, E.edgeconv_infer.launches
+    check_train_step_card_vs_cpu(tsys, _train_batch(2, 128))
+    assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 0)
+
+
+@pytest.mark.cuda
+def test_train_and_eval_steps_count_their_kernels():
+    require_cuda()
+    cfg = ModelConfig(num_class=6, num_categories=2, eucl_dim=8, hyp_dim=8, k=8, t_per_anchor=10)
+    tsys = HypHCSystem(cfg)
+    batch, gen = _train_batch(2, 128), torch.Generator(device="cuda").manual_seed(0)
+    k0, e0 = K.knn.launches, E.edgeconv_infer.launches
+    logs = tsys.train_step(batch, gen)
+    torch.cuda.synchronize()
+    assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 0)
+    assert all(torch.isfinite(v).all() for v in logs.values())
+    assert all(torch.isfinite(p).all() for p in tsys.net.parameters())
+    k0, e0 = K.knn.launches, E.edgeconv_infer.launches
+    val = tsys.eval_step(batch, gen)
+    assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 3)
+    assert torch.isfinite(val["val_loss"])

@@ -123,7 +123,8 @@ def test_port_runs_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['hpcs_tpu'] = None\n"
         "import numpy as np, hpcs_torch.models as m, hpcs_torch.ops.edgeconv, "
         "hpcs_torch.utils.jax_params, hpcs_torch.data, hpcs_torch.decode, "
-        "hpcs_torch.trainer, hpcs_torch.utils.rotations\n"
+        "hpcs_torch.trainer, hpcs_torch.utils.rotations, hpcs_torch.miner, hpcs_torch.optim, "
+        "hpcs_torch.loss, hpcs_torch.utils.metrics, hpcs_torch.geometry.lca, torch\n"
         "cfg = m.ModelConfig(num_class=6, num_categories=2, eucl_dim=4, hyp_dim=3, k=4)\n"
         "s = m.HypHCSystem(cfg, device='cpu')\n"
         "x = np.random.default_rng(0).standard_normal((1, 32, 3)).astype(np.float32)\n"
@@ -132,6 +133,10 @@ def test_port_runs_without_jax():
         "batch = {'points': x, 'category': [1], 'labels': np.arange(32)[None] % 6}\n"
         "logs = hpcs_torch.trainer.test(s, [batch])\n"
         "assert 0 <= logs['score'] <= 1\n"
+        "train = s.train_step(batch, torch.Generator().manual_seed(0))\n"
+        "assert s.step == 1 and float(train['total_loss']) > 0\n"
+        "state, best = hpcs_torch.trainer.fit(s, [batch], [batch], epochs=1, log=lambda m: None)\n"
+        "assert state['step'] == 2\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'hpcs_tpu', 'flax'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -12,6 +12,9 @@ inside test_step's one XLA program the distances are not those that the
 returned x_poincare gives, even to hpcs_tpu's own decode_one (near-parallel
 embeddings, distances of ~3e-6 at relative 2e-5).  The ball width is 32,
 the flagship's, where the port sums squares in the order of XLA's CPU code.
+test_step's losses, on hpcs_tpu's own triplets (InjectedTriplets), agree
+within rtol 1e-3 (the eval forward's tolerance), its accuracy and IoU
+within 0.02 (a point or two on the other side of an argmax near-tie).
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import randomize_batch_stats, to_numpy_tree
+from _torch_port import InjectedTriplets, randomize_batch_stats, to_numpy_tree
 from hpcs_tpu.decode import get_optimal_k as j_get_optimal_k
 from hpcs_tpu.decode.linkage import cosine_distance_matrix as j_cosine
 from hpcs_tpu.decode.linkage import linkage_from_distances_mnn as j_mnn
@@ -111,10 +114,18 @@ def _slice_pair(scale, N=160, B=2):
 
 
 @pytest.mark.parametrize("scale", [1e-3, 0.5, 0.999])
-def test_test_step_matches_jax(scale):
+def test_test_step_matches_jax(scale, monkeypatch):
     jsys, state, jbatch, tsys, batch = _slice_pair(scale)
-    jlogs, jext = jsys.test_step(state, jbatch, jax.random.PRNGKey(1), jnp.float32(0.1))
+    key = jax.random.PRNGKey(1)
+    jlogs, jext = jsys.test_step(state, jbatch, key, jnp.float32(0.1))
+    _, k_loss = jax.random.split(key)  # as hpcs_tpu's test_step splits it
+    InjectedTriplets(monkeypatch).add(k_loss, jbatch["labels"], jext["x_poincare"], jsys.cfg)
+    tsys.temperature = 0.1
     logs, ext = tsys.test_step(batch, torch.Generator().manual_seed(1))
+    assert set(logs) == set(jlogs) == {"test_loss", "score", "test_acc", "test_iou"}
+    np.testing.assert_allclose(float(logs["test_loss"]), float(jlogs["test_loss"]), rtol=1e-3)
+    for k in ("test_acc", "test_iou"):
+        np.testing.assert_allclose(float(logs[k]), float(jlogs[k]), rtol=0, atol=0.02)
     np.testing.assert_allclose(ext["x_poincare"].numpy(), np.asarray(jext["x_poincare"]), **TOL)
     np.testing.assert_allclose(ext["x_euclidean"].numpy(), np.asarray(jext["x_euclidean"]), **TOL)
     assert ext["linkage"].shape == (2, 159, 4) and ext["pred"].shape == (2, 160)
@@ -156,6 +167,8 @@ def test_trainer_test_means_logs_over_batches():
     batches = [_batch(2, 48, seed=s) for s in range(3)]
     out = trainer.test(tsys, batches, seed=5, limit_batches=2)
     gen = torch.Generator().manual_seed(5 + 777)
-    scores = [float(tsys.test_step(b, gen)[0]["score"]) for b in batches[:2]]
-    assert out == {"score": pytest.approx(float(np.mean(scores)), abs=1e-7)}
+    logs = [tsys.test_step(b, gen)[0] for b in batches[:2]]
+    assert set(out) == {"test_loss", "score", "test_acc", "test_iou"}
+    for k, v in out.items():
+        assert v == pytest.approx(float(np.mean([float(lg[k]) for lg in logs])), abs=1e-6), k
     assert trainer.test(tsys, batches, limit_batches=0) == {}

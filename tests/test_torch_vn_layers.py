@@ -106,6 +106,11 @@ def test_vn_layers_so3_equivariant():
 
 
 def test_train_mode_is_not_ported():
+    """Training mode raised until the training slice; now it normalises by
+    the batch's statistics (tests/test_torch_train_mode.py holds it to
+    flax) and eval mode by the running ones."""
     m = TL.VNLinearLeakyReLU(3, 4)
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros(1, 3, 3))
+    x = torch.from_numpy(_x((2, 5, 3, 3), 8))
+    train_out = m.train()(x)
+    assert int(m.batchnorm.bn.num_batches_tracked) == 1
+    assert not torch.allclose(m.eval()(x), train_out)
