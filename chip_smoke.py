@@ -39,8 +39,9 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    the linkage's heights and sizes against scipy's complete linkage
    (within 1e-6); times the decode and the whole step;
 7. trains (phase train): one HypHCSystem.train_step at B=2, N=256 on the
-   card against the CPU port from the same weights, triplets and kNN graphs
-   (hpcs_torch.testing.check_train_step_card_vs_cpu); then the flagship
+   card against the CPU port from the same weights, triplets and kNN graphs,
+   against the card's own float64 step and the CPU's fp32 step in other
+   point orders (hpcs_torch.testing.check_train_step_card_vs_cpu); then the flagship
    training step (B=8, N=1024, k=20, eucl = hyp = 32, 50 classes, t_per_anchor
    50, temperature 0.05, lr 0.005, dropout 0.5, so3 rotations; synthetic
    clouds of 6 parts, seed 5): 2 warm-up and 8 timed steps, B1 launched 3
@@ -331,9 +332,8 @@ def decode_phase(system, cfg, batches, card):
     from scipy.cluster.hierarchy import linkage as scipy_linkage
     from scipy.spatial.distance import squareform
 
-    from hpcs_torch.decode import cosine_distance_matrix, get_optimal_k, linkage_from_distances_mnn
-    from hpcs_torch.geometry import project
-    from hpcs_torch.loss import normalize_to_radius
+    from hpcs_torch.decode import (cosine_distance_matrix, decode_leaves, get_optimal_k,
+                                   linkage_from_distances_mnn)
     from hpcs_torch.models.base import decode_batch
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
@@ -380,17 +380,14 @@ def decode_phase(system, cfg, batches, card):
     # linkage and sweep against the CPU port's on the card's distances
     ext, labels = outs[0][1], torch.as_tensor(requests[0]["labels"]).long()
     x_p = ext["x_poincare"]
-    def leaves_of(x, s):
-        return project(normalize_to_radius(x, s, exact=True), exact=True)
-
-    D = cosine_distance_matrix(leaves_of(x_p, scale))
-    D_cpu = cosine_distance_matrix(leaves_of(x_p.cpu(), scale.cpu()))
+    D = cosine_distance_matrix(decode_leaves(x_p, scale))
+    D_cpu = cosine_distance_matrix(decode_leaves(x_p.cpu(), scale.cpu()))
     d_err = float((D.cpu() - D_cpu).abs().max())
     if d_err > 1e-6:
         fail(f"decode: card and CPU distances differ by {d_err:.3e} > 1e-6")
     Z, lockstep, rounds = linkage_from_distances_mnn(D, "complete", return_rounds=True)
     # the decode's parts on request 0, each the median of 3 host-clock runs
-    leaves = leaves_of(x_p, scale)
+    leaves = decode_leaves(x_p, scale)
     parts = {"distances": lambda: cosine_distance_matrix(leaves),
              "linkage": lambda: linkage_from_distances_mnn(D, "complete"),
              "sweep": lambda: get_optimal_k(labels.to(system.device), Z, cfg.num_class)}

@@ -12,7 +12,8 @@ per object.  Selections are plain indexing, which is exact.
 """
 import torch
 
-from ..geometry.math_ops import fma, l2_normalize
+from ..geometry.math_ops import fma, l2_normalize_rn, sqrt_rn, sum_of_squares
+from ..geometry.poincare import MIN_NORM, ball_eps
 
 # "infinite distance": inactive slots, the diagonal and merged-away rows and
 # columns hold it.  Any value far above 2, the largest cosine distance.
@@ -20,6 +21,17 @@ INF = 1e30
 _MIN_STAGE = 128  # the stage size below which the state is no longer compacted
 _MASK32 = 0xFFFFFFFF
 _CHUNK_PAIRS = 1 << 24  # the distance rows go in chunks of about this many pairs
+
+
+def decode_leaves(x, scale):
+    """The decode's leaves: x on the sphere of radius clamp(scale, 1e-4, 1),
+    then clamped into the ball, as `project(normalize_to_radius(x, scale))`
+    but with the norms rounded exactly (`l2_normalize_rn`, `sqrt_rn`), so
+    the card and the CPU give the same bits."""
+    x = l2_normalize_rn(x) * torch.clamp(torch.as_tensor(scale), 1e-4, 1.0)
+    norm = sqrt_rn(torch.clamp(sum_of_squares(x, keepdim=True), min=MIN_NORM * MIN_NORM))
+    maxnorm = 1.0 - ball_eps(x.dtype)
+    return torch.where(norm > maxnorm, x / norm * maxnorm, x)
 
 
 def cosine_distance_matrix(x):
@@ -35,7 +47,7 @@ def cosine_distance_matrix(x):
     """
     lead, (N, F) = x.shape[:-2], x.shape[-2:]
     x = x.reshape(-1, N, F)
-    xn = l2_normalize(x, exact=True)
+    xn = l2_normalize_rn(x)
     D = torch.empty((x.shape[0], N, N), dtype=x.dtype, device=x.device)
     rows = max(1, _CHUNK_PAIRS // max(x.shape[0] * N, 1))
     for r0 in range(0, N, rows):

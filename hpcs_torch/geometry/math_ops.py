@@ -3,9 +3,9 @@
 Each forward clamps its input and each backward differentiates at the
 clamped point, so embeddings pinned at the Poincare-ball boundary keep a
 gradient (plain autograd through a clamp would give zero there).
-The decode's norms (`l2_normalize(..., exact=True)`) round their sums of
-squares and their square roots exactly, so the card and the CPU give the
-same bits; the losses take the plain norm.
+The decode's norm (`l2_normalize_rn`) rounds its sum of squares and its
+square root exactly, so the card and the CPU give the same bits; the losses
+take the plain `l2_normalize`.
 """
 import math
 
@@ -128,15 +128,13 @@ def sqrt_rn(x):
     return torch.sqrt(x.double()).float()
 
 
-def l2_normalize(x, dim=-1, eps=1e-12, exact=False):
-    """x / max(|x|, eps) along `dim`.
-
-    exact: |x| from `sum_of_squares` and `sqrt_rn` (the decode's norms, last
-    axis only, so its distances are the same bits on the card and the CPU);
-    otherwise the plain `torch.linalg.vector_norm`, as the losses take it.
-    """
-    if exact:
-        if dim not in (-1, x.dim() - 1):
-            raise ValueError("the exact norm runs over the last axis only")
-        return x / torch.clamp(sqrt_rn(sum_of_squares(x, keepdim=True)), min=eps)
+def l2_normalize(x, dim=-1, eps=1e-12):
+    """x / max(|x|, eps) along `dim`."""
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True), min=eps)
+
+
+def l2_normalize_rn(x, eps=1e-12):
+    """The decode's l2_normalize over the last axis: |x| from
+    `sum_of_squares` and `sqrt_rn`, so its distances are the same bits on
+    the card and the CPU."""
+    return x / torch.clamp(sqrt_rn(sum_of_squares(x, keepdim=True)), min=eps)

@@ -2,12 +2,12 @@
 
 The manifold coordinates live on the last axis; every function broadcasts
 over the leading axes.  Denominators are floored at MIN_NORM.  Everything
-is differentiable with autograd; `project(exact=True)` is the decode's form,
-whose norm is rounded the same way on the card and the CPU.
+is differentiable with autograd.  The decode places its leaves with its
+own exactly rounded norms (`hpcs_torch.decode.decode_leaves`).
 """
 import torch
 
-from .math_ops import arcosh, artanh, sqrt_rn, sum_of_squares, tanh
+from .math_ops import arcosh, artanh, tanh
 
 MIN_NORM = 1e-15
 BALL_EPS_F32 = 4e-3
@@ -85,19 +85,15 @@ def logmap0(x):
     return artanh(x_norm) * x / x_norm
 
 
-def project(x, eps=None, exact=False):
-    """Clamp points to the open ball of radius 1 - eps.
+def ball_eps(dtype):
+    """The margin inside the sphere that `project` keeps for `dtype`."""
+    return BALL_EPS_F64 if dtype == torch.float64 else BALL_EPS_F32
 
-    exact: the norm from `sum_of_squares` and `sqrt_rn` (the decode's
-    leaves); otherwise the plain norm, as the optimizer takes it.
-    """
-    if eps is None:
-        eps = BALL_EPS_F64 if x.dtype == torch.float64 else BALL_EPS_F32
-    if exact:
-        norm = sqrt_rn(torch.clamp(sum_of_squares(x, keepdim=True), min=MIN_NORM * MIN_NORM))
-    else:
-        norm = _norm(x)
-    maxnorm = 1.0 - eps
+
+def project(x, eps=None):
+    """Clamp points to the open ball of radius 1 - eps."""
+    norm = _norm(x)
+    maxnorm = 1.0 - (ball_eps(x.dtype) if eps is None else eps)
     return torch.where(norm > maxnorm, x / norm * maxnorm, x)
 
 

@@ -14,14 +14,9 @@ from ..geometry.math_ops import l2_normalize
 from ..miner.triplet import cosine_similarity01
 
 
-def normalize_to_radius(embeddings, scale, exact=False):
-    """Place embeddings on the sphere of radius clamp(scale, 1e-4, 1).
-
-    exact: the decode's norm (`l2_normalize(exact=True)`); the loss takes
-    the plain one.
-    """
-    return (l2_normalize(embeddings, exact=exact)
-            * torch.clamp(torch.as_tensor(scale), 1e-4, 1.0))
+def normalize_to_radius(embeddings, scale):
+    """Place embeddings on the sphere of radius clamp(scale, 1e-4, 1)."""
+    return l2_normalize(embeddings) * torch.clamp(torch.as_tensor(scale), 1e-4, 1.0)
 
 
 def mean_pairwise_similarity(x):

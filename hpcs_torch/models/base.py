@@ -11,14 +11,15 @@ import math
 import torch
 from torch import nn
 
-from ..decode import cosine_distance_matrix, get_optimal_k, linkage_from_distances_mnn
+from ..decode import (cosine_distance_matrix, decode_leaves, get_optimal_k,
+                      linkage_from_distances_mnn)
 from ..device import resolve_device
-from ..geometry import project
 from ..loss import LossConfig, compute_losses, get_logits, hierarchy_sum_matrices
-from ..loss.hyphc import anneal_temperature, normalize_to_radius
+from ..loss.hyphc import anneal_temperature
 from ..nn.backbones.vn_dgcnn import VNDGCNNPartSeg
 from ..nn.embed import make_embedder
 from ..optim import RiemannianAdam, plateau_init, plateau_update
+from ..utils.jax_params import ball_dim
 from ..utils.metrics import accuracy_top1, multiclass_jaccard
 from ..utils.rotations import augment
 from .config import ModelConfig
@@ -99,19 +100,10 @@ def decode_batch(x_poincare, labels, scale, num_class):
     x_poincare [B, N, F], labels [B, N] (< num_class).  Returns (pred [B, N],
     best_k [B], best_score [B], linkage Z [B, N-1, 4]).
     """
-    leaves = project(normalize_to_radius(x_poincare, scale, exact=True), exact=True)
-    Z = linkage_from_distances_mnn(cosine_distance_matrix(leaves), method="complete")
+    Z = linkage_from_distances_mnn(cosine_distance_matrix(decode_leaves(x_poincare, scale)),
+                                   method="complete")
     pred, best_k, best_score = get_optimal_k(labels, Z, num_class=num_class, index="iou")
     return pred, best_k, best_score, Z
-
-
-def ball_dim(name, p):
-    """The axis of a parameter whose vectors are points of the ball for the
-    optimizer: a flax leaf's last axis.  The port's weights [out, in, ...]
-    are flax kernels [in, out] transposed, so theirs is dim 0; vectors
-    (BatchNorm weight and bias, `scale`) and the CosFace weights, [hyp, L]
-    in both packages, keep the last."""
-    return 0 if p.dim() >= 2 and not name.endswith("loss_cosface.W") else -1
 
 
 class HypHCSystem:

@@ -20,6 +20,9 @@ import torch
 
 from ..geometry import egrad2rgrad, expmap, inner, project, ptransp
 
+BETAS = (0.9, 0.999)
+EPS = 1e-8
+
 
 class RiemannianAdam(torch.optim.Optimizer):
     """params: tensors, or groups {"params": [...], "ball_dim": axis} (the
@@ -29,16 +32,15 @@ class RiemannianAdam(torch.optim.Optimizer):
     "exp_avg_sq" (its shape with the ball axis of size 1).
     """
 
-    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0):
-        defaults = dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay, ball_dim=-1)
-        super().__init__(params, defaults)
+    def __init__(self, params, lr=1e-3):
+        super().__init__(params, dict(lr=lr, ball_dim=-1))
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("RiemannianAdam takes no closure")
+        b1, b2 = BETAS
         for group in self.param_groups:
-            b1, b2 = group["betas"]
             dim = group["ball_dim"]
             for p in group["params"]:
                 state = self.state[p]
@@ -52,11 +54,10 @@ class RiemannianAdam(torch.optim.Optimizer):
 
                 point = p.movedim(dim, -1)
                 grad = torch.zeros_like(point) if p.grad is None else p.grad.movedim(dim, -1)
-                grad = grad + group["weight_decay"] * point
                 rgrad = egrad2rgrad(point, grad)
                 m = b1 * state["exp_avg"].movedim(dim, -1) + (1 - b1) * rgrad
                 v = b2 * state["exp_avg_sq"].movedim(dim, -1) + (1 - b2) * inner(point, rgrad)
-                new_point = project(expmap(-step_size * (m / (torch.sqrt(v) + group["eps"])), point))
+                new_point = project(expmap(-step_size * (m / (torch.sqrt(v) + EPS)), point))
                 state["exp_avg"].movedim(dim, -1).copy_(ptransp(point, new_point, m))
                 state["exp_avg_sq"].movedim(dim, -1).copy_(v)
                 point.copy_(new_point)

@@ -3,6 +3,8 @@
 Used by chip_smoke.py and the tests; nothing on the forward path imports
 this module.
 """
+import copy
+
 import numpy as np
 import torch
 
@@ -204,36 +206,61 @@ def knn_queue_insertions(x, k, row_step=1):
     return total / (s.shape[0] * s.shape[1])
 
 
-def float64_train_step(system, batch, graphs):
-    """One training step of a float64 copy of `system` (on the CPU, in
+def float64_train_step(system, batch, graphs, device="cpu"):
+    """One training step of a float64 copy of `system` (on `device`, in
     training mode, on the kNN graphs `graphs`, without rotation or
     dropout): its logs {"total_loss", "loss_metric", "loss_hyp"}, its
     gradients by parameter name and its new state_dict, as numpy.  The
     triplets are what the loss's sampler gives."""
-    import copy
-
     from .models import decode_vector_for_batch
 
     sys64 = copy.deepcopy(system)
     sys64.optimizer.zero_grad(set_to_none=True)
-    net = sys64.net.cpu().double().train()
+    net = sys64.net.to(device).double().train()
     for st in sys64.optimizer.state.values():
-        st.update({k: v.cpu().double() for k, v in st.items() if torch.is_tensor(v)})
-    pts = torch.as_tensor(batch["points"]).double()
-    dv = torch.as_tensor(decode_vector_for_batch(system.cfg, batch)).double()
-    _, x_p = net(pts, dv, idx_override=[g.cpu() for g in graphs])
-    losses, _ = sys64._losses_and_metrics(torch.Generator(), x_p,
-                                          torch.as_tensor(batch["labels"]).long())
+        st.update({k: v.to(device).double() for k, v in st.items() if torch.is_tensor(v)})
+    pts = torch.as_tensor(batch["points"]).to(device).double()
+    dv = torch.as_tensor(decode_vector_for_batch(system.cfg, batch)).to(device).double()
+    _, x_p = net(pts, dv, idx_override=[g.to(device) for g in graphs])
+    labels = torch.as_tensor(batch["labels"]).long().to(device)
+    losses, _ = sys64._losses_and_metrics(torch.Generator(device=device), x_p, labels)
     total = losses["loss_metric"] + losses["loss_hyp"]
     total.backward()
     logs = {"total_loss": float(total.detach()),
             **{k: float(v.detach()) for k, v in losses.items()}}
-    grads = {name: p.grad.numpy().copy() for name, p in net.named_parameters()}
+    grads = {name: p.grad.cpu().numpy().copy() for name, p in net.named_parameters()}
     sys64.apply_gradients()
-    return logs, grads, {k: v.numpy() for k, v in net.state_dict().items()}
+    return logs, grads, {k: v.cpu().numpy() for k, v in net.state_dict().items()}
+
+
+def permute_step_inputs(batch, graphs, triplets, perm):
+    """The inputs of one training step with each cloud's points reordered:
+    point perm[b, j] of cloud b becomes its point j (perm [B, N], CPU).
+
+    Returns (batch, graphs, triplets) for the reordered clouds: the graphs
+    [B, N, k] and the triplets' flat indices b N + i mapped to the new
+    positions.  The step computes the same function of them, and the same
+    gradients in exact arithmetic; only the order of its sums changes."""
+    B, N = perm.shape
+    inv = torch.argsort(perm, dim=1)
+    rows = torch.arange(B)[:, None]
+    out = {k: (torch.as_tensor(v)[rows, perm] if k in ("points", "labels") else v)
+           for k, v in batch.items()}
+    new_graphs = []
+    for g in graphs:
+        old = g.cpu().long()[rows, perm]  # [B, N, k]: the old neighbours of each new point
+        new = torch.gather(inv, 1, old.reshape(B, -1)).reshape(old.shape)
+        new_graphs.append(new.to(g.dtype))
+    flat = (inv + rows * N).reshape(-1)
+    t = triplets
+    return out, new_graphs, t._replace(anchor=flat[t.anchor.cpu()], positive=flat[t.positive.cpu()],
+                                       negative=flat[t.negative.cpu()])
 
 
 NEAR_TIE = 1e-3  # |sim(a,p) - sim(a,n)| below which two fp32 'easy' masks may differ
+ORDERS = 4  # point orders besides the given one in which the CPU's fp32 step is run
+FLOAT64_WITNESS = 1e-8  # card vs CPU float64 step: gradients / leaf's largest entry, logs rel.
+FACTOR = 4.0  # the card at most FACTOR times as far from float64 as the CPU's farthest fp32 step
 
 
 def check_train_step_card_vs_cpu(system, batch, seed=0):
@@ -244,19 +271,36 @@ def check_train_step_card_vs_cpu(system, batch, seed=0):
     triplets are drawn once on the CPU (from `seed`) and given to both; the
     CPU runs on the card's kNN graphs (kernel B1's) and takes the card's
     'easy' mask after checking that its own differs only at near-ties.
-    Tolerances, those of the CPU-vs-JAX test (tests/test_torch_train_step.py)
-    at its first step: logs within atol 1e-5 / rtol 1e-3 (accuracy and IoU
-    atol 0.02); parameters within atol 2e-4 / rtol 1e-4; running statistics
-    within atol 2e-4 / rtol 1e-3; and the card's logs, parameters and
-    statistics at least as close to the float64 step's as the CPU's (4
-    times the CPU's largest distance, plus 1e-5 relative for logs and 1e-6
-    for the state).  Gradients are held by their Frobenius norm: the card's
-    distance to the float64 gradient at most 4 times the CPU's plus 5 % of
-    the gradient's norm.  (A few entries of a gradient are rounding noise
-    of the ill-conditioned stage 1, ~10 % of the leaf's largest entry on
-    the card and on the CPU alike, and the CPU's rounding follows the
-    float64 step's order of operations, the card's does not.)  Raises
-    AssertionError; returns the largest errors.
+
+    The fp32 training forward is ill-conditioned (stage 1's self-edge), so
+    two fp32 steps that sum in other orders differ by far more than a
+    rounding (on the H100 a gradient entry of the CPU's fp32 step lies up
+    to 27 % of its leaf's largest entry from float64, and two orders of the
+    CPU's step up to 18 % apart).  Two witnesses tell a fault from it:
+    - the card's step in float64 equals the CPU's float64 step: gradients
+      within FLOAT64_WITNESS of each leaf's largest entry, logs within it
+      relative (H100 readings: up to 4.6e-10 at B=2, N=128, eucl = hyp = 8;
+      6.8e-12 at N=256, eucl = hyp = 32).  The card's plain path computes
+      the same function;
+    - the noise: the CPU's fp32 step is also run on the clouds with their
+      points reordered (`permute_step_inputs`, ORDERS seeded orders), the
+      same function with other sums.  The card's fp32 step must be no more
+      than FACTOR times as far from float64 as the farthest of these.
+    Tolerances, the CPU-vs-JAX test's (tests/test_torch_train_step.py) with
+    the CPU's fp32 steps in JAX's place: logs within atol 1e-5 / rtol 1e-3
+    (accuracy and IoU atol 0.02); gradients entry by entry at most FACTOR
+    times as far from the float64 gradient as the CPU's farthest, plus 1e-4,
+    as shares of the leaf's largest float64 entry (the card's and the CPU's
+    gradients are not held to each other directly: the CPU's own orders
+    differ by up to 18 %, and by the triangle inequality the bound above
+    keeps them within FACTOR + 1 times the CPU's farthest); parameters within
+    atol 2e-4 / rtol 1e-4 and running statistics within atol 2e-4 / rtol
+    1e-3 of the CPU's; logs, parameters and statistics at most FACTOR times
+    as far from the float64 step's as the CPU's farthest, plus 1e-5
+    relative for logs and 1e-6 for the state.
+    Raises AssertionError; returns the largest errors and, per gradient,
+    [card, CPU's farthest] from float64, card and CPU apart, the CPU's
+    orders apart, and the float64 steps apart.
     """
     from .loss import joint
     from .miner import cosine_similarity01, sample_balanced_triplets
@@ -266,70 +310,113 @@ def check_train_step_card_vs_cpu(system, batch, seed=0):
     cfg = system.cfg
     if cfg.dropout or cfg.train_rotation != "none":
         raise ValueError("the comparison needs dropout 0 and train_rotation 'none'")
+    before = copy.deepcopy(system)  # the card's system before its step
+    initial = {k: v.cpu() for k, v in before.net.state_dict().items()}
     cpu = HypHCSystem(cfg, device="cpu")
-    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    cpu.net.load_state_dict(initial)
     labels = torch.as_tensor(batch["labels"]).reshape(-1).long()
     trip = sample_balanced_triplets(torch.Generator().manual_seed(seed), labels, cfg.num_class,
                                     cfg.t_per_anchor, cfg.fraction, num_triplets=cfg.num_triplets)
     real_knn, real_filter, real_sampler = vn_dgcnn.knn, joint.margin_filter, \
         joint.sample_balanced_triplets
-    graphs, state = [], {"flips": 0}
+    graphs, state = [], {"flips": 0, "trip": trip}
 
     def sampler(generator, labels, *args, **kw):
-        return type(trip)(*(t.to(labels.device) for t in trip))
+        return type(trip)(*(t.to(labels.device) for t in state["trip"]))
 
     def card_knn(x, k):
         graphs.append(real_knn(x, k))
         return graphs[-1]
+
+    def given_graphs(gs):
+        it = iter(gs)
+        return lambda x, k: next(it).to(x.device)
 
     def margin_filter(emb, t, margin=0.0, type_of_triplets="easy"):
         if "mask" not in state:  # the card's step
             state["mask"] = real_filter(emb, t, margin, type_of_triplets).mask.cpu()
         elif emb.dtype == torch.float32:  # the CPU's: near-ties only may differ
             own = real_filter(emb, t, margin, type_of_triplets).mask
-            flipped = own != state["mask"]
+            flipped = own != state["mask"].to(own.device)
             a = emb[t.anchor[flipped]]
             tm = (cosine_similarity01(a, emb[t.positive[flipped]])
                   - cosine_similarity01(a, emb[t.negative[flipped]]))
             assert bool((tm.abs() < NEAR_TIE).all()), "card and CPU masks differ beyond near-ties"
-            state["flips"] = int(flipped.sum())
+            state["flips"] = max(state["flips"], int(flipped.sum()))
         return t._replace(mask=state["mask"].to(emb.device))
 
+    reordered = []
     try:
         joint.sample_balanced_triplets, joint.margin_filter = sampler, margin_filter
         vn_dgcnn.knn = card_knn
         logs = system.grads_and_logs(batch, torch.Generator(device=system.device))
         ref_logs, ref_grads, ref_sd = float64_train_step(cpu, batch, graphs)
-        vn_dgcnn.knn = lambda x, k, it=iter(graphs): next(it).to(x.device)
+        card64_logs, card64_grads, _ = float64_train_step(before, batch, graphs, system.device)
+        vn_dgcnn.knn = given_graphs(graphs)
         cpu_logs = cpu.grads_and_logs(batch, torch.Generator())
+        perm_gen = torch.Generator().manual_seed(seed + 1)
+        B, N = torch.as_tensor(batch["labels"]).shape
+        for _ in range(ORDERS):
+            perm = torch.stack([torch.randperm(N, generator=perm_gen) for _ in range(B)])
+            p_batch, p_graphs, state["trip"] = permute_step_inputs(batch, graphs, trip, perm)
+            vn_dgcnn.knn = given_graphs(p_graphs)
+            other = HypHCSystem(cfg, device="cpu")
+            other.net.load_state_dict(initial)
+            other_logs = other.grads_and_logs(p_batch, torch.Generator())
+            other_grads = {n: p.grad.double().numpy() for n, p in other.net.named_parameters()}
+            other.apply_gradients()
+            reordered.append((other_logs, other_grads,
+                              {n: v.double().numpy() for n, v in other.net.state_dict().items()}))
     finally:
         vn_dgcnn.knn, joint.margin_filter = real_knn, real_filter
         joint.sample_balanced_triplets = real_sampler
-    out = {"filter_flips": state["flips"]}
+    out = {"filter_flips": state["flips"], "max_rel_err_logs": 0.0, "float64_card_vs_cpu": 0.0,
+           "max_ratio_vs_float64": [0.0, ""]}  # card / (the CPU's farthest + slack), and where
 
-    def near_float64(got, cpu_val, ref, slack, what):
-        got, cpu_val = np.asarray(got, np.float64), np.asarray(cpu_val, np.float64)
-        d, d_cpu = np.abs(got - ref).max(), np.abs(cpu_val - ref).max()
-        assert d <= 4 * d_cpu + slack, f"{what}: card {d:.3e} from float64, CPU {d_cpu:.3e}"
+    for k, r in ref_logs.items():
+        gap = abs(card64_logs[k] - r) / max(abs(r), 1e-30)
+        assert gap <= FLOAT64_WITNESS, f"{k}: the card's float64 step {gap:.3e} from the CPU's"
+        out["float64_card_vs_cpu"] = max(out["float64_card_vs_cpu"], gap)
+
+    def near_float64(got, cpu_vals, ref, slack, what):
+        d = np.abs(np.asarray(got, np.float64) - ref).max()
+        d_cpu = max(np.abs(np.asarray(c, np.float64) - ref).max() for c in cpu_vals)
+        ratio = float(d / (d_cpu + slack))
+        if ratio > out["max_ratio_vs_float64"][0]:
+            out["max_ratio_vs_float64"] = [ratio, what]
+        assert d <= FACTOR * d_cpu + slack, f"{what}: card {d:.3e} from float64, CPU {d_cpu:.3e}"
 
     for k, v in logs.items():
         g, c = float(v), float(cpu_logs[k])
         tol = (0.02, 0.0) if k in ("acc", "iou") else (1e-5, 1e-3)
         assert abs(g - c) <= tol[0] + tol[1] * abs(c), f"{k}: card {g}, CPU {c}"
         if k in ref_logs:
-            near_float64(g, c, ref_logs[k], 1e-5 * abs(ref_logs[k]), k)
-        out.setdefault("max_rel_err_logs", 0.0)
+            near_float64(g, [c] + [float(lg[k]) for lg, _, _ in reordered], ref_logs[k],
+                         1e-5 * abs(ref_logs[k]), k)
         out["max_rel_err_logs"] = max(out["max_rel_err_logs"], abs(g - c) / max(abs(c), 1e-12))
-    cpu_grads = dict(cpu.net.named_parameters())
-    out["max_grad_rel_err"] = 0.0
+    cpu_grads = {n: p.grad.double().numpy() for n, p in cpu.net.named_parameters()}
+    grads = {"card_vs_float64": 0.0, "cpu_vs_float64": 0.0, "card_vs_cpu": 0.0,
+             "cpu_vs_cpu_reordered": 0.0}
+    out["grad_leaves"] = {}
     for name, p in system.net.named_parameters():
-        g, c = p.grad.cpu().double(), cpu_grads[name].grad.double()
-        r = torch.from_numpy(ref_grads[name])
-        d, d_cpu, norm = float((g - r).norm()), float((c - r).norm()), float(r.norm())
-        assert d <= 4 * d_cpu + 0.05 * norm, \
-            f"gradient of {name}: card {d:.3e} from float64, CPU {d_cpu:.3e}, norm {norm:.3e}"
-        out["max_grad_rel_err"] = max(out["max_grad_rel_err"],
-                                      float((g - c).norm()) / max(norm, 1e-30))
+        g, r = p.grad.cpu().double().numpy(), ref_grads[name]
+        scale = max(float(np.abs(r).max()), 1e-30)
+        gap64 = float(np.abs(card64_grads[name] - r).max()) / scale
+        assert gap64 <= FLOAT64_WITNESS, \
+            f"gradient of {name}: the card's float64 step {gap64:.3e} from the CPU's"
+        d = float(np.abs(g - r).max()) / scale
+        d_cpu = max(float(np.abs(c[name] - r).max()) / scale
+                    for c in [cpu_grads] + [gs for _, gs, _ in reordered])
+        direct = float(np.abs(g - cpu_grads[name]).max()) / scale
+        spread = max(float(np.abs(gs[name] - cpu_grads[name]).max()) / scale
+                     for _, gs, _ in reordered)
+        out["grad_leaves"][name] = [d, d_cpu, direct, spread, gap64]
+        assert d <= FACTOR * d_cpu + 1e-4, \
+            f"gradient of {name}: card {d:.3e} from float64, the CPU's fp32 steps {d_cpu:.3e}"
+        out["float64_card_vs_cpu"] = max(out["float64_card_vs_cpu"], gap64)
+        for key, val in zip(grads, (d, d_cpu, direct, spread)):
+            grads[key] = max(grads[key], val)
+    out["max_grad_share"] = grads
     system.apply_gradients()
     cpu.apply_gradients()
     cpu_sd, out["max_abs_err_params"], out["max_abs_err_stats"] = cpu.net.state_dict(), 0.0, 0.0
@@ -342,7 +429,7 @@ def check_train_step_card_vs_cpu(system, batch, seed=0):
         err = np.abs(g - c)
         assert (err <= atol + rtol * np.abs(c)).all(), \
             f"{name}: card and CPU differ by {err.max():.3e}"
-        near_float64(g, c, ref_sd[name], 1e-6, name)
+        near_float64(g, [c] + [sd[name] for _, _, sd in reordered], ref_sd[name], 1e-6, name)
         key = "max_abs_err_stats" if running else "max_abs_err_params"
         out[key] = max(out[key], float(err.max()))
     return out

@@ -10,7 +10,14 @@ for the packed Riemannian Adam moments.
 import numpy as np
 import torch
 
-from ..models.base import ball_dim
+
+def ball_dim(name, p):
+    """The axis of a port parameter whose vectors are points of the ball for
+    Riemannian Adam: the flax leaf's last axis.  The weights [out, in, ...]
+    are flax kernels [in, out] transposed here, so theirs is dim 0; vectors
+    (BatchNorm weight and bias, `scale`) and the CosFace weights, [hyp, L]
+    in both packages, keep the last."""
+    return 0 if p.dim() >= 2 and not name.endswith("loss_cosface.W") else -1
 
 
 def _t(w):

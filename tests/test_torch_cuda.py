@@ -14,9 +14,7 @@ import torch
 
 from _torch_port import adjacent_dup_cloud, lattice_cloud, line_cloud, require_cuda, tie_cloud
 from hpcs_torch.data import SyntheticPartDataset
-from hpcs_torch.decode import cosine_distance_matrix, linkage_from_distances_mnn
-from hpcs_torch.geometry import project
-from hpcs_torch.loss import normalize_to_radius
+from hpcs_torch.decode import cosine_distance_matrix, decode_leaves, linkage_from_distances_mnn
 from hpcs_torch.models import HypHCSystem, ModelConfig, decode_vector_for_batch
 from hpcs_torch.ops import edgeconv as E
 from hpcs_torch.ops import knn as K
@@ -310,7 +308,7 @@ def test_cosine_distances_on_gpu_equal_cpu():
     scale = torch.tensor(1e-3)
 
     def distances(t, s):
-        return cosine_distance_matrix(project(normalize_to_radius(t, s, exact=True), exact=True))
+        return cosine_distance_matrix(decode_leaves(t, s))
 
     torch.testing.assert_close(distances(x.cuda(), scale.cuda()).cpu(), distances(x, scale),
                                rtol=0, atol=0)

@@ -21,7 +21,9 @@ import torch
 from hpcs_tpu import geometry as G
 from hpcs_tpu.geometry.math_ops import l2_normalize as j_l2_normalize
 from hpcs_torch import geometry as P
-from hpcs_torch.geometry.math_ops import l2_normalize
+from hpcs_torch.decode import decode_leaves
+from hpcs_torch.geometry.math_ops import l2_normalize, l2_normalize_rn
+from hpcs_torch.loss import normalize_to_radius
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 TOL_LCA = dict(atol=1e-4, rtol=1e-3)
@@ -165,9 +167,14 @@ def test_hyp_lca_at_the_loss_radii():
             _check_vs_float64(*_pair("hyp_lca_depth"), an, bn)
 
 
-def test_project_exact_and_plain_agree():
+@pytest.mark.parametrize("scale", [1e-3, 0.5, 1.0])
+def test_decode_leaves_and_plain_forms_agree(scale):
+    """The decode's exactly rounded leaves are the losses' plain
+    project(normalize_to_radius(x, scale)) up to rounding."""
     x = torch.from_numpy(1.2 * _points(11, INSIDE + EDGE + OUTSIDE, d=32))
-    torch.testing.assert_close(P.project(x, exact=True), P.project(x), rtol=0, atol=1e-7)
+    s = torch.tensor(scale)
+    torch.testing.assert_close(decode_leaves(x, s), P.project(normalize_to_radius(x, s)),
+                               rtol=0, atol=1e-7)
 
 
 @pytest.mark.parametrize("dim", [0, 1, -1])
@@ -188,6 +195,11 @@ def test_plain_l2_normalize_of_a_zero_vector():
     assert np.isnan(gj[0]).all() and (g[0] == np.float32(1e12)).all()
 
 
-def test_exact_l2_normalize_takes_the_last_axis_only():
-    with pytest.raises(ValueError, match="last axis"):
-        l2_normalize(torch.ones(3, 4), dim=0, exact=True)
+def test_l2_normalize_rn_and_plain_agree():
+    """The decode's l2_normalize_rn (exactly rounded norm, last axis) and
+    the plain l2_normalize differ by rounding only; both map 0 to 0."""
+    x = np.random.default_rng(13).standard_normal((6, 40, 32)).astype(np.float32)
+    x[0, 0] = 0.0
+    t = torch.from_numpy(x)
+    torch.testing.assert_close(l2_normalize_rn(t), l2_normalize(t), rtol=0, atol=1e-7)
+    assert not l2_normalize_rn(t)[0, 0].any()

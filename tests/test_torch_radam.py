@@ -22,9 +22,8 @@ from _torch_port import jax_port_pair, load_opt_state, numpy_opt_state, to_numpy
 from hpcs_tpu.optim import plateau_init as j_plateau_init
 from hpcs_tpu.optim import plateau_update as j_plateau_update
 from hpcs_tpu.optim import riemannian_adam_fused
-from hpcs_torch.models.base import ball_dim
 from hpcs_torch.optim import RiemannianAdam, plateau_init, plateau_update
-from hpcs_torch.utils.jax_params import _params_sd, from_jax_opt_state
+from hpcs_torch.utils.jax_params import _params_sd, ball_dim, from_jax_opt_state
 
 TOL = dict(atol=1e-6, rtol=1e-5)
 

@@ -20,17 +20,19 @@ accuracy and IoU within 0.02 (a point or two of 192 on the other side of
 an argmax near-tie).
 Gradients: the port's at least as close to its own float64 gradient as
 JAX's is (4 times JAX's distance, plus 1e-4 of the leaf's largest
-entry); at the first step also within 10 % of the leaf's largest entry of
-JAX's.  JAX's own distance from that float64 gradient reaches 5 % of it
-at the first step (conv7's weight, whose BatchNorm over B = 2 samples
-leaves it almost no gradient; the port's is 0.1-4 %) and 14 % at the
-second (conv1's weight), where the port stays within 1 %.
+entry), and within a share of the leaf's largest entry of JAX's: 10 % at
+the first step, 50 % at the second.  JAX's own distance from that float64
+gradient reaches 5 % of it at the first step (conv7's weight, whose
+BatchNorm over B = 2 samples leaves it almost no gradient; the port's is
+0.1-5 %) and 36 % at the second (conv2's map_to_feat), where the port
+stays within 2 %.
 The new parameters and running statistics: the port's at least as close
-to its own float64 step's as JAX's are (4 times, plus 1e-6); at the first
-step also, Riemannian Adam dividing each row's moment by its norm (a row
-moves ~lr whatever its gradient's size), parameters within atol 2e-4 (4 %
-of lr 0.005) / rtol 1e-4 of JAX's and running statistics within atol
-2e-4 / rtol 1e-3.
+to its own float64 step's as JAX's are (4 times, plus 1e-6), and within
+a stated distance of JAX's.  Riemannian Adam divides each row's moment by
+its norm, so a row moves ~lr whatever its gradient's size: parameters
+within atol 2e-4 (4 % of lr 0.005) / rtol 1e-4 of JAX's at the first step
+and atol 5e-4 (10 % of lr; 3.2e-4 measured, conv1's BatchNorm bias) at
+the second; running statistics within atol 2e-4 / rtol 1e-3 at both.
 """
 import copy
 
@@ -52,14 +54,16 @@ from hpcs_tpu.models.base import decode_vector_for_batch as j_decode_vector
 from hpcs_torch import trainer
 from hpcs_torch.nn.backbones import vn_dgcnn
 from hpcs_torch.ops.knn import knn_plain
-from hpcs_torch.testing import check_train_step_card_vs_cpu, float64_train_step
+from hpcs_torch.testing import (check_train_step_card_vs_cpu, float64_train_step,
+                                permute_step_inputs)
 from hpcs_torch.utils.jax_params import _params_sd, from_jax_opt_state, from_jax_params
 
 CFG = dict(dropout=0.0, train_rotation="none", t_per_anchor=10, temperature=0.1,
            trade_off=0.1, lr=0.005)
 TOL_LOGS = dict(atol=1e-5, rtol=1e-3)
 TOL_METRICS = dict(atol=0.02, rtol=0)  # an argmax near-tie or two among the points
-TOL_PARAMS = dict(atol=2e-4, rtol=1e-4)
+TOL_PARAMS = [dict(atol=2e-4, rtol=1e-4), dict(atol=5e-4, rtol=1e-4)]  # by step
+GRAD_SHARE = [0.1, 0.5]  # |port - JAX| / the leaf's largest float64 entry, by step
 TOL_STATS = dict(atol=2e-4, rtol=1e-3)
 
 
@@ -69,11 +73,10 @@ def _rotated(batch, seed=3):
     return {**batch, "points": pts}
 
 
-def _grad_close(got, want, ref, name, direct):
+def _grad_close(got, want, ref, name, share):
     scale = float(np.abs(ref).max())
     assert np.abs(got - ref).max() <= 4 * np.abs(want - ref).max() + 1e-4 * scale, name
-    if direct:
-        assert np.abs(got - want).max() <= 0.1 * scale, name
+    assert np.abs(got - want).max() <= share * scale, name
 
 
 @pytest.fixture(scope="module")
@@ -149,7 +152,7 @@ def test_two_train_steps_match_jax(pair, monkeypatch):
         jgrads = _params_sd(to_numpy_tree(grads))
         for name, p in tsys.net.named_parameters():
             _grad_close(p.grad.numpy(), jgrads[name].reshape(p.shape).numpy(), ref[name], name,
-                        direct=step == 0)
+                        GRAD_SHARE[step])
         tsys.apply_gradients()
 
         want = from_jax_params(to_numpy_tree(state.params), to_numpy_tree(state.batch_stats))
@@ -159,9 +162,8 @@ def test_two_train_steps_match_jax(pair, monkeypatch):
                 continue
             g, w, r = got[name].double().numpy(), w.double().numpy(), ref_sd[name]
             assert np.abs(g - r).max() <= 4 * np.abs(w - r).max() + 1e-6, name
-            if step == 0:
-                tol = TOL_STATS if "running" in name else TOL_PARAMS
-                np.testing.assert_allclose(g, w, err_msg=name, **tol)
+            tol = TOL_STATS if "running" in name else TOL_PARAMS[step]
+            np.testing.assert_allclose(g, w, err_msg=name, **tol)
     assert int(state.step) == 2 and all(s["step"] == 2 for s in tsys.optimizer.state.values())
 
 
@@ -256,3 +258,39 @@ def test_card_vs_cpu_check_rehearsed_on_the_cpu():
     assert tsys.step == 1
     with pytest.raises(ValueError, match="dropout"):
         check_train_step_card_vs_cpu(_small_system(), synthetic_batch(2, 64))
+
+
+def test_reordered_points_give_the_same_float64_step(monkeypatch):
+    """permute_step_inputs reorders the points, graphs and triplets of a
+    step consistently: in float64 the step's logs and gradients are those of
+    the given order within 1e-10 (relative, and of each leaf's largest
+    entry), its running statistics within 1e-12."""
+    from _torch_port import synthetic_batch
+    from hpcs_torch.loss import joint
+    from hpcs_torch.miner import sample_balanced_triplets
+
+    tsys = _small_system(dropout=0.0, train_rotation="none")
+    batch = synthetic_batch(2, 64, seed=4)
+    labels = torch.as_tensor(batch["labels"]).reshape(-1).long()
+    trip = sample_balanced_triplets(torch.Generator().manual_seed(0), labels, 6, 5, 0.5)
+    trip = trip._replace(mask=torch.ones_like(trip.mask))
+    monkeypatch.setattr(joint, "margin_filter", lambda emb, t, *a, **kw: t)
+    pts = torch.as_tensor(batch["points"])
+    graphs = [knn_plain(pts, 6)]  # any graphs serve; stage 1's and the others' alike
+    graphs = graphs * 3
+    perm = torch.stack([torch.randperm(64, generator=torch.Generator().manual_seed(s))
+                        for s in range(2)])
+    p_batch, p_graphs, p_trip = permute_step_inputs(batch, graphs, trip, perm)
+    runs = []
+    for b, gs, t in ((batch, graphs, trip), (p_batch, p_graphs, p_trip)):
+        monkeypatch.setattr(joint, "sample_balanced_triplets", lambda *a, t=t, **kw: t)
+        runs.append(float64_train_step(tsys, b, gs))
+    (logs, grads, sd), (p_logs, p_grads, p_sd) = runs
+    for k, v in logs.items():
+        assert abs(p_logs[k] - v) <= 1e-10 * abs(v), k
+    for name, g in grads.items():
+        assert np.abs(p_grads[name] - g).max() <= 1e-10 * np.abs(g).max(), name
+    for name, v in sd.items():
+        if "running" in name:
+            np.testing.assert_allclose(p_sd[name], v, rtol=0, atol=1e-12, err_msg=name)
+    assert not torch.equal(p_batch["points"], torch.as_tensor(batch["points"]))
