@@ -48,7 +48,19 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    times a step and B2 never, every loss and parameter finite; a profile of
    2 steps; and trainer.fit for 1 epoch of 2 training batches and 1
    validation batch, whose validation launches B2 3 times;
-8. prints one JSON line per kernel summary, the card's name and power
+8. runs the entry points (phase entry) in a temporary working directory
+   holding a ShapeNet-Part tree of 4 categories (Airplane, Chair, Table,
+   Lamp; 8 / 2 / 8 objects each, hpcs_torch.testing.write_mini_shapenet):
+   `python -m hpcs_torch.train`'s main with the flagship flags (N=1024,
+   k=20, eucl = hyp = 32, 16 categories, 50 classes, B=8) for 2 epochs,
+   again with --resume from its last/ checkpoint for a third, then
+   `python -m hpcs_torch.infer shapenet` on final/ for 2 requests of 16
+   clouds; checks the metric records, the checkpoints, the restored state,
+   infer against trainer.test on the trained system in memory (prediction,
+   best k, best score and linkage exactly, the losses within rtol 1e-5)
+   and the kernels' launches of each run; times the epochs, the requests
+   and the loader;
+9. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -568,6 +580,181 @@ def train_phase(card):
     return out
 
 
+ENTRY_CATEGORIES = ("Airplane", "Chair", "Table", "Lamp")
+ENTRY_SPLITS = (8, 2, 8)  # objects per category: train, val, test
+ENTRY_FLAGS = ["--dataset", "shapenet", "--model", "vn_dgcnn_partseg", "--fixed_points", str(N),
+               "--k", str(K), "--eucl_embedding", str(EUCL), "--hyp_embedding", str(HYP),
+               "--margin", "0.35", "--t_per_anchor", "50", "--temperature", "0.05", "--lr",
+               "0.05", "--trade_off", "0.1", "--batch", str(TRAIN_B), "--log", "logs"]
+
+
+def entry_phase(card):
+    """The entry points on the card: train 2 epochs, resume for 1, infer."""
+    import tempfile
+
+    from hpcs_torch import infer, train, trainer
+    from hpcs_torch.cli import freeze_hierarchy
+    from hpcs_torch.data import DataLoader, ShapeNetDataset, fast_txt
+    from hpcs_torch.data import loader as loader_module
+    from hpcs_torch.models import HypHCSystem, ModelConfig
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.testing import check_same_test_outputs, record_test_steps, write_mini_shapenet
+    from hpcs_torch.utils.checkpoint import load_config, restore_checkpoint
+
+    passes = []  # host seconds of each pass over a DataLoader, in order
+    iterate = loader_module.DataLoader.__iter__
+
+    def timed_iter(self):
+        it, total = iterate(self), 0.0
+        try:
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    total += time.perf_counter() - t
+                yield batch
+        finally:
+            passes.append(total)
+
+    def run(fn, argv):
+        """fn(argv) with every launch count at 0 before; (its result, the
+        counts after, its loader passes, seconds)."""
+        KN.knn.launches = KN.knn.wide_launches = 0
+        E.edgeconv_infer.launches = 0
+        del passes[:]
+        t = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {"knn": KN.knn.launches, "knn_wide": KN.knn.wide_launches,
+                    "edgeconv": E.edgeconv_infer.launches}
+        return out, launches, list(passes), seconds
+
+    def expect(name, launches, train_steps, eval_batches):
+        want = {"knn": 3 * (train_steps + eval_batches), "knn_wide": 0,
+                "edgeconv": 3 * eval_batches}
+        if launches != want:
+            fail(f"entry: {name} launched {launches}, expected {want}")
+
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t = time.perf_counter()
+        write_mini_shapenet(os.path.join(tmp.name, "data", "ShapeNet", "raw"), ENTRY_CATEGORIES,
+                            ENTRY_SPLITS, seed=SEED)
+        write_s = time.perf_counter() - t
+        # the C++ txt parser is built with g++ at first use: build it here,
+        # so the first epoch's loader time is the reading alone
+        t = time.perf_counter()
+        cpp_parser = fast_txt.available()
+        parser_build_s = time.perf_counter() - t
+        os.chdir(tmp.name)
+        loader_module.DataLoader.__iter__ = timed_iter
+        n_train, n_val, n_test = (len(ENTRY_CATEGORIES) * n for n in ENTRY_SPLITS)
+        steps, val_batches = n_train // TRAIN_B, n_val // TRAIN_B
+        test_batches = min(10, -(-n_test // TRAIN_B))
+        run_dir = os.path.join("logs", "shapenet_vn_dgcnn_partseg")
+        ckpt = os.path.join(run_dir, "checkpoints")
+
+        (_, first_results), l1, p1, s1 = run(train.main, ENTRY_FLAGS + ["--epochs", "2"])
+        expect("train (2 epochs)", l1, 2 * steps, 2 * val_batches + test_batches)
+        (trained, results), l2, p2, s2 = run(
+            train.main, ENTRY_FLAGS + ["--epochs", "3", "--resume", os.path.join(ckpt, "last")])
+        expect("train --resume (1 epoch)", l2, steps, val_batches + test_batches)
+        with record_test_steps() as served:
+            (restored, served_results), l3, p3, s3 = run(infer.main, [
+                "shapenet", "--model_path", os.path.join(ckpt, "final"), "--fixed_points",
+                str(N), "--batch", str(B), "--test_batches", "2"])
+        expect("infer (2 requests)", l3, 0, 2)
+        loader_module.DataLoader.__iter__ = iterate
+
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        epochs = [r for r in records if "epoch" in r]
+        tests = [r for r in records if "epoch" not in r]
+        if [r["epoch"] for r in epochs] != [0, 1, 2] or len(tests) != 2:
+            fail(f"entry: records of epochs {[r['epoch'] for r in epochs]} and {len(tests)} "
+                 f"test records, expected epochs 0, 1, 2 and 2 test records")
+        names = {"epoch", "train_total_loss", "loss_metric", "loss_hyp", "train_acc",
+                 "train_iou", "scale", "val_loss", "acc", "iou", "lr", "temperature",
+                 "epoch_time_s", "step", "_time"}
+        for r in epochs:
+            if set(r) != names:
+                fail(f"entry: epoch record keys {sorted(r)}")
+            if not all(np.isfinite(r[k]) for k in ("train_total_loss", "loss_metric", "loss_hyp",
+                                                    "val_loss")) or r["scale"] == 1e-3:
+                fail(f"entry: epoch record {r}")
+        if [r["step"] for r in epochs] != [steps, 2 * steps, 3 * steps]:
+            fail(f"entry: steps {[r['step'] for r in epochs]}")
+        for r, want in zip(tests, (first_results, results)):
+            if set(r) != {"test_loss", "score", "test_acc", "test_iou", "_time"} or any(
+                    r[k] != v for k, v in want.items()) or not np.isfinite(r["test_loss"]):
+                fail(f"entry: test record {r} against {want}")
+        for name in ("best", "last", "final"):
+            if sorted(os.listdir(os.path.join(ckpt, name))) != ["config.json", "model.ckpt"]:
+                fail(f"entry: checkpoint {name} holds {os.listdir(os.path.join(ckpt, name))}")
+
+        # final/ restored into a fresh system equals the trained one
+        cfg_dict = load_config(os.path.join(ckpt, "final"))
+        cfg_dict["hierarchy_list"] = freeze_hierarchy(cfg_dict["hierarchy_list"])
+        fresh = HypHCSystem(ModelConfig(**cfg_dict), generator=torch.Generator().manual_seed(7))
+        restore_checkpoint(os.path.join(ckpt, "final"), fresh)
+        for label, sd in (("restored", fresh.state_dict()), ("infer", restored.state_dict())):
+            want = trained.state_dict()
+            for k, v in want["net"].items():
+                if not torch.equal(sd["net"][k], v):
+                    fail(f"entry: {label} state differs from the trained one at {k}")
+            for p, st in want["optimizer"]["state"].items():
+                if not all(torch.equal(sd["optimizer"]["state"][p][k], v)
+                           for k, v in st.items() if torch.is_tensor(v)):
+                    fail(f"entry: {label} optimizer state differs at parameter {p}")
+            if sd["step"] != want["step"]:
+                fail(f"entry: {label} step {sd['step']} against {want['step']}")
+
+        # infer against trainer.test on the trained system, same batches and seed
+        test_loader = DataLoader(ShapeNetDataset("data/ShapeNet/raw", N, "test"), B,
+                                 shuffle=True, seed=SEED)
+        with record_test_steps() as in_memory:
+            in_memory_results = trainer.test(trained, test_loader, seed=SEED, limit_batches=2)
+        try:
+            logs_rel = check_same_test_outputs(served, in_memory)
+        except AssertionError as e:
+            fail(f"entry: infer differs from trainer.test in memory: {e}")
+        for c in served:
+            if c["linkage"].shape != (B, N - 1, 4) or not 0 <= c["logs"]["score"] <= 1:
+                fail("entry: infer's output shapes or score")
+    finally:
+        loader_module.DataLoader.__iter__ = iterate
+        os.chdir(cwd)
+        tmp.cleanup()
+
+    epoch_s = [r["epoch_time_s"] for r in epochs]
+    # loader passes per run: train and validation per epoch, then the test
+    loader_s = [p1[0] + p1[1], p1[2] + p1[3], p2[0] + p2[1]]
+    out = dict(categories=list(ENTRY_CATEGORIES), objects_per_split=[n_train, n_val, n_test],
+               B_train=TRAIN_B, B_infer=B, N=N, k=K, eucl=EUCL, hyp=HYP,
+               train_steps_per_epoch=steps, val_batches=val_batches, test_batches=test_batches,
+               launches={"train": l1, "resume": l2, "infer": l3},
+               epoch_seconds=epoch_s, loader_seconds_per_epoch=loader_s,
+               loader_share_of_epoch=[a / b for a, b in zip(loader_s, epoch_s)],
+               txt_parser="C++ (hpcs_torch/data/csrc/fast_txt.cpp)" if cpp_parser
+               else "numpy.loadtxt", txt_parser_build_seconds=parser_build_s,
+               test_loader_seconds=[p1[4], p2[2]], infer_loader_seconds=p3,
+               infer_seconds_per_request=[c["seconds"] for c in served],
+               infer_call_seconds=s3, train_call_seconds=[s1, s2],
+               write_tree_seconds=write_s, scale=[r["scale"] for r in epochs],
+               train_total_loss=[r["train_total_loss"] for r in epochs],
+               val_loss=[r["val_loss"] for r in epochs], test_results=[first_results, results],
+               infer_results=served_results, in_memory_results=in_memory_results,
+               infer_vs_in_memory_max_rel_log_diff=logs_rel, card=card)
+    emit("entry", **out)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every phase's results to this file")
@@ -796,8 +983,11 @@ def main():
         wide = knn_wide_phase(KN, rng, card)
     decode = decode_phase(system, cfg, batches, card)
     train = train_phase(card)
+    entry = entry_phase(card)
+    entry_launches = {k: sum(run[k] for run in entry["launches"].values())
+                      for k in ("knn", "knn_wide", "edgeconv")}
 
-    # 7. summary lines
+    # 9. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
     knn_plain_total = plain_ms["d3"] + 2 * plain_ms["d63"]
     knn_ops = w3[0] + 2 * w63[0]
@@ -810,20 +1000,22 @@ def main():
         dict(name="knn", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
              launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
-             + train["fit_launches"]["knn"],
+             + train["fit_launches"]["knn"] + entry_launches["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
         dict(name="knn_wide", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
              launches=launches["knn_wide"] + decode["launches"]["knn_wide"]
-             + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"],
+             + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
+             + entry_launches["knn_wide"],
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
-             + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"],
+             + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
+             + entry_launches["edgeconv"],
              max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),

@@ -6,13 +6,7 @@ of the JAX package's generator for the same seed.
 """
 import numpy as np
 
-
-def pc_normalize(pc):
-    """Center to the centroid, scale to the unit max-radius sphere."""
-    pc = np.asarray(pc, np.float32)
-    pc = pc - pc.mean(axis=0)
-    m = np.max(np.sqrt((pc ** 2).sum(axis=1)))
-    return pc / max(m, 1e-12)
+from .transforms import pc_normalize
 
 
 def _primitive(rng, kind, n):

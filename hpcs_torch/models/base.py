@@ -106,6 +106,19 @@ def decode_batch(x_poincare, labels, scale, num_class):
     return pred, best_k, best_score, Z
 
 
+def _refuse_unported(cfg):
+    """Raise NotImplementedError, naming the ROADMAP item, for a
+    configuration whose path the port does not have yet."""
+    if cfg.model_name != "vn_dgcnn_partseg":
+        raise NotImplementedError(f"model {cfg.model_name!r}: the port has VN-DGCNN "
+                                  "(vn_dgcnn_partseg) only; the other backbones are ROADMAP A10")
+    if cfg.bf16:
+        raise NotImplementedError("bf16: the bf16 backbone is not ported yet (ROADMAP A5b)")
+    if cfg.layout != "cv":
+        raise NotImplementedError(f"layout {cfg.layout!r}: the 'vc' layout is the JAX "
+                                  "package's TPU layout; the port computes in 'cv'")
+
+
 class HypHCSystem:
     """The model on its device, with its optimizer and schedules.
 
@@ -117,6 +130,7 @@ class HypHCSystem:
     """
 
     def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         net = HypHCNet(cfg)

@@ -1,7 +1,9 @@
 """Static configuration of the model, its losses and its training.
 
-The fields the eval forward, test_step and the training path read, with
-the defaults of the JAX package's ModelConfig.
+The fields and defaults of the JAX package's ModelConfig, in its order, so
+a config.json written by either package loads with `ModelConfig(**d)`.
+`HypHCSystem` refuses the values whose path is not ported yet (another
+`model_name`, `bf16`, `layout="vc"`, `pooling="max"`).
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -11,8 +13,10 @@ from typing import Optional, Tuple
 class ModelConfig:
     # data / task
     dataset: str = "shapenet"  # 'shapenet' | 'partnet'
+    model_name: str = "vn_dgcnn_partseg"
     num_class: int = 50
     num_categories: int = 16
+    fixed_points: int = 512
     # embedding dims
     eucl_dim: int = 2
     hyp_dim: int = 2
@@ -38,6 +42,10 @@ class ModelConfig:
     test_rotation: str = "so3"
     # optimization
     lr: float = 0.005
+    bf16: bool = False  # bf16 compute in the backbone (ROADMAP A5b)
+    # VN feature layout: "cv" [.., C, 3]; "vc" [.., 3, C] is the JAX
+    # package's lane-major layout for the TPU, with the same parameters
+    layout: str = "cv"
     # hierarchy (PartNet): nested per-level branch lists of leaf ids
     hierarchy_list: Tuple = ()
 

@@ -1,9 +1,14 @@
-"""Checks of the port's kernels against their plain versions.
+"""Checks of the port's kernels against their plain versions, and the
+test data and probes of the entry points' checks.
 
 Used by chip_smoke.py and the tests; nothing on the forward path imports
 this module.
 """
+import contextlib
 import copy
+import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -433,3 +438,110 @@ def check_train_step_card_vs_cpu(system, batch, seed=0):
         key = "max_abs_err_stats" if running else "max_abs_err_params"
         out[key] = max(out[key], float(err.max()))
     return out
+
+
+# ShapeNet-Part's 16 categories and their synset offsets, in the order of the
+# dataset's synsetoffset2category.txt (a category's id is its line's position)
+SHAPENET_SYNSETS = {
+    "Airplane": "02691156", "Bag": "02773838", "Cap": "02954340", "Car": "02958343",
+    "Chair": "03001627", "Earphone": "03261776", "Guitar": "03467517", "Knife": "03624134",
+    "Lamp": "03636649", "Laptop": "03642001", "Motorbike": "03790512", "Mug": "03797390",
+    "Pistol": "03948459", "Rocket": "04099429", "Skateboard": "04225987", "Table": "04379243",
+}
+
+
+def write_mini_shapenet(root, categories=("Airplane", "Chair"), per_split=(4, 2, 4), seed=0,
+                        points=2600):
+    """Write a ShapeNet-Part tree under `root` (the directory a
+    ShapeNetDataset reads) and return root.
+
+    synsetoffset2category.txt lists all 16 categories; `categories` get
+    per_split = (train, val, test) objects each, as
+    `<synset>/<token>.txt` with rows "x y z nx ny nz seg" of `points`
+    points, each part of the category (its labels in SEG_CLASSES) an
+    anisotropic Gaussian blob; the split lists
+    train_test_split/shuffled_{split}_file_list.json name them.
+    """
+    from .data.shapenet import SEG_CLASSES
+
+    os.makedirs(os.path.join(root, "train_test_split"), exist_ok=True)
+    with open(os.path.join(root, "synsetoffset2category.txt"), "w") as f:
+        f.writelines(f"{name}\t{synset}\n" for name, synset in SHAPENET_SYNSETS.items())
+    rng = np.random.default_rng(seed)
+    splits = {"train": [], "val": [], "test": []}
+    for cat in categories:
+        synset = SHAPENET_SYNSETS[cat]
+        os.makedirs(os.path.join(root, synset), exist_ok=True)
+        parts = SEG_CLASSES[cat]
+        per = np.full(len(parts), points // len(parts))
+        per[:points - per.sum()] += 1
+        idx = 0
+        for split, count in zip(("train", "val", "test"), per_split):
+            for _ in range(count):
+                token = f"{cat.lower()}_{idx:04d}"
+                pts = np.concatenate([rng.uniform(-0.6, 0.6, 3)
+                                      + rng.standard_normal((n, 3)) * rng.uniform(0.05, 0.35, 3)
+                                      for n in per])
+                seg = np.repeat(parts, per)
+                normals = rng.standard_normal(pts.shape)
+                normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+                np.savetxt(os.path.join(root, synset, f"{token}.txt"),
+                           np.concatenate([pts, normals, seg[:, None]], axis=1), fmt="%.6f")
+                splits[split].append(f"shape_data/{synset}/{token}")
+                idx += 1
+    for split, items in splits.items():
+        with open(os.path.join(root, "train_test_split",
+                               f"shuffled_{split}_file_list.json"), "w") as f:
+            json.dump(items, f)
+    return root
+
+
+@contextlib.contextmanager
+def record_test_steps():
+    """Record every HypHCSystem.test_step call made inside the block.
+
+    Yields a list that gains one dict per call: its "logs" as floats, its
+    "pred", "best_k", "best_score" and "linkage" on the CPU, and its
+    "seconds" on the host clock (after a synchronize on a CUDA system).
+    """
+    from .models import HypHCSystem
+
+    calls, original = [], HypHCSystem.test_step
+
+    def recorded(self, batch, generator):
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        sync()
+        t = time.perf_counter()
+        logs, extras = original(self, batch, generator)
+        sync()
+        seconds = time.perf_counter() - t
+        calls.append(dict(logs={k: float(v) for k, v in logs.items()}, seconds=seconds,
+                          **{k: extras[k].cpu() for k in ("pred", "best_k", "best_score",
+                                                          "linkage")}))
+        return logs, extras
+
+    HypHCSystem.test_step = recorded
+    try:
+        yield calls
+    finally:
+        HypHCSystem.test_step = original
+
+
+def check_same_test_outputs(got, want):
+    """Two record_test_steps lists of the same batches: prediction, best k,
+    best score and linkage equal exactly, the logs within rtol 1e-5 (the
+    losses' sums may run in another order on the card).  Raises
+    AssertionError; returns the largest relative difference of the logs."""
+    assert len(got) == len(want), f"{len(got)} test steps against {len(want)}"
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("pred", "best_k", "best_score", "linkage"):
+            assert torch.equal(g[key], w[key]), f"batch {i}: {key} differs"
+        for key, v in w["logs"].items():
+            rel = abs(g["logs"][key] - v) / max(abs(v), 1e-30)
+            assert rel <= 1e-5, f"batch {i}: {key} {g['logs'][key]} against {v}"
+            worst = max(worst, rel)
+    return worst

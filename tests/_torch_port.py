@@ -3,6 +3,8 @@
 Inputs and weights are made with numpy from a seed and handed to both the
 JAX package (the reference) and the port.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,22 @@ def _first_vectorised_math_calls():
 
 
 _first_vectorised_math_calls()
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """Run the block with n intra-op CPU threads, then restore the count.
+
+    The entry-point tests step small models, whose tensors are too small to
+    share among many threads: with one thread per core in each of several
+    test workers, the threads contend and a step takes several times longer.
+    """
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 def require_cuda():

@@ -349,3 +349,45 @@ def test_train_and_eval_steps_count_their_kernels():
     val = tsys.eval_step(batch, gen)
     assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 3)
     assert torch.isfinite(val["val_loss"])
+
+
+@pytest.mark.cuda
+def test_entry_points_train_and_serve_on_gpu(tmp_path, monkeypatch):
+    """python -m hpcs_torch.train for 1 epoch at N=256, then .infer on its
+    final checkpoint, on the card (no --accelerator: the default).  B1
+    builds 3 graphs a training step and B1 and B2 run 3 times a validation
+    and test batch; infer gives what trainer.test gives in memory."""
+    require_cuda()
+    from hpcs_torch import infer, train, trainer
+    from hpcs_torch.data import DataLoader, ShapeNetDataset
+    from hpcs_torch.testing import check_same_test_outputs, record_test_steps, write_mini_shapenet
+
+    # 8 training, 4 validation, 6 test clouds: 2 steps, 1 validation batch,
+    # test batches of 4 and 2
+    write_mini_shapenet(str(tmp_path / "data" / "ShapeNet" / "raw"), ("Airplane", "Chair"),
+                        (4, 2, 3), seed=0, points=800)
+    monkeypatch.chdir(tmp_path)
+
+    def counts():
+        return K.knn.launches, K.knn.wide_launches, E.edgeconv_infer.launches
+
+    before = counts()
+    trained, results = train.main(
+        "--dataset shapenet --fixed_points 256 --k 20 --eucl_embedding 8 --hyp_embedding 8 "
+        "--t_per_anchor 10 --temperature 0.1 --batch 4 --epochs 1".split())
+    assert trained.device.type == "cuda"
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2 * 3 + 3 + 2 * 3, 0, 3 + 2 * 3)
+    assert all(np.isfinite(v) for v in results.values())
+    final = "logs/shapenet_vn_dgcnn_partseg/checkpoints/final"
+    before = counts()
+    with record_test_steps() as served:
+        restored, _ = infer.main(["shapenet", "--model_path", final, "--fixed_points", "256",
+                                  "--batch", "4", "--test_batches", "2"])
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2 * 3, 0, 2 * 3)
+    assert [len(c["pred"]) for c in served] == [4, 2]
+    for k, v in trained.net.state_dict().items():
+        assert torch.equal(restored.net.state_dict()[k], v), k
+    loader = DataLoader(ShapeNetDataset("data/ShapeNet/raw", 256, "test"), 4, shuffle=True, seed=0)
+    with record_test_steps() as in_memory:
+        trainer.test(trained, loader, seed=0, limit_batches=2)
+    check_same_test_outputs(served, in_memory)
