@@ -5,12 +5,14 @@
 Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
 
 1. prints the card's identity;
-2. holds kernel B1 (kNN) against knn_plain on synthetic clouds and on the
-   model's stage-2/3 features at B=16, N=1024, k=20, and, index for index,
-   on clouds whose scores are exact: integer points that each appear twice
-   (far apart or adjacent), a line of points whose rows' scores rise (the
-   selection's worst case) and equal points; and times it on clouds whose
-   selection work differs, beside the warp queue's insertions per row;
+2. holds kernel B1 (kNN) against knn_plain on synthetic clouds, on the
+   model's stage-2/3 features and on DGCNN's (D = 64, the top of B1's D
+   range) at B=16, N=1024, k=20, and, index for index, on clouds whose
+   scores are exact: integer points that each appear twice (far apart or
+   adjacent; D = 3, 63 and 64), a line of points whose rows' scores rise
+   (the selection's worst case) and equal points; and times it on clouds
+   whose selection work differs, beside the warp queue's insertions per
+   row;
 3. holds kernel B2 (EdgeConv stage) against edgeconv_infer_plain at the
    three stage shapes of the model: atol 1e-5 / rtol 1e-4 wherever fp32
    can fix the result, and a bound scaled by the conditioning elsewhere
@@ -60,7 +62,21 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    best k, best score and linkage exactly, the losses within rtol 1e-5)
    and the kernels' launches of each run; times the epochs, the requests
    and the loader;
-9. prints one JSON line per kernel summary, the card's name and power
+9. runs the other backbones (phase backbones): DGCNN, PointNet and
+   VN-PointNet (eucl 50 = num_class, hyp 32) and VN-DGCNN with max pooling
+   (eucl = hyp = 32), each at full width with random weights and BatchNorm
+   statistics: 8 requests of 16 clouds through HypHCSystem.embed (B1 4, 0,
+   1 and 3 launches per forward, B2 and the wide route none), held against
+   the plain forward on the card on B1's graphs (each graph first against
+   knn_plain's) and the CPU port on a small input; a training step at B=2,
+   N=256 against the CPU port (testing.check_train_step_card_vs_cpu) and
+   the flagship step (B=8, dropout 0.5, so3) 2 warm-up + 3 timed; then
+   `python -m hpcs_torch.train --model <name>` for 1 epoch on the entry
+   phase's tree and `python -m hpcs_torch.infer` on its final/ checkpoint
+   (VN-DGCNN max, which has no flag, from a saved checkpoint), equal to
+   trainer.test in memory; and --pretrained: a 50-wide VN-DGCNN backbone
+   file grafted into a 32-wide model (conv11 swapped), then 1 epoch;
+10. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -211,8 +227,10 @@ def edgeconv_work(b, n, c, k, n_convs, cout=21):
 
 def knn_check(x, got, want, ties_exact):
     """Equal indices, except entries whose two candidates' exact scores
-    differ by at most 1e-6 * the row's max |score|.  Returns (near-tie
-    entries, max |score difference| over mismatches)."""
+    differ by at most 1e-6 * the row's max |score|, or by no more than the
+    two scores' fp32 rounding can (the bound of a D-term sum; DGCNN's D = 64
+    features are positive and large, where that is the wider).  Returns
+    (near-tie entries, max |score difference| over mismatches)."""
     mism = got != want
     n_mis = int(mism.sum())
     if n_mis == 0:
@@ -227,10 +245,17 @@ def knn_check(x, got, want, ties_exact):
         xj = xd[b, j.long()]
         return 2 * (xi * xj).sum(-1) - (xj * xj).sum(-1)
 
+    def magnitude(j):  # the sum of |terms| of the score's fp32 sums
+        xj = xd[b, j.long()]
+        return 2 * (xi * xj).abs().sum(-1) + (xj * xj).sum(-1)
+
     diff = (score(got[mism]) - score(want[mism])).abs()
     rows = 2 * torch.einsum("md,mnd->mn", xi, xd[b]) - (xd[b] ** 2).sum(-1)
     scale = rows.abs().amax(-1)
-    bad = int((diff > 1e-6 * scale).sum())
+    # or within the two scores' fp32 rounding: (D + 2) 2^-23 of their
+    # terms' magnitudes, for the kernel's order of sums and the plain one's
+    rounding = (x.shape[-1] + 2) * 2.0 ** -23 * (magnitude(got[mism]) + magnitude(want[mism]))
+    bad = int(((diff > 1e-6 * scale) & (diff > rounding)).sum())
     if bad:
         fail(f"knn: {bad} of {n_mis} differing indices are not near-ties "
              f"(max score gap {float(diff.max()):.3e})")
@@ -283,6 +308,64 @@ def profile_calls(fn, calls):
                 kernels_per_call=sum(r[2] for r in rows) / calls,
                 top=[dict(name=k[:90], ms_per_call=ms / calls, calls_per_call=c / calls)
                      for ms, k, c in rows[:12]])
+
+
+def randomize_bn(net, gen):
+    """Random BatchNorm affines and running statistics from `gen`."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                c = m.num_features
+                m.weight.copy_(1 + 0.2 * torch.randn(c, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(c, generator=gen))
+                m.running_mean.copy_(0.3 * torch.randn(c, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+
+
+# the other backbones at full width: ModelConfig fields, B1 launches per forward
+BACKBONES = {
+    "dgcnn_partseg": (dict(model_name="dgcnn_partseg", eucl_dim=50), 4),
+    "pointnet_partseg": (dict(model_name="pointnet_partseg", eucl_dim=50), 0),
+    "vn_pointnet_partseg": (dict(model_name="vn_pointnet_partseg", eucl_dim=50), 1),
+    "vn_dgcnn_partseg_max": (dict(model_name="vn_dgcnn_partseg", pooling="max", eucl_dim=EUCL), 3),
+}
+BACKBONE_TRAIN_TIMED = 3
+
+
+def backbone_system(fields, **train_fields):
+    """A system on the card at full width (50 classes, 16 categories, hyp
+    32, k 20), random weights and BatchNorm statistics from SEED."""
+    from hpcs_torch.models import HypHCSystem, ModelConfig
+
+    gen = torch.Generator().manual_seed(SEED)
+    cfg = ModelConfig(num_class=50, num_categories=CATEGORIES, hyp_dim=HYP, k=K, **fields,
+                      **train_fields)
+    system = HypHCSystem(cfg, generator=gen)
+    randomize_bn(system.net, gen)
+    return system
+
+
+class recorded_knn:
+    """Within the block every backbone's kNN graph (`vn_dgcnn.knn`, where
+    all of them build it) is B1's and is recorded as (input, graph)."""
+
+    def __init__(self):
+        from hpcs_torch.nn.backbones import vn_dgcnn
+
+        self.module, self.pairs = vn_dgcnn, []
+
+    def __enter__(self):
+        real = self.real = self.module.knn
+
+        def knn(x, k):
+            self.pairs.append((x, real(x, k)))
+            return self.pairs[-1][1]
+
+        self.module.knn = knn
+        return self.pairs
+
+    def __exit__(self, *exc):
+        self.module.knn = self.real
 
 
 def knn_wide_phase(KN, rng, card):
@@ -755,6 +838,250 @@ def entry_phase(card):
     return out
 
 
+BACKBONE_FLAGS = ["--dataset", "shapenet", "--fixed_points", str(N), "--k", str(K),
+                  "--hyp_embedding", str(HYP), "--margin", "0.35", "--t_per_anchor", "50",
+                  "--temperature", "0.05", "--lr", "0.05", "--trade_off", "0.1", "--batch",
+                  str(TRAIN_B), "--epochs", "1", "--log", "logs"]
+
+
+def backbones_phase(batches, card):
+    """The other backbones and VN-DGCNN with max pooling on the card, at
+    full width: requests through HypHCSystem.embed against the plain
+    forward on the card and the CPU port, a training step against the CPU
+    port and the flagship step timed, and the entry points; then the
+    pretrained graft.  One line per configuration, then a summary."""
+    import contextlib
+    import io
+    import tempfile
+
+    from hpcs_torch import infer, train, trainer
+    from hpcs_torch.cli import add_train_args, configure
+    from hpcs_torch.data import DataLoader, ShapeNetDataset, SyntheticPartDataset
+    from hpcs_torch.models import HypHCSystem, decode_vector_for_batch
+    from hpcs_torch.models.base import init_parameters
+    from hpcs_torch.nn.backbones import VNDGCNNPartSeg
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.testing import (check_same_test_outputs, check_train_step_card_vs_cpu,
+                                    record_test_steps, write_mini_shapenet)
+    from hpcs_torch.utils.checkpoint import save_checkpoint
+
+    def zero():
+        KN.knn.launches = KN.knn.wide_launches = 0
+        E.edgeconv_infer.launches = 0
+
+    def counts():
+        return {"knn": KN.knn.launches, "knn_wide": KN.knn.wide_launches,
+                "edgeconv": E.edgeconv_infer.launches}
+
+    totals = {"knn": 0, "knn_wide": 0, "edgeconv": 0}
+
+    def expect(what, launches, knn, edgeconv=0):
+        want = {"knn": knn, "knn_wide": 0, "edgeconv": edgeconv}
+        if launches != want:
+            fail(f"backbones: {what} launched {launches}, expected {want}")
+        for key in totals:
+            totals[key] += launches[key]
+
+    def batch_of(data, start, size):
+        p, c, seg = data.batch(start, size)
+        return {"points": p, "category": c, "labels": seg}
+
+    rows = {}
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        write_mini_shapenet(os.path.join(tmp.name, "data", "ShapeNet", "raw"), ENTRY_CATEGORIES,
+                            ENTRY_SPLITS, seed=SEED)
+        os.chdir(tmp.name)
+        n_train, n_val, n_test = (len(ENTRY_CATEGORIES) * n for n in ENTRY_SPLITS)
+        steps, val_batches = n_train // TRAIN_B, n_val // TRAIN_B
+        test_batches = min(10, -(-n_test // TRAIN_B))
+        for name, (fields, per_forward) in BACKBONES.items():
+            t_config = time.perf_counter()
+            # 1. requests of B clouds through HypHCSystem.embed
+            system = backbone_system(fields)
+            cfg = system.cfg
+            dvs = [decode_vector_for_batch(cfg, {"points": p, "category": c})
+                   for p, c, _ in batches]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            outputs, times = [], []
+            for (p, _, _), dv in zip(batches, dvs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                outputs.append(system.embed(p, dv))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            launches = counts()
+            expect(f"{name}: {REQUESTS} forwards", launches, per_forward * REQUESTS)
+            forward_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+            for x_e, x_p in outputs:
+                if x_e.shape != (B, N, cfg.eucl_dim) or x_p.shape != (B, N, HYP):
+                    fail(f"backbones: {name} output shapes {tuple(x_e.shape)}, {tuple(x_p.shape)}")
+                # the log-probability features of PointNet and VN-PointNet
+                # saturate expmap0's tanh: their points lie on the ball's
+                # edge, up to fp32's rounding of the norm
+                if not (torch.isfinite(x_e).all() and torch.isfinite(x_p).all()
+                        and (x_p.norm(dim=-1) <= 1 + 1e-6).all()):
+                    fail(f"backbones: {name} non-finite embeddings or outside the ball")
+
+            # the plain forward on the card on B1's graphs (each graph held
+            # against knn_plain's first), and the CPU port on a small input
+            p0, dv0 = batches[0][0], dvs[0]
+            with recorded_knn() as pairs:
+                system.embed(p0, dv0)
+            graph_gap = 0.0
+            for x, g in pairs:
+                graph_gap = max(graph_gap, knn_check(x, g, KN.knn_plain(x, K), False)[1])
+            ref = system.embed(p0, dv0, idx_override=[g for _, g in pairs])
+            plain_err, plain_bad = forward_diff(outputs[0], ref)
+            if plain_bad:
+                fail(f"backbones: {name} differs from the plain forward on B1's graphs: "
+                     f"{plain_bad} outputs beyond atol 1e-4 / rtol 1e-3, max {plain_err:.3e}")
+            cpu = HypHCSystem(cfg, device="cpu")
+            cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+            ps = np.ascontiguousarray(batches[1][0][:2, :256])
+            with recorded_knn() as small_pairs:
+                gpu_small = system.embed(ps, dvs[1][:2])
+            cpu_small = cpu.embed(ps, dvs[1][:2].cpu(),
+                                  idx_override=[g.cpu() for _, g in small_pairs])
+            cpu_err, cpu_bad = forward_diff([t.cpu() for t in gpu_small], cpu_small,
+                                            scale_tol=True)
+
+            # 2. training: one step at B=2, N=256 against the CPU port, then
+            # the flagship step (B=8, N=1024, dropout 0.5, so3) timed
+            small = backbone_system(fields, dropout=0.0, train_rotation="none",
+                                    t_per_anchor=50, temperature=0.05)
+            zero()
+            t = time.perf_counter()
+            vs_cpu = check_train_step_card_vs_cpu(
+                small, batch_of(SyntheticPartDataset(2, 256, 8, parts_per_object=6, seed=5),
+                                0, 2))
+            vs_cpu["seconds"] = time.perf_counter() - t
+            expect(f"{name}: the small training step", counts(), per_forward)
+            tsys = backbone_system(fields, t_per_anchor=50, temperature=0.05, lr=0.005)
+            tbatch = batch_of(SyntheticPartDataset(TRAIN_B, N, CATEGORIES, parts_per_object=6,
+                                                   seed=5), 0, TRAIN_B)
+            gen = torch.Generator(device=tsys.device).manual_seed(SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            step_s, losses = [], []
+            for _ in range(TRAIN_WARMUP + BACKBONE_TRAIN_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logs = tsys.train_step(tbatch, gen)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                losses.append({k: float(v) for k, v in logs.items()})
+            n_steps = TRAIN_WARMUP + BACKBONE_TRAIN_TIMED
+            expect(f"{name}: {n_steps} training steps", counts(), per_forward * n_steps)
+            train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+            if not all(np.isfinite(v) for lg in losses for v in lg.values()):
+                fail(f"backbones: {name} non-finite training losses")
+            if not all(bool(torch.isfinite(q).all()) for q in tsys.net.parameters()):
+                fail(f"backbones: {name} non-finite parameters after training")
+
+            # 3. the entry points: train 1 epoch with --model, then infer
+            # from its final/ checkpoint (pooling='max' has no flag: the
+            # trained flagship-step system is saved and served)
+            if fields.get("pooling") == "max":
+                final = os.path.join("ckpt", name)
+                save_checkpoint(final, tsys, tsys.cfg)
+                trained, train_launches, train_s = tsys, None, None
+            else:
+                zero()
+                t = time.perf_counter()
+                trained, _ = train.main(BACKBONE_FLAGS + ["--model", cfg.model_name,
+                                                          "--eucl_embedding", "50"])
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t
+                train_launches = counts()
+                expect(f"{name}: train.main (1 epoch)", train_launches,
+                       per_forward * (steps + val_batches + test_batches))
+                final = os.path.join("logs", f"shapenet_{cfg.model_name}", "checkpoints",
+                                     "final")
+            zero()
+            with record_test_steps() as served:
+                restored, _ = infer.main(["shapenet", "--model_path", final, "--fixed_points",
+                                          str(N), "--batch", str(B), "--test_batches", "1"])
+            infer_launches = counts()
+            expect(f"{name}: infer.main (1 request)", infer_launches, per_forward)
+            if type(restored.net.nn_feat) is not type(trained.net.nn_feat) or \
+                    restored.cfg.pooling != trained.cfg.pooling:
+                fail(f"backbones: {name} restored as {type(restored.net.nn_feat).__name__}")
+            loader = DataLoader(ShapeNetDataset("data/ShapeNet/raw", N, "test"), B, shuffle=True,
+                                seed=SEED)
+            with record_test_steps() as in_memory:
+                trainer.test(trained, loader, seed=SEED, limit_batches=1)
+            try:
+                logs_rel = check_same_test_outputs(served, in_memory)
+            except AssertionError as e:
+                fail(f"backbones: {name} infer differs from trainer.test in memory: {e}")
+
+            timed = sorted(times[WARMUP:])
+            train_timed = sorted(step_s[TRAIN_WARMUP:])
+            rows[name] = dict(
+                model_name=cfg.model_name, pooling=cfg.pooling, eucl=cfg.eucl_dim, hyp=HYP,
+                B=B, N=N, k=K, b1_launches_per_forward=per_forward,
+                launches_requests=launches, forward_ms_median=timed[len(timed) // 2] * 1e3,
+                forward_ms_all=[t * 1e3 for t in times], clouds_per_s=B / timed[len(timed) // 2],
+                forward_peak_memory_mb=forward_peak_mb, graphs_max_score_gap=graph_gap,
+                max_ball_norm=max(float(x_p.norm(dim=-1).max()) for _, x_p in outputs),
+                max_abs_err_vs_plain_gpu=plain_err, max_abs_err_vs_cpu_small=cpu_err,
+                outputs_beyond_elementwise_tol_vs_cpu_small=cpu_bad, train_vs_cpu_b2_n256=vs_cpu,
+                train_B=TRAIN_B, train_step_ms_median=train_timed[len(train_timed) // 2] * 1e3,
+                train_step_ms_all=[t * 1e3 for t in step_s], train_peak_memory_mb=train_peak_mb,
+                loss_trace=[lg["total_loss"] for lg in losses],
+                entry_train_launches=train_launches, entry_train_seconds=train_s,
+                entry_infer_launches=infer_launches,
+                infer_seconds_per_request=[c["seconds"] for c in served],
+                infer_vs_in_memory_max_rel_log_diff=logs_rel,
+                seconds=time.perf_counter() - t_config, card=card)
+            emit(f"backbone_{name}", **rows[name])
+
+        # 4. --pretrained: a 50-wide VN-DGCNN backbone file into a 32-wide model
+        gen = torch.Generator().manual_seed(SEED + 1)
+        ref = VNDGCNNPartSeg(50, k=K, num_categories=CATEGORIES)
+        init_parameters(ref, gen)
+        randomize_bn(ref, gen)
+        torch.save({f"module.{k}": v for k, v in ref.state_dict().items()}, "backbone.t7")
+        flags = BACKBONE_FLAGS + ["--eucl_embedding", str(EUCL), "--pretrained",
+                                  "--pretrained_path", "backbone.t7"]
+        system, *_ = configure(add_train_args(argparse.ArgumentParser()).parse_args(flags))
+        fresh = {k: v.clone() for k, v in system.net.nn_feat.state_dict().items()}
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train.graft_pretrained(system, "backbone.t7")
+        if "(conv11 head re-initialized: width mismatch)" not in out.getvalue():
+            fail(f"backbones: --pretrained printed {out.getvalue()!r}")
+        grafted = 0
+        for k, v in system.net.nn_feat.state_dict().items():
+            want = fresh[k] if k.startswith("conv11.") or k.endswith("num_batches_tracked") \
+                else ref.state_dict()[k].to(v.device)
+            if not torch.equal(v, want):
+                fail(f"backbones: --pretrained left {k} unequal to the file's or the model's")
+            grafted += not k.startswith("conv11.") and not k.endswith("num_batches_tracked")
+        zero()
+        t = time.perf_counter()
+        _, pretrained_results = train.main(flags)
+        torch.cuda.synchronize()
+        pretrained_s = time.perf_counter() - t
+        pretrained_launches = counts()
+        expect("train.main --pretrained (1 epoch)", pretrained_launches,
+               3 * (steps + val_batches + test_batches), 3 * (val_batches + test_batches))
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    out = dict(configs=list(rows), launches=totals, pretrained=dict(
+        tensors_grafted=grafted, conv11_swapped=True, train_launches=pretrained_launches,
+        train_seconds=pretrained_s, test_results=pretrained_results), card=card)
+    emit("backbones", **out)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every phase's results to this file")
@@ -789,14 +1116,7 @@ def main():
     gen = torch.Generator().manual_seed(SEED)
     cfg = ModelConfig(num_class=50, num_categories=CATEGORIES, eucl_dim=EUCL, hyp_dim=HYP, k=K)
     system = HypHCSystem(cfg, generator=gen)
-    with torch.no_grad():
-        for m in system.net.modules():
-            if isinstance(m, torch.nn.BatchNorm1d):
-                c = m.num_features
-                m.weight.copy_(1 + 0.2 * torch.randn(c, generator=gen))
-                m.bias.copy_(0.2 * torch.randn(c, generator=gen))
-                m.running_mean.copy_(0.3 * torch.randn(c, generator=gen))
-                m.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+    randomize_bn(system.net, gen)
     data = SyntheticPartDataset(num_objects=B * REQUESTS, npoints=N,
                                 num_categories=CATEGORIES, seed=SEED)
     batches = [data.batch(r * B, B) for r in range(REQUESTS)]
@@ -834,13 +1154,22 @@ def main():
         # row's own column, so the last rows insert nearly every column
         line = torch.zeros(B, N, 3, device=device)
         line[:, :, 0] = torch.arange(N, device=device, dtype=torch.float32)
+        # DGCNN's stage-2 and stage-3 inputs: D = 64, the top of B1's D range
+        with recorded_knn() as dgcnn_pairs:
+            dgcnn = backbone_system(BACKBONES["dgcnn_partseg"][0])
+            dgcnn.embed(batches[0][0], decode_vector_for_batch(
+                dgcnn.cfg, {"points": batches[0][0], "category": batches[0][1]}))
+        d64_2, d64_3 = dgcnn_pairs[2][0], dgcnn_pairs[3][0]
+        del dgcnn
         equal = torch.full((B, N, 3), 0.5, device=device)  # all ties: only k columns go in
         gauss = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)).to(device)
         cases = {"points_d3": (pts, False), "stage2_d63": (f1, False), "stage3_d63": (f2, False),
                  "gauss_d3": (gauss, False), "ties_d3": (tie_cloud(3, 8), True),
                  "ties_d63": (tie_cloud(63, 2), True), "line_d3": (line, True),
                  "adjacent_d3": (adjacent_cloud(3, 8), True),
-                 "adjacent_d63": (adjacent_cloud(63, 2), True), "equal_d3": (equal, True)}
+                 "adjacent_d63": (adjacent_cloud(63, 2), True), "equal_d3": (equal, True),
+                 "dgcnn_stage2_d64": (d64_2, False), "dgcnn_stage3_d64": (d64_3, False),
+                 "ties_d64": (tie_cloud(64, 2), True), "adjacent_d64": (adjacent_cloud(64, 2), True)}
         knn_rows, knn_err = {}, 0.0
         for case, (x, ties) in cases.items():
             got, want = KN.knn(x, K), KN.knn_plain(x, K)
@@ -852,11 +1181,15 @@ def main():
         selection = {case: dict(ms=cuda_ms(lambda x=x: KN.knn(x, K), 20),
                                 insertions_per_row=knn_queue_insertions(x, K, row_step=16))
                      for case, x in (("equal_d3", equal), ("gauss_d3", gauss), ("points_d3", pts),
-                                     ("line_d3", line), ("stage2_d63", f1), ("stage3_d63", f2))}
-        knn_ms = {"d3": selection["points_d3"]["ms"], "d63": selection["stage2_d63"]["ms"]}
-        plain_ms = {d: cuda_ms(lambda x=x: KN.knn_plain(x, K), 5) for d, x in (("d3", pts), ("d63", f1))}
+                                     ("line_d3", line), ("stage2_d63", f1), ("stage3_d63", f2),
+                                     ("dgcnn_stage2_d64", d64_2))}
+        knn_ms = {"d3": selection["points_d3"]["ms"], "d63": selection["stage2_d63"]["ms"],
+                  "d64": selection["dgcnn_stage2_d64"]["ms"]}
+        plain_ms = {d: cuda_ms(lambda x=x: KN.knn_plain(x, K), 5)
+                    for d, x in (("d3", pts), ("d63", f1), ("d64", d64_2))}
         w3, w63 = knn_work(B, N, 3, K), knn_work(B, N, 63, K)
-        knn_b = {d: bound_ms(*w) for d, w in (("d3", w3), ("d63", w63))}
+        knn_b = {d: bound_ms(*w) for d, w in (("d3", w3), ("d63", w63),
+                                               ("d64", knn_work(B, N, 64, K)))}
         emit("knn", cases=knn_rows, B=B, N=N, k=K, ms=knn_ms, plain_ms=plain_ms,
              bound_ms={d: v[0] for d, v in knn_b.items()}, selection=selection, card=card)
 
@@ -986,8 +1319,9 @@ def main():
     entry = entry_phase(card)
     entry_launches = {k: sum(run[k] for run in entry["launches"].values())
                       for k in ("knn", "knn_wide", "edgeconv")}
+    backbones = backbones_phase(batches, card)
 
-    # 9. summary lines
+    # 10. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
     knn_plain_total = plain_ms["d3"] + 2 * plain_ms["d63"]
     knn_ops = w3[0] + 2 * w63[0]
@@ -1000,7 +1334,8 @@ def main():
         dict(name="knn", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
              launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
-             + train["fit_launches"]["knn"] + entry_launches["knn"],
+             + train["fit_launches"]["knn"] + entry_launches["knn"]
+             + backbones["launches"]["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
@@ -1008,14 +1343,14 @@ def main():
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
              launches=launches["knn_wide"] + decode["launches"]["knn_wide"]
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
-             + entry_launches["knn_wide"],
+             + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"],
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
-             + entry_launches["edgeconv"],
+             + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"],
              max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),

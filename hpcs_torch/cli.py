@@ -8,7 +8,8 @@ default and the flag turns them off, and CosFace is the metric loss unless
 --accelerator names the port's device, `cuda` (or `gpu`) by default, or
 `cpu`.  The flags whose path is not ported yet raise NotImplementedError
 naming their ROADMAP item: `refuse_unported` for the flags that are not
-ModelConfig fields, HypHCSystem for --model, --bf16 and --layout.
+ModelConfig fields, HypHCSystem for --bf16 and --layout.  --model takes
+each of the JAX package's four backbones.
 
 Data roots are relative to the working directory, as in the JAX package:
 data/ShapeNet/raw, data/PartNet/sem_seg_h5 and
@@ -58,7 +59,7 @@ def add_train_args(parser):
     parser.add_argument('--hierarchical', action='store_false', help='hierarchical loss (default ON for partnet)')
     parser.add_argument('--hierarchy_list', '-hierarchy_list', default='[]', type=str, help='precomputed hierarchy list as JSON')
     parser.add_argument('--plot_inference', action='store_true', help='plot visualizations during testing (not ported: ROADMAP A12b)')
-    parser.add_argument('--pretrained', action='store_true', help='load pretrained model (not ported: ROADMAP A10)')
+    parser.add_argument('--pretrained', action='store_true', help='load pretrained model')
     parser.add_argument('--pretrained_path', type=str, default='',
                         help='explicit path to a raw backbone checkpoint (.t7/.pth), with --pretrained')
     parser.add_argument('--infer', action='store_true', help='set this flag if you want only infer')
@@ -95,7 +96,6 @@ def refuse_unported(args):
     """Raise NotImplementedError, naming the ROADMAP item, for a flag whose
     path the port does not have yet (train's flags or infer's)."""
     unported = [
-        (getattr(args, 'pretrained', False), '--pretrained (pretrained backbones): ROADMAP A10'),
         (getattr(args, 'data_parallel', 0) > 1, '--data_parallel > 1: ROADMAP A11'),
         (getattr(args, 'profile', ''), '--profile: ROADMAP A12b'),
         (getattr(args, 'debug_nans', False), '--debug_nans: ROADMAP A12b'),

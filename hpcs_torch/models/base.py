@@ -16,7 +16,7 @@ from ..decode import (cosine_distance_matrix, decode_leaves, get_optimal_k,
 from ..device import resolve_device
 from ..loss import LossConfig, compute_losses, get_logits, hierarchy_sum_matrices
 from ..loss.hyphc import anneal_temperature
-from ..nn.backbones.vn_dgcnn import VNDGCNNPartSeg
+from ..nn.backbones import make_backbone
 from ..nn.embed import make_embedder
 from ..optim import RiemannianAdam, plateau_init, plateau_update
 from ..utils.jax_params import ball_dim
@@ -41,8 +41,7 @@ class HypHCNet(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.nn_feat = VNDGCNNPartSeg(cfg.eucl_dim, k=cfg.k, num_categories=cfg.num_categories,
-                                      pooling=cfg.pooling, dropout=cfg.dropout)
+        self.nn_feat = make_backbone(cfg)
         self.nn_emb = make_embedder(cfg.eucl_dim, cfg.hyp_dim)
         self.scale = nn.Parameter(torch.full((1,), 1e-3))
         self.metric_hyp_loss = nn.ModuleDict(
@@ -59,10 +58,16 @@ class HypHCNet(nn.Module):
 def init_parameters(net, generator):
     """Random weights from `generator` (a CPU torch.Generator).
 
-    Matrices get N(0, 1/fan_in), the CosFace weights N(0, 1); BatchNorm keeps
-    weight 1, bias 0 and its running statistics (mean 0, variance 1).
+    Matrices get N(0, 1/fan_in), the CosFace weights N(0, 1); vectors keep
+    what their modules gave them: BatchNorm weight 1, bias 0 and its running
+    statistics (mean 0, variance 1), Linear biases 0.  A module marked
+    `keeps_init` (DGCNN's identity TransformNet head) keeps its own.
     """
+    kept = {id(p) for m in net.modules() if getattr(m, "keeps_init", False)
+            for p in m.parameters()}
     for name, p in net.named_parameters():
+        if id(p) in kept:
+            continue
         if name.endswith("loss_cosface.W"):
             p.copy_(torch.randn(p.shape, generator=generator))
         elif p.dim() >= 2:
@@ -109,9 +114,6 @@ def decode_batch(x_poincare, labels, scale, num_class):
 def _refuse_unported(cfg):
     """Raise NotImplementedError, naming the ROADMAP item, for a
     configuration whose path the port does not have yet."""
-    if cfg.model_name != "vn_dgcnn_partseg":
-        raise NotImplementedError(f"model {cfg.model_name!r}: the port has VN-DGCNN "
-                                  "(vn_dgcnn_partseg) only; the other backbones are ROADMAP A10")
     if cfg.bf16:
         raise NotImplementedError("bf16: the bf16 backbone is not ported yet (ROADMAP A5b)")
     if cfg.layout != "cv":

@@ -2,8 +2,8 @@
 
 The fields and defaults of the JAX package's ModelConfig, in its order, so
 a config.json written by either package loads with `ModelConfig(**d)`.
-`HypHCSystem` refuses the values whose path is not ported yet (another
-`model_name`, `bf16`, `layout="vc"`, `pooling="max"`).
+`HypHCSystem` refuses the values whose path is not ported yet (`bf16`,
+`layout="vc"`).
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple

@@ -8,18 +8,22 @@ as Sequential(Conv1d, BatchNorm[, LeakyReLU])).
 
 Each EdgeConv stage starts from a kNN graph (`ops.knn.knn`, kernel B1 on the
 GPU, built on the detached features: no gradient flows through the graph).
-In eval mode the stage is one fused call (`ops.edgeconv.edgeconv_infer`,
-kernel B2 on the GPU) with BatchNorm folded into the gate.  In training the
-stage is the plain autograd stage, as in the JAX package: the edge features
-(`graph_feature_vn`), the VNLinearLeakyReLU modules with batch statistics,
-and the mean over the neighbours.  B2 is eval-only in both packages.
+In eval mode with mean pooling the stage is one fused call
+(`ops.edgeconv.edgeconv_infer`, kernel B2 on the GPU) with BatchNorm folded
+into the gate.  Otherwise, in training and with pooling='max' (B2
+mean-pools only), the stage is the plain stage, as in the JAX package: the
+edge features (`graph_feature_vn`), the VNLinearLeakyReLU modules (batch
+statistics in training, running ones in eval), and the mean over the
+neighbours or VNMaxPool (`pool1`..`pool3`, max pooling only).  B2 is
+eval-only in both packages.
 """
 import torch
 from torch import nn
 
 from ...ops.edgeconv import edgeconv_infer, fold_bn, graph_feature_vn
 from ...ops.knn import knn
-from ..vn.layers import BatchNorm, VNLinearLeakyReLU, VNStdFeature, invariant_project, mean_pool
+from ..vn.layers import (BatchNorm, VNLinearLeakyReLU, VNMaxPool, VNStdFeature, invariant_project,
+                         mean_pool)
 
 EDGE_CHANNELS = 64 // 3
 GLOBAL_CHANNELS = 1024 // 3
@@ -43,6 +47,16 @@ def stage_weights(*convs):
     return out
 
 
+def knn_graph(metric, k, idx_override=None, i=0):
+    """Stage i's kNN graph [B, N, k] int32: idx_override[i] when given, else
+    `knn` (kernel B1 on the GPU) on the detached metric [B, N, ...]
+    flattened to [B, N, D].  Every backbone builds its graphs here."""
+    if idx_override is not None:
+        return idx_override[i]
+    B, N = metric.shape[:2]
+    return knn(metric.detach().reshape(B, N, -1).contiguous(), k)
+
+
 def dropout(x, p, generator):
     """Keep each entry with probability 1 - p and scale it by 1 / (1 - p);
     the mask is drawn from `generator`, on its device."""
@@ -58,11 +72,8 @@ class VNDGCNNPartSeg(nn.Module):
 
     def __init__(self, out_features, k=20, num_categories=16, pooling="mean", dropout=0.5):
         super().__init__()
-        if pooling != "mean":
-            raise NotImplementedError(
-                "VNDGCNNPartSeg is ported for pooling='mean' only: the fused "
-                "EdgeConv stage mean-pools over the neighbours")
         self.k = k
+        self.pooling = pooling
         self.dropout = dropout
         c = EDGE_CHANNELS
         self.conv1 = VNLinearLeakyReLU(2, c)
@@ -70,6 +81,8 @@ class VNDGCNNPartSeg(nn.Module):
         self.conv3 = VNLinearLeakyReLU(2 * c, c)
         self.conv4 = VNLinearLeakyReLU(c, c)
         self.conv5 = VNLinearLeakyReLU(2 * c, c)
+        if pooling == "max":
+            self.pool1, self.pool2, self.pool3 = (VNMaxPool(c) for _ in range(3))
         self.conv6 = VNLinearLeakyReLU(3 * c, GLOBAL_CHANNELS, share_nonlinearity=True)
         self.std_feature = VNStdFeature(2 * GLOBAL_CHANNELS)
         head_in = 2 * GLOBAL_CHANNELS * 3 + 64 + 3 * c * 3
@@ -79,12 +92,13 @@ class VNDGCNNPartSeg(nn.Module):
         self.conv10 = _head_block(256, 128)
         self.conv11 = _head_block(128, out_features, relu=False)
 
-    def _edge_stage(self, x, idx, *convs):
-        """The plain autograd EdgeConv stage (training mode)."""
+    def _edge_stage(self, x, idx, *convs, pool=None):
+        """The plain EdgeConv stage: graph features, the convs, then `pool`
+        (VNMaxPool) or the mean over the neighbours."""
         e, _ = graph_feature_vn(x, self.k, idx)
         for conv in convs:
             e = conv(e)
-        return mean_pool(e)
+        return mean_pool(e) if pool is None else pool(e)
 
     def forward(self, points, label, idx_override=None, generator=None):
         """points [B, N, 3], label [B, num_categories] -> features [B, N, F].
@@ -97,15 +111,14 @@ class VNDGCNNPartSeg(nn.Module):
         B, N, _ = points.shape
 
         def graph(i, metric):
-            if idx_override is not None:
-                return idx_override[i]
-            return knn(metric.detach().reshape(B, N, -1).contiguous(), self.k)
+            return knn_graph(metric, self.k, idx_override, i)
 
         x = points[:, :, None, :].contiguous()
-        if self.training:
-            x1 = self._edge_stage(x, graph(0, points), self.conv1, self.conv2)
-            x2 = self._edge_stage(x1, graph(1, x1), self.conv3, self.conv4)
-            x3 = self._edge_stage(x2, graph(2, x2), self.conv5)
+        if self.training or self.pooling == "max":
+            pools = (self.pool1, self.pool2, self.pool3) if self.pooling == "max" else (None,) * 3
+            x1 = self._edge_stage(x, graph(0, points), self.conv1, self.conv2, pool=pools[0])
+            x2 = self._edge_stage(x1, graph(1, x1), self.conv3, self.conv4, pool=pools[1])
+            x3 = self._edge_stage(x2, graph(2, x2), self.conv5, pool=pools[2])
         else:
             x1 = edgeconv_infer(x, graph(0, points), *stage_weights(self.conv1, self.conv2))
             x2 = edgeconv_infer(x1, graph(1, x1), *stage_weights(self.conv3, self.conv4))

@@ -4,6 +4,7 @@ Features use the channel-major layout [..., C, 3]: vector components last.
 Parameter names follow the reference's state_dict keys (`map_to_feat`,
 `map_to_dir`, `batchnorm.bn`, `std_feature.{vn1,vn2,vn_lin}`); weights are
 [out, in].  Every layer is equivariant: f(x R) = f(x) R on the last axis.
+`dense_block` is the scalar backbones' Dense -> BatchNorm -> activation.
 
 BatchNorm follows flax's nn.BatchNorm, not torch's (`BatchNorm`): in
 training it normalises by the batch mean and the biased variance
@@ -44,6 +45,23 @@ class BatchNorm(nn.BatchNorm1d):
                 self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+def zero_bias_linear(in_features, out_features):
+    """nn.Linear whose bias starts at 0, as flax's Dense does."""
+    linear = nn.Linear(in_features, out_features)
+    nn.init.zeros_(linear.bias)
+    return linear
+
+
+def dense_block(in_features, out_features, bias=False, activation=None):
+    """Linear (its bias, if any, zero) -> BatchNorm -> `activation` (a
+    module or None) on channel-last features [..., in_features]; the
+    state_dict keys are `0.weight`, `0.bias` and `1.*`."""
+    linear = (zero_bias_linear(in_features, out_features) if bias
+              else nn.Linear(in_features, out_features, bias=False))
+    layers = [linear, BatchNorm(out_features)]
+    return nn.Sequential(*layers, *([activation] if activation is not None else []))
 
 
 class VNLinear(nn.Module):
@@ -90,6 +108,46 @@ class VNLinearLeakyReLU(nn.Module):
         return vn_leaky_relu(p, d, self.negative_slope)
 
 
+class VNLeakyReLU(nn.Module):
+    """Direction-gated leaky ReLU with a learned direction per channel (one
+    shared direction with share_nonlinearity)."""
+
+    def __init__(self, in_channels, share_nonlinearity=False, negative_slope=NEGATIVE_SLOPE):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.map_to_dir = nn.Linear(in_channels, 1 if share_nonlinearity else in_channels,
+                                    bias=False)
+
+    def forward(self, x):
+        return vn_leaky_relu(x, channel_mix(x, self.map_to_dir.weight), self.negative_slope)
+
+
+def first_argmax(x, dim):
+    """The index of the largest entry along `dim`, the first one on a tie
+    or a NaN, as jnp.argmax gives it on every device (torch.argmax does not
+    promise the first on CUDA)."""
+    m = x.amax(dim=dim, keepdim=True)
+    hit = (x == m) | torch.isnan(x)
+    pos = torch.arange(x.shape[dim], device=x.device).reshape(
+        [-1] + [1] * (x.dim() - 1 - dim % x.dim()))
+    return torch.where(hit, pos, x.shape[dim]).amin(dim=dim)
+
+
+class VNMaxPool(nn.Module):
+    """Max pool over the axis -3 of [..., K, C, 3]: per channel the vector
+    whose dot product with its learned direction is the largest."""
+
+    def __init__(self, in_channels):
+        super().__init__()
+        self.map_to_dir = nn.Linear(in_channels, in_channels, bias=False)
+
+    def forward(self, x):
+        dot = torch.sum(x * channel_mix(x, self.map_to_dir.weight), dim=-1)  # [..., K, C]
+        idx = first_argmax(dot, dim=-2)  # [..., C]
+        return torch.gather(x, -3, idx[..., None, :, None].expand(*idx.shape[:-1], 1,
+                                                                   *x.shape[-2:]))[..., 0, :, :]
+
+
 def mean_pool(x, dim=-3):
     """Mean over the neighbour axis of [..., K, C, 3]."""
     return torch.mean(x, dim=dim)
@@ -105,6 +163,7 @@ class VNStdFeature(nn.Module):
     """Learn an equivariant 3-frame z0 and project the features onto it.
 
     Returns (x_std [..., C, 3], z0 [..., 3, 3]); x_std is rotation-invariant.
+    VN-PointNet's takes negative_slope 0.
     """
 
     def __init__(self, in_channels, share_nonlinearity=False,

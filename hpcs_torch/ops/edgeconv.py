@@ -1,4 +1,5 @@
-"""EdgeConv stages of VN-DGCNN: graph features and the eval-mode fused stage.
+"""EdgeConv stages: graph features (vector, cross-product and scalar) and
+VN-DGCNN's eval-mode fused stage.
 
 `edgeconv_infer` is the dispatching wrapper: a CUDA tensor goes to the
 hand-written kernel in `csrc/edgeconv.cu`, a CPU tensor to
@@ -30,6 +31,29 @@ def graph_feature_vn(x, k, idx=None):
     neighbors = gather_neighbors(x, idx)
     center = x[:, :, None].expand_as(neighbors)
     return torch.cat([neighbors - center, center], dim=-2), idx
+
+
+def graph_feature_cross_vn(x, k, idx=None):
+    """Vector-neuron edge features with cross products [B, N, K, 3C, 3] of
+    x [B, N, C, 3]: [x_j - x_i || x_i || x_j x x_i].  The graph as in
+    graph_feature_vn.  Returns (edge features, idx)."""
+    B, N, C, _ = x.shape
+    if idx is None:
+        idx = knn(x.reshape(B, N, C * 3).contiguous(), k)
+    neighbors = gather_neighbors(x, idx)
+    center = x[:, :, None].expand_as(neighbors)
+    cross = torch.linalg.cross(neighbors, center, dim=-1)
+    return torch.cat([neighbors - center, center, cross], dim=-2), idx
+
+
+def graph_feature_scalar(x, k, idx=None):
+    """Scalar edge features [B, N, K, 2C] of x [B, N, C]: [x_j - x_i || x_i].
+    Without `idx` the kNN graph is built on x.  Returns (edge features, idx)."""
+    if idx is None:
+        idx = knn(x.contiguous(), k)
+    neighbors = gather_neighbors(x, idx)
+    center = x[:, :, None].expand_as(neighbors)
+    return torch.cat([neighbors - center, center], dim=-1), idx
 
 
 def fold_bn(weight, bias, running_mean, running_var, eps=BN_EPS):

@@ -6,7 +6,9 @@ goes on CUDA unless --accelerator cpu.  It trains with `trainer.fit`
 best/ and last/ under its checkpoints/ directory, --resume from one of
 them), saves checkpoints/final from the best state, then tests it on at
 most 10 test batches.  With --infer it only tests, every test batch, the
-untrained system or the one --resume restores.
+untrained system or the one --resume restores.  --pretrained grafts a raw
+VN-DGCNN backbone checkpoint (--pretrained_path, or the reference's default
+paths) onto the fresh system first.
 
 Example, the flagship (ShapeNet-Part under data/ShapeNet/raw):
 
@@ -22,6 +24,24 @@ from .cli import add_train_args, configure
 from .trainer import fit, test
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.logging import MetricLogger
+from .utils.pretrained import graft_pretrained_backbone, load_raw_backbone_state_dict
+
+
+def graft_pretrained(system, path=""):
+    """--pretrained: graft a raw VN-DGCNN backbone checkpoint onto the
+    system's backbone (`utils.pretrained`).  Without a path, PartNet's
+    (num_categories 1) is model.partseg.vn_dgcnn.aligned.t7 and the others'
+    checkpoints/vndgcnn_backbone/best_model.pth, in the working directory."""
+    path = path or ("model.partseg.vn_dgcnn.aligned.t7" if system.cfg.num_categories == 1
+                    else os.path.join("checkpoints", "vndgcnn_backbone", "best_model.pth"))
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"--pretrained requested but checkpoint not found: {path} "
+            "(use --pretrained_path to point at a .t7/.pth backbone)")
+    swapped = graft_pretrained_backbone(system.net.nn_feat, load_raw_backbone_state_dict(path),
+                                        system.cfg.eucl_dim)
+    print(f"loaded pretrained backbone from {path}"
+          + (" (conv11 head re-initialized: width mismatch)" if swapped else ""), flush=True)
 
 
 def main(argv=None):
@@ -31,6 +51,8 @@ def main(argv=None):
     add_train_args(parser)
     args = parser.parse_args(argv)
     system, train_loader, valid_loader, test_loader = configure(args)
+    if args.pretrained:
+        graft_pretrained(system, args.pretrained_path)
 
     run_name = f"{args.dataset}_{args.model}"
     logger = MetricLogger(args.log, run_name, use_wandb=args.wandb == "online",

@@ -37,26 +37,71 @@ def _bn_stats(prefix, s):
             f"{prefix}.num_batches_tracked": torch.tensor(0)}
 
 
-def _vn_prefixes(tree):
-    """(port prefix, the tree's VNLinearLeakyReLU subtree) pairs."""
-    bb, sf = tree["backbone"], tree["backbone"]["std_feature"]
-    return ([(f"nn_feat.{n}", bb[n]) for n in ("conv1", "conv2", "conv3", "conv4", "conv5",
-                                                "conv6")]
-            + [(f"nn_feat.std_feature.{n}", sf[n]) for n in ("vn1", "vn2")])
+# the auto-named modules of an STNkd in the JAX tree and their port names
+_RENAMED = {**{f"_ConvBNRelu_{i}": f"blocks.{i}" for i in range(5)}, "Dense_0": "transform"}
+
+
+def _backbone_sd(bb, stats):
+    """A backbone's parameters (stats False) or BatchNorm running statistics
+    (stats True) by port name, without `nn_feat.`, from its JAX subtree.
+
+    The tree's modules are told apart by their leaves: VNLinearLeakyReLU
+    {linear, dir_kernel, batchnorm}; a Dense -> BatchNorm block {Dense_0,
+    BatchNorm_0} (`dense_block`; VN-DGCNN's head is Conv1d, its weights
+    [out, in, 1]); VNBatchNorm {bn}; BatchNorm {scale, bias} or {mean, var};
+    VNMaxPool {dir_kernel}; VNStdFeature's frame_kernel; and {kernel[,
+    bias]}, a VNLinear in VN-PointNet (fc3, conv5), else a Dense.
+    """
+    conv1d_head = "std_feature" in bb and "conv_pos" not in bb
+    vn_linear = {"fc3", "conv5"} if "conv_pos" in bb else set()
+    sd = {}
+
+    def bn(prefix, node):
+        sd.update(_bn_stats(prefix, node) if stats else _bn_params(prefix, node))
+
+    def walk(node, path):
+        prefix = ".".join(path)
+        if "batchnorm" in node:
+            bn(f"{prefix}.batchnorm.bn", node["batchnorm"]["bn"])
+            if not stats:
+                sd[f"{prefix}.map_to_feat.weight"] = _t(node["linear"]["kernel"])
+                sd[f"{prefix}.map_to_dir.weight"] = _t(node["dir_kernel"])
+        elif "BatchNorm_0" in node:
+            bn(f"{prefix}.1", node["BatchNorm_0"])
+            if not stats:
+                sd.update(_dense(f"{prefix}.0", node["Dense_0"]))
+                if conv1d_head:
+                    sd[f"{prefix}.0.weight"] = sd[f"{prefix}.0.weight"][..., None]
+        elif "bn" in node:
+            bn(f"{prefix}.bn", node["bn"])
+        elif "scale" in node or "mean" in node:
+            bn(prefix, node)
+        elif "dir_kernel" in node:
+            sd[f"{prefix}.map_to_dir.weight"] = _t(node["dir_kernel"])
+        elif "kernel" in node:
+            sd.update(_dense(f"{prefix}.map_to_feat" if path[-1] in vn_linear else prefix, node))
+        else:
+            for name, child in node.items():
+                if name == "frame_kernel":
+                    sd[f"{prefix}.vn_lin.weight"] = _t(child)
+                else:
+                    walk(child, path + [_RENAMED.get(name, name)])
+
+    walk(bb, [])
+    return sd
+
+
+def _dense(prefix, p):
+    """A flax Dense {kernel[, bias]} as a Linear's weight and bias."""
+    sd = {f"{prefix}.weight": _t(p["kernel"])}
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _v(p["bias"])
+    return sd
 
 
 def _params_sd(params):
     """The port's parameters (no buffers) from a flax params tree."""
-    sd = {}
-    for prefix, p in _vn_prefixes(params):
-        sd[f"{prefix}.map_to_feat.weight"] = _t(p["linear"]["kernel"])
-        sd[f"{prefix}.map_to_dir.weight"] = _t(p["dir_kernel"])
-        sd.update(_bn_params(f"{prefix}.batchnorm.bn", p["batchnorm"]["bn"]))
-    bp = params["backbone"]
-    sd["nn_feat.std_feature.vn_lin.weight"] = _t(bp["std_feature"]["frame_kernel"])
-    for i in range(7, 12):
-        sd[f"nn_feat.conv{i}.0.weight"] = _t(bp[f"conv{i}"]["Dense_0"]["kernel"])[..., None]
-        sd.update(_bn_params(f"nn_feat.conv{i}.1", bp[f"conv{i}"]["BatchNorm_0"]))
+    sd = {f"nn_feat.{k}": v for k, v in _backbone_sd(params["backbone"], False).items()}
     if "Dense_0" in params.get("embedder", {}):
         sd["nn_emb.mlp.0.0.weight"] = _t(params["embedder"]["Dense_0"]["kernel"])
     sd["scale"] = _v(params["scale"]).reshape(1)
@@ -65,13 +110,10 @@ def _params_sd(params):
 
 
 def from_jax_params(params, batch_stats):
-    """state_dict of the port's HypHCNet from the JAX package's trees."""
+    """state_dict of the port's HypHCNet from the JAX package's trees, for
+    any of the four backbones."""
     sd = _params_sd(params)
-    for prefix, s in _vn_prefixes(batch_stats):
-        sd.update(_bn_stats(f"{prefix}.batchnorm.bn", s["batchnorm"]["bn"]))
-    for i in range(7, 12):
-        sd.update(_bn_stats(f"nn_feat.conv{i}.1",
-                            batch_stats["backbone"][f"conv{i}"]["BatchNorm_0"]))
+    sd.update({f"nn_feat.{k}": v for k, v in _backbone_sd(batch_stats["backbone"], True).items()})
     return sd
 
 

@@ -144,8 +144,8 @@ def jax_port_pair(eucl=8, hyp=8, B=2, N=64, k=8, seed=0, random_stats=False, **o
     from hpcs_torch.models import HypHCSystem, ModelConfig
     from hpcs_torch.utils.jax_params import from_jax_params
 
-    kw = dict(dataset="shapenet", num_class=6, num_categories=2, eucl_dim=eucl, hyp_dim=hyp,
-              k=k, **over)
+    kw = {**dict(dataset="shapenet", num_class=6, num_categories=2, eucl_dim=eucl, hyp_dim=hyp,
+                 k=k), **over}
     jsys = JSystem(JConfig(fixed_points=N, **kw))
     batch = synthetic_batch(B, N, seed=seed)
     state = jsys.init(jax.random.PRNGKey(seed), {k_: jnp.asarray(v) for k_, v in batch.items()})
@@ -157,6 +157,25 @@ def jax_port_pair(eucl=8, hyp=8, B=2, N=64, k=8, seed=0, random_stats=False, **o
     tsys.net.load_state_dict(from_jax_params(to_numpy_tree(state.params),
                                              to_numpy_tree(state.batch_stats)))
     return jsys, state, tsys, batch
+
+
+def rotated_batch(batch, seed=3):
+    """The batch with its clouds rotated by seeded random rotations, for
+    steps that train with train_rotation 'none'."""
+    from scipy.spatial.transform import Rotation
+
+    R = Rotation.random(len(batch["points"]), random_state=seed).as_matrix()
+    pts = np.einsum("bnv,bwv->bnw", batch["points"].astype(np.float64), R).astype(np.float32)
+    return {**batch, "points": pts}
+
+
+def grad_close(got, want, ref, name, share):
+    """The port's gradient `got` at most 4 times as far from the float64
+    gradient `ref` as JAX's `want` is (plus 1e-4 of ref's largest entry),
+    and within `share` of that entry of JAX's."""
+    scale = float(np.abs(ref).max())
+    assert np.abs(got - ref).max() <= 4 * np.abs(want - ref).max() + 1e-4 * scale, name
+    assert np.abs(got - want).max() <= share * scale, name
 
 
 def numpy_opt_state(opt):

@@ -119,9 +119,9 @@ def test_configure_equals_jax_package(data_dir, monkeypatch, argv):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pretrained"], "A10"), (["--data_parallel", "2"], "A11"), (["--profile", "trace"], "A12b"),
+    (["--data_parallel", "2"], "A11"), (["--profile", "trace"], "A12b"),
     (["--debug_nans"], "A12b"), (["--bf16"], "A5b"), (["--layout", "vc"], "vc"),
-    (["--plot_inference"], "A12b"), (["--model", "dgcnn_partseg"], "A10"),
+    (["--plot_inference"], "A12b"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
     args = _parse(cli.add_train_args, ["--dataset", "synthetic", "--fixed_points", "32",
@@ -130,11 +130,46 @@ def test_unported_flags_raise_naming_their_item(flags, item):
         cli.configure(args)
 
 
-@pytest.mark.parametrize("field,value,item", [("model_name", "pointnet_partseg", "A10"),
-                                              ("bf16", True, "A5b"), ("layout", "vc", "vc")])
+@pytest.mark.parametrize("field,value,item", [("bf16", True, "A5b"), ("layout", "vc", "vc")])
 def test_system_refuses_unported_configs(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         HypHCSystem(ModelConfig(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "dgcnn_partseg", "--eucl_embedding", "12"],
+    ["--model", "pointnet_partseg", "--eucl_embedding", "12"],
+    ["--model", "vn_pointnet_partseg", "--eucl_embedding", "12", "--hyp_embedding", "6"],
+    ["--pretrained", "--pretrained_path", "backbone.t7"],
+], ids=["dgcnn", "pointnet", "vn_pointnet", "pretrained"])
+def test_configure_takes_every_model_and_pretrained(argv):
+    """--model and --pretrained configure as in hpcs_tpu: ModelConfigs equal
+    field by field, the backbone the model names (--pretrained grafts in
+    train.main, after configure)."""
+    argv = ["--dataset", "synthetic", "--fixed_points", "32", "--k", "4"] + argv
+    system, *_ = cli.configure(_parse(cli.add_train_args, argv + ["--accelerator", "cpu"]))
+    jsystem, *_ = jcli.configure(_parse(jcli.add_train_args, argv))
+    assert dataclasses.asdict(system.cfg) == dataclasses.asdict(jsystem.cfg)
+    backbone = {"vn_dgcnn_partseg": "VNDGCNNPartSeg", "dgcnn_partseg": "DGCNNPartSeg",
+                "pointnet_partseg": "PointNetPartSeg",
+                "vn_pointnet_partseg": "VNPointNetPartSeg"}[system.cfg.model_name]
+    assert type(system.net.nn_feat).__name__ == type(jsystem.net.backbone).__name__ == backbone
+
+
+@pytest.mark.parametrize("model", ["dgcnn_partseg", "pointnet_partseg", "vn_pointnet_partseg"])
+def test_scalar_width_backbones_need_eucl_embedding_num_class(model):
+    """These backbones output num_class-wide features: both packages raise
+    the same ValueError for another --eucl_embedding, and for an unknown
+    model name."""
+    argv = ["--dataset", "synthetic", "--fixed_points", "32", "--model", model,
+            "--eucl_embedding", "8"]
+    with pytest.raises(ValueError) as got:
+        cli.configure(_parse(cli.add_train_args, argv + ["--accelerator", "cpu"]))
+    with pytest.raises(ValueError) as want:
+        jcli.configure(_parse(jcli.add_train_args, argv))
+    assert str(got.value) == str(want.value) and "--eucl_embedding 12" in str(got.value)
+    with pytest.raises(ValueError, match="Not implemented for model_name bogus"):
+        HypHCSystem(ModelConfig(model_name="bogus"), device="cpu")
 
 
 def test_accelerator_names_the_device(monkeypatch):

@@ -56,7 +56,8 @@ def test_edgeconv_kernel_rejects_shapes_it_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cloud", ["random_d3", "random_d63", "ties_d3", "ties_d63", "lattice"])
+@pytest.mark.parametrize("cloud", ["random_d3", "random_d63", "random_d64", "ties_d3", "ties_d63",
+                                   "ties_d64", "lattice"])
 def test_knn_kernel_matches_plain(cloud):
     require_cuda()
     rng = np.random.default_rng(0)
@@ -391,3 +392,68 @@ def test_entry_points_train_and_serve_on_gpu(tmp_path, monkeypatch):
     with record_test_steps() as in_memory:
         trainer.test(trained, loader, seed=0, limit_batches=2)
     check_same_test_outputs(served, in_memory)
+
+
+OTHER_BACKBONES = {  # (ModelConfig fields, B1 launches per forward)
+    "dgcnn": (dict(model_name="dgcnn_partseg", eucl_dim=6), 4),
+    "pointnet": (dict(model_name="pointnet_partseg", eucl_dim=6), 0),
+    "vn_pointnet": (dict(model_name="vn_pointnet_partseg", eucl_dim=6), 1),
+    "vn_dgcnn_max": (dict(model_name="vn_dgcnn_partseg", pooling="max", eucl_dim=8), 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(OTHER_BACKBONES))
+def test_other_backbones_embed_on_gpu_match_plain(config, monkeypatch):
+    """The eval forward of each other backbone on the card: B1 builds its
+    graphs (D = 64 in DGCNN's last two) and B2 is not launched; each graph
+    equals knn_plain's on the same input up to near-tied neighbours
+    (99.9 %), and the output equals the plain forward on the card and the
+    CPU port's on the kernel's graphs (atol 2e-4 / rtol 1e-3)."""
+    require_cuda()
+    from hpcs_torch.nn.backbones import vn_dgcnn
+
+    fields, launches = OTHER_BACKBONES[config]
+    cfg = ModelConfig(num_class=6, num_categories=2, hyp_dim=4, k=20, **fields)
+    tsys = HypHCSystem(cfg)
+    pts, cat, _ = SyntheticPartDataset(2, 512, 2).batch(0, 2)
+    dv = decode_vector_for_batch(cfg, {"points": pts, "category": cat})
+    inputs, graphs = [], []
+
+    def recorded(x, k):
+        inputs.append(x)
+        graphs.append(K.knn(x, k))
+        return graphs[-1]
+
+    monkeypatch.setattr(vn_dgcnn, "knn", recorded)
+    k0, w0, e0 = K.knn.launches, K.knn.wide_launches, E.edgeconv_infer.launches
+    got = tsys.embed(pts, dv)
+    torch.cuda.synchronize()
+    assert (K.knn.launches - k0, K.knn.wide_launches - w0, E.edgeconv_infer.launches - e0) == (
+        launches, 0, 0)
+    for x, g in zip(inputs, graphs):
+        assert (g == K.knn_plain(x, 20)).float().mean() > 0.999
+    monkeypatch.setattr(vn_dgcnn, "knn", K.knn_plain)
+    plain = tsys.embed(pts, dv, idx_override=graphs)
+    cpu = HypHCSystem(cfg, device="cpu")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in tsys.net.state_dict().items()})
+    on_cpu = cpu.embed(pts, dv, idx_override=[g.cpu() for g in graphs])
+    for g, p, c in zip(got, plain, on_cpu):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, p, atol=2e-4, rtol=1e-3)
+        torch.testing.assert_close(g.cpu(), c, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(OTHER_BACKBONES))
+def test_other_backbones_train_step_on_gpu_matches_cpu(config):
+    """One step of each other backbone at B=2, N=128 on the card against
+    the CPU port (hpcs_torch.testing.check_train_step_card_vs_cpu)."""
+    require_cuda()
+    fields, launches = OTHER_BACKBONES[config]
+    cfg = ModelConfig(num_class=6, num_categories=2, hyp_dim=4, k=8, dropout=0.0,
+                      train_rotation="none", t_per_anchor=10, temperature=0.1, **fields)
+    tsys = HypHCSystem(cfg)
+    k0, e0 = K.knn.launches, E.edgeconv_infer.launches
+    check_train_step_card_vs_cpu(tsys, _train_batch(2, 128))
+    assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (launches, 0)

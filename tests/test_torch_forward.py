@@ -112,9 +112,16 @@ def test_no_gpu_and_no_device_raises(monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
 
 
-def test_max_pooling_is_refused():
-    with pytest.raises(NotImplementedError):
-        HypHCSystem(ModelConfig(pooling="max"), device="cpu")
+def test_max_pooling_config_builds_and_embeds():
+    """ModelConfig(pooling="max"): VN-DGCNN with VNMaxPool after each
+    EdgeConv stage (pool1..pool3), on the plain stage in eval too."""
+    cfg = ModelConfig(pooling="max", num_class=6, num_categories=2, eucl_dim=4, hyp_dim=4, k=4)
+    tsys = HypHCSystem(cfg, device="cpu")
+    names = {n.split(".")[1] for n, _ in tsys.net.named_parameters() if n.startswith("nn_feat.")}
+    assert {"pool1", "pool2", "pool3"} <= names
+    pts = np.random.default_rng(0).standard_normal((2, 32, 3)).astype(np.float32)
+    x_e, x_p = tsys.embed(pts, decode_vector_for_batch(cfg, {"points": pts, "category": [0, 1]}))
+    assert x_e.shape == (2, 32, 4) and bool((x_p.norm(dim=-1) < 1).all())
 
 
 def test_port_runs_without_jax():

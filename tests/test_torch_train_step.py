@@ -41,13 +41,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from scipy.spatial.transform import Rotation
 
 from _torch_port import (
     InjectedTriplets,
+    grad_close,
     jax_port_pair,
     load_opt_state,
     numpy_opt_state,
+    rotated_batch,
     to_numpy_tree,
 )
 from hpcs_tpu.models.base import decode_vector_for_batch as j_decode_vector
@@ -67,22 +68,10 @@ GRAD_SHARE = [0.1, 0.5]  # |port - JAX| / the leaf's largest float64 entry, by s
 TOL_STATS = dict(atol=2e-4, rtol=1e-3)
 
 
-def _rotated(batch, seed=3):
-    R = Rotation.random(len(batch["points"]), random_state=seed).as_matrix()
-    pts = np.einsum("bnv,bwv->bnw", batch["points"].astype(np.float64), R).astype(np.float32)
-    return {**batch, "points": pts}
-
-
-def _grad_close(got, want, ref, name, share):
-    scale = float(np.abs(ref).max())
-    assert np.abs(got - ref).max() <= 4 * np.abs(want - ref).max() + 1e-4 * scale, name
-    assert np.abs(got - want).max() <= share * scale, name
-
-
 @pytest.fixture(scope="module")
 def shared():
     jsys, state, _, batch = jax_port_pair(eucl=8, hyp=8, B=2, N=96, k=8, **CFG)
-    return jsys, state, _rotated(batch)
+    return jsys, state, rotated_batch(batch)
 
 
 @pytest.fixture
@@ -151,7 +140,7 @@ def test_two_train_steps_match_jax(pair, monkeypatch):
             np.testing.assert_allclose(got, want, err_msg=k, **tol)
         jgrads = _params_sd(to_numpy_tree(grads))
         for name, p in tsys.net.named_parameters():
-            _grad_close(p.grad.numpy(), jgrads[name].reshape(p.shape).numpy(), ref[name], name,
+            grad_close(p.grad.numpy(), jgrads[name].reshape(p.shape).numpy(), ref[name], name,
                         GRAD_SHARE[step])
         tsys.apply_gradients()
 
