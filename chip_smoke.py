@@ -76,13 +76,33 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    (VN-DGCNN max, which has no flag, from a saved checkpoint), equal to
    trainer.test in memory; and --pretrained: a 50-wide VN-DGCNN backbone
    file grafted into a 32-wide model (conv11 swapped), then 1 epoch;
-10. prints one JSON line per kernel summary, the card's name and power
+10. runs VN-DGCNN in bf16 (phase bf16, ModelConfig.bf16 on the forward
+   phase's weights): 8 requests through HypHCSystem.embed and 8 through
+   test_step (B1 and B2 on bf16 features 3 times each per request, no
+   fp32 or wide launch), the output against the plain bf16 forward on the
+   card on B1's graphs and the CPU port's on a small input (within 3 % of
+   the output's largest entry: bf16 roundings that flip between sums in
+   another order); B1 on bf16 index for index against B1 on the upcast
+   input at the model's three stage inputs and on tie clouds (and
+   knn_plain up to near-ties), B2's bf16 route against its plain version
+   at the three stage shapes (check_edgeconv widened by one bf16 ulp),
+   each timed beside its bound (bf16 features at 2 bytes); the gap between
+   the bf16 and fp32 embeddings, the share of each graph they share and
+   the decode's best k and score against fp32; a training step at B=2,
+   N=256 against the CPU port and the flagship step (B=8, dropout 0.5,
+   so3) 2 warm-up + 3 timed; `python -m hpcs_torch.train --bf16` for 1
+   epoch on the entry phase's tree and `python -m hpcs_torch.infer` on its
+   final/ (bf16 from its config.json), equal to trainer.test in memory;
+   the bf16 times beside the fp32 phases' of the same run, and a profile
+   of two bf16 requests;
+11. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
 without the last line.  --json also writes every phase's results to PATH.
 """
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -147,7 +167,10 @@ def host_ms(fn, reps):
 
 def kernel_ms(fn, reps):
     """Device time of fn() in ms per call, by kernel (or copy) name, over
-    `reps` calls after one warm-up (torch.profiler, CUPTI)."""
+    `reps` calls after one warm-up (torch.profiler, CUPTI).  Where the
+    profiler sees no device time (it saw none in one of four chip_smoke
+    processes run in turn on one H100), the calls' CUDA-event time, under
+    the name "all kernels (CUDA events)"."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -161,7 +184,7 @@ def kernel_ms(fn, reps):
         if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
                 and not getattr(e, "is_user_annotation", False)):
             out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
-    return out
+    return out or {"all kernels (CUDA events)": cuda_ms(fn, reps)}
 
 
 def ptxas_summary(log):
@@ -196,32 +219,34 @@ def bound_ms(ops, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def knn_work(b, n, d, k):
+def knn_work(b, n, d, k, feature_bytes=4):
     """The least fp32 operations and the bytes of one kNN launch.
 
     Per score, D FMAs: the chain starts from -|x_j|^2 and takes 2 x_i, both
     made once per point (3 D operations each).  Selecting the k best takes
     one compare per score against the row's running k-th best.  Bytes: the
-    cloud in, the indices out.
+    cloud in (feature_bytes a value: 2 for bf16), the indices out.
     """
-    return 2 * b * n * n * d + b * n * n + 3 * b * n * d, 4 * b * n * d + 4 * b * n * k
+    return (2 * b * n * n * d + b * n * n + 3 * b * n * d,
+            feature_bytes * b * n * d + 4 * b * n * k)
 
 
-def edgeconv_work(b, n, c, k, n_convs, cout=21):
+def edgeconv_work(b, n, c, k, n_convs, cout=21, feature_bytes=4):
     """The least fp32 operations and the bytes of one EdgeConv launch.
 
     conv1 is linear in the edge feature [x_j - x_i || x_i], so W1 e =
     Wa x_j + (Wb - Wa) x_i: both products (and those of Wd1) are made once
     per point, and each edge adds two of them for p and two for d.  Per
     edge then: those adds, the gates, conv2 and its gates, the mean's adds.
-    Bytes: the features, indices and weights in, the output out.
+    Bytes: the features, indices and weights in, the output out; features
+    and output at feature_bytes a value (2 for bf16), the rest 4.
     """
     per_edge = 2 * cout * 3 + cout * GATE_OPS + cout * 3
     if n_convs == 2:
         per_edge += 2 * cout * cout * 3 * 2 + cout * GATE_OPS
     ops = b * n * (k * per_edge + 4 * c * cout * 3 * 2 + cout * 3)
     weights = 2 * cout * 2 * c + 2 * cout + (2 * cout * cout + 2 * cout) * (n_convs == 2)
-    nbytes = 4 * (b * n * c * 3 + b * n * k + weights + b * n * cout * 3)
+    nbytes = feature_bytes * (b * n * c * 3 + b * n * cout * 3) + 4 * (b * n * k + weights)
     return ops, nbytes
 
 
@@ -1082,6 +1107,333 @@ def backbones_phase(batches, card):
     return out
 
 
+BF16_SHARE = 0.03  # bf16 outputs against a bf16 reference that rounds elsewhere
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative: two roundings of one fp32 value
+
+
+def bf16_phase(system, batches, card, fp32):
+    """VN-DGCNN in bf16 (ModelConfig.bf16) on the card at the flagship width,
+    on the fp32 system's weights: requests through embed and test_step
+    (B1 and B2 on bf16 three times each), the output against the plain
+    bf16 forward on the card and the CPU port, the kernels' bf16 routes
+    against their fp32 routes and plain versions, the readings against
+    fp32, a training step against the CPU port and the flagship step
+    timed, and the entry points with --bf16."""
+    import tempfile
+
+    from hpcs_torch import infer, train, trainer
+    from hpcs_torch.data import DataLoader, ShapeNetDataset, SyntheticPartDataset
+    from hpcs_torch.models import HypHCSystem, decode_vector_for_batch
+    from hpcs_torch.nn.backbones import vn_dgcnn
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.testing import (check_edgeconv, check_same_test_outputs,
+                                    check_train_step_card_vs_cpu, record_test_steps,
+                                    write_mini_shapenet)
+    from hpcs_torch.utils.checkpoint import load_config
+
+    bf16 = torch.bfloat16
+
+    def zero():
+        KN.knn.launches = KN.knn.wide_launches = KN.knn.bf16_launches = 0
+        E.edgeconv_infer.launches = E.edgeconv_infer.bf16_launches = 0
+
+    def counts():
+        return {"knn": KN.knn.launches, "knn_bf16": KN.knn.bf16_launches,
+                "knn_wide": KN.knn.wide_launches, "edgeconv": E.edgeconv_infer.launches,
+                "edgeconv_bf16": E.edgeconv_infer.bf16_launches}
+
+    totals = {"knn_bf16": 0, "edgeconv_bf16": 0}
+
+    def expect(what, launches, knn, edgeconv):
+        want = {"knn": knn, "knn_bf16": knn, "knn_wide": 0, "edgeconv": edgeconv,
+                "edgeconv_bf16": edgeconv}
+        if launches != want:
+            fail(f"bf16: {what} launched {launches}, expected {want} (every launch on bf16)")
+        for key in totals:
+            totals[key] += launches[key]
+
+    def batch_of(data, start, size):
+        p, c, seg = data.batch(start, size)
+        return {"points": p, "category": c, "labels": seg}
+
+    def share(got, want):
+        """max |got - want| over the pair of outputs, as a share of max |want|."""
+        return max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                   for g, w in zip(got, want))
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(system.cfg, bf16=True)
+    sys16 = HypHCSystem(cfg)
+    sys16.net.load_state_dict(system.net.state_dict())
+    dvs = [decode_vector_for_batch(cfg, {"points": p, "category": c}) for p, c, _ in batches]
+    requests = [{"points": p, "category": c, "labels": seg} for p, c, seg in batches]
+
+    # 1. the main path: requests through embed, then through test_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    outputs, times = [], []
+    for (p, _, _), dv in zip(batches, dvs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outputs.append(sys16.embed(p, dv))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = counts()
+    expect(f"{REQUESTS} forwards", launches, 3 * REQUESTS, 3 * REQUESTS)
+    forward_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for x_e, x_p in outputs:
+        if x_e.shape != (B, N, EUCL) or x_p.shape != (B, N, HYP) or x_e.dtype != torch.float32:
+            fail(f"bf16: output {tuple(x_e.shape)} {x_e.dtype}, {tuple(x_p.shape)}")
+        if not (torch.isfinite(x_e).all() and torch.isfinite(x_p).all()
+                and (x_p.norm(dim=-1) < 1).all()):
+            fail("bf16: non-finite embeddings or outside the ball")
+    gen = torch.Generator(device=sys16.device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    steps16, step_s = [], []
+    for req in requests:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps16.append(sys16.test_step(req, gen))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    test_launches = counts()
+    expect(f"{REQUESTS} test_steps", test_launches, 3 * REQUESTS, 3 * REQUESTS)
+    test_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for logs, ext in steps16:
+        if not all(bool(torch.isfinite(v)) for v in logs.values()) or \
+                not 0 <= float(logs["score"]) <= 1:
+            fail(f"bf16: test_step logs {logs}")
+    profile = profile_calls(lambda i: sys16.embed(batches[i][0], dvs[i]), 2)
+
+    # 2. the output against the plain bf16 forward on the card on B1's
+    # graphs, and against the CPU port's bf16 forward on a small input
+    p0, dv0 = batches[0][0], dvs[0]
+    with torch.no_grad(), recorded_knn() as pairs:
+        sys16.embed(p0, dv0)
+    graphs = [g for _, g in pairs]
+    try:
+        vn_dgcnn.edgeconv_infer = E.edgeconv_infer_plain
+        ref = sys16.embed(p0, dv0, idx_override=graphs)
+    finally:
+        vn_dgcnn.edgeconv_infer = E.edgeconv_infer
+    plain_share = share(outputs[0], ref)
+    if plain_share > BF16_SHARE:
+        fail(f"bf16: {plain_share:.3e} of the output's largest entry from the plain bf16 "
+             f"forward on B1's graphs, beyond {BF16_SHARE}")
+    cpu = HypHCSystem(cfg, device="cpu")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in system.net.state_dict().items()})
+    ps = np.ascontiguousarray(batches[1][0][:2, :256])
+    with torch.no_grad(), recorded_knn() as small_pairs:
+        gpu_small = sys16.embed(ps, dvs[1][:2])
+    cpu_small = cpu.embed(ps, dvs[1][:2].cpu(), idx_override=[g.cpu() for _, g in small_pairs])
+    cpu_share = share([t.cpu() for t in gpu_small], cpu_small)
+    if cpu_share > BF16_SHARE:
+        fail(f"bf16: {cpu_share:.3e} of the output's largest entry from the CPU port's bf16 "
+             f"forward, beyond {BF16_SHARE}")
+
+    # 3. the kernels' bf16 routes: B1 index for index its fp32 route on the
+    # upcast input (and knn_plain up to near-ties, exactly on the tie
+    # clouds); B2 against its plain version at the three stage shapes
+    rng = np.random.default_rng(SEED + 16)
+
+    def tie_cloud(d, r):  # integers: exact in bf16 and in every score
+        half = rng.integers(-r, r + 1, size=(B, N // 2, d)).astype(np.float32)
+        return torch.from_numpy(np.concatenate([half, half], 1)).cuda().to(bf16)
+
+    def adjacent_cloud(d, r):
+        half = rng.integers(-r, r + 1, size=(B, N // 2, d)).astype(np.float32)
+        return torch.from_numpy(np.repeat(half, 2, axis=1)).cuda().to(bf16)
+
+    knn_cases = {"points_d3": (pairs[0][0], False), "stage2_d63": (pairs[1][0], False),
+                 "stage3_d63": (pairs[2][0], False), "ties_d3": (tie_cloud(3, 8), True),
+                 "ties_d63": (tie_cloud(63, 2), True), "adjacent_d3": (adjacent_cloud(3, 8), True),
+                 "adjacent_d63": (adjacent_cloud(63, 2), True)}
+    knn_rows, knn_err = {}, 0.0
+    with torch.no_grad():
+        for case, (x, ties) in knn_cases.items():
+            if x.dtype != bf16:
+                fail(f"bf16: the stage input of {case} is {x.dtype}")
+            got = KN.knn(x, K)
+            if not torch.equal(got, KN.knn(x.float(), K)):
+                fail(f"bf16: B1 on bf16 differs from B1 on the upcast input ({case})")
+            near, err = knn_check(x.float(), got, KN.knn_plain(x, K), ties)
+            knn_err = max(knn_err, err)
+            knn_rows[case] = dict(D=x.shape[-1], differing_near_ties_vs_plain=near,
+                                  max_score_gap=err)
+        knn_ms = {d: cuda_ms(lambda x=x: KN.knn(x, K), 20)
+                  for d, x in (("d3", pairs[0][0]), ("d63", pairs[1][0]))}
+        knn_plain_ms = {d: cuda_ms(lambda x=x: KN.knn_plain(x, K), 5)
+                        for d, x in (("d3", pairs[0][0]), ("d63", pairs[1][0]))}
+        net = sys16.net.nn_feat
+        weights = [[t.detach() for t in vn_dgcnn.stage_weights(*convs)]
+                   for convs in ((net.conv1, net.conv2), (net.conv3, net.conv4), (net.conv5,))]
+        stage_in = [pairs[0][0][:, :, None, :].contiguous(),
+                    pairs[1][0].reshape(B, N, 21, 3), pairs[2][0].reshape(B, N, 21, 3)]
+        ec_rows, ec_err = {}, 0.0
+        for st, x, idx, w, nc in zip(("stage1_c1", "stage2_c21", "stage3_c21"), stage_in, graphs,
+                                     weights, (2, 2, 1)):
+            got = E.edgeconv_infer(x, idx, *w, n_convs=nc)
+            want = E.edgeconv_infer_plain(x, idx, *w, n_convs=nc)
+            if got.dtype != bf16 or want.dtype != bf16:
+                fail(f"bf16: B2 {st} gave {got.dtype}, its plain version {want.dtype}")
+            try:
+                checked = check_edgeconv(got, want, x, idx, w, nc, rounding=BF16_ULP)
+            except AssertionError as e:
+                fail(f"bf16: B2 {st}: {e}")
+            ec_err = max(ec_err, checked["max_abs_err"])
+            ops, nbytes = edgeconv_work(B, N, x.shape[2], K, nc, feature_bytes=2)
+            bound, by = bound_ms(ops, nbytes)
+
+            def stage(x=x, idx=idx, w=w, nc=nc):
+                return E.edgeconv_infer(x, idx, *w, n_convs=nc)
+
+            parts = kernel_ms(stage, 20)
+            ms = sum(parts.values())
+            ec_rows[st] = dict(C=x.shape[2], n_convs=nc, **checked, ms=ms,
+                               call_ms=cuda_ms(stage, 20), by_kernel_ms=parts,
+                               plain_ms=cuda_ms(lambda x=x, idx=idx, w=w, nc=nc:
+                                                E.edgeconv_infer_plain(x, idx, *w, n_convs=nc), 5),
+                               bound_ms=bound, bound_by=by)
+
+    # 4. readings: bf16 against fp32 on the same weights (request 0)
+    with torch.no_grad(), recorded_knn() as pairs32:
+        out32 = system.embed(p0, dv0)
+    embed_gap = {name: dict(max_share=float((a - b).abs().max() / b.abs().max()),
+                            mean_share=float((a - b).abs().mean() / b.abs().mean()))
+                 for name, a, b in zip(("x_euclidean", "x_poincare"), outputs[0], out32)}
+    graph_agreement = [float(np.mean([len(np.intersect1d(a, b)) / K for a, b in zip(
+        g16.cpu().numpy().reshape(-1, K), g32.cpu().numpy().reshape(-1, K))]))
+        for g16, (_, g32) in zip(graphs, pairs32)]
+    gen32, gen16 = (torch.Generator(device=system.device).manual_seed(SEED + 1) for _ in range(2))
+    decode_cmp = []
+    for req in requests[:2]:
+        l32, e32 = system.test_step(req, gen32)
+        l16, e16 = sys16.test_step(req, gen16)
+        decode_cmp.append(dict(
+            best_k_equal_share=float((e16["best_k"] == e32["best_k"]).float().mean()),
+            best_score_mean_abs_delta=float((e16["best_score"] - e32["best_score"]).abs().mean()),
+            score_fp32=float(l32["score"]), score_bf16=float(l16["score"])))
+
+    # 5. training: a step at B=2, N=256 against the CPU port, then the
+    # flagship step (B=8, N=1024, dropout 0.5, so3) timed
+    small = backbone_system(dict(eucl_dim=EUCL, bf16=True), dropout=0.0, train_rotation="none",
+                            t_per_anchor=50, temperature=0.05)
+    zero()
+    t = time.perf_counter()
+    vs_cpu = check_train_step_card_vs_cpu(
+        small, batch_of(SyntheticPartDataset(2, 256, 8, parts_per_object=6, seed=5), 0, 2))
+    vs_cpu["seconds"] = time.perf_counter() - t
+    expect("the small training step", counts(), 3, 0)
+    tsys = backbone_system(dict(eucl_dim=EUCL, bf16=True), t_per_anchor=50, temperature=0.05,
+                           lr=0.005)
+    tbatch = batch_of(SyntheticPartDataset(TRAIN_B, N, CATEGORIES, parts_per_object=6, seed=5),
+                      0, TRAIN_B)
+    tgen = torch.Generator(device=tsys.device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    train_s, losses = [], []
+    for _ in range(TRAIN_WARMUP + BACKBONE_TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs = tsys.train_step(tbatch, tgen)
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t)
+        losses.append({k: float(v) for k, v in logs.items()})
+    n_steps = TRAIN_WARMUP + BACKBONE_TRAIN_TIMED
+    expect(f"{n_steps} training steps", counts(), 3 * n_steps, 0)
+    train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if not all(np.isfinite(v) for lg in losses for v in lg.values()) or not all(
+            bool(torch.isfinite(q).all()) for q in tsys.net.parameters()):
+        fail("bf16: non-finite training losses or parameters")
+
+    # 6. the entry points: train --bf16 for 1 epoch, then infer on its
+    # final/ checkpoint (bf16 from its config.json), against trainer.test
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        write_mini_shapenet(os.path.join(tmp.name, "data", "ShapeNet", "raw"), ENTRY_CATEGORIES,
+                            ENTRY_SPLITS, seed=SEED)
+        os.chdir(tmp.name)
+        n_train, n_val, n_test = (len(ENTRY_CATEGORIES) * n for n in ENTRY_SPLITS)
+        steps, val_batches = n_train // TRAIN_B, n_val // TRAIN_B
+        test_batches = min(10, -(-n_test // TRAIN_B))
+        zero()
+        t = time.perf_counter()
+        trained, _ = train.main(BACKBONE_FLAGS + ["--eucl_embedding", str(EUCL), "--bf16"])
+        torch.cuda.synchronize()
+        entry_train_s = time.perf_counter() - t
+        entry_train_launches = counts()
+        expect("train.main --bf16 (1 epoch)", entry_train_launches,
+               3 * (steps + val_batches + test_batches), 3 * (val_batches + test_batches))
+        final = os.path.join("logs", "shapenet_vn_dgcnn_partseg", "checkpoints", "final")
+        if load_config(final)["bf16"] is not True:
+            fail("bf16: final/config.json does not say bf16")
+        zero()
+        with record_test_steps() as served:
+            restored, _ = infer.main(["shapenet", "--model_path", final, "--fixed_points",
+                                      str(N), "--batch", str(B), "--test_batches", "1"])
+        entry_infer_launches = counts()
+        expect("infer.main (1 request)", entry_infer_launches, 3, 3)
+        if not (restored.cfg.bf16 and restored.net.nn_feat.compute_dtype == bf16):
+            fail("bf16: infer restored an fp32 system")
+        loader = DataLoader(ShapeNetDataset("data/ShapeNet/raw", N, "test"), B, shuffle=True,
+                            seed=SEED)
+        with record_test_steps() as in_memory:
+            trainer.test(trained, loader, seed=SEED, limit_batches=1)
+        try:
+            entry_logs_rel = check_same_test_outputs(served, in_memory)
+        except AssertionError as e:
+            fail(f"bf16: infer differs from trainer.test in memory: {e}")
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+
+    timed = sorted(times[WARMUP:])
+    tst = sorted(step_s[WARMUP:])
+    trn = sorted(train_s[TRAIN_WARMUP:])
+    w3, w63 = knn_work(B, N, 3, K, feature_bytes=2), knn_work(B, N, 63, K, feature_bytes=2)
+    knn_bound = bound_ms(w3[0] + 2 * w63[0], w3[1] + 2 * w63[1])
+    ec_ops = sum(edgeconv_work(B, N, r["C"], K, r["n_convs"], feature_bytes=2)[0]
+                 for r in ec_rows.values())
+    ec_bytes = sum(edgeconv_work(B, N, r["C"], K, r["n_convs"], feature_bytes=2)[1]
+                   for r in ec_rows.values())
+    out = dict(
+        B=B, N=N, k=K, eucl=EUCL, hyp=HYP, requests=REQUESTS, launches=launches,
+        test_step_launches=test_launches, launches_main_path=dict(totals),
+        forward_ms_median=timed[len(timed) // 2] * 1e3, forward_ms_all=[t * 1e3 for t in times],
+        clouds_per_s=B / timed[len(timed) // 2], forward_peak_memory_mb=forward_peak_mb,
+        test_step_ms_median=tst[len(tst) // 2] * 1e3, test_step_ms_all=[t * 1e3 for t in step_s],
+        test_step_peak_memory_mb=test_peak_mb,
+        train_B=TRAIN_B, train_step_ms_median=trn[len(trn) // 2] * 1e3,
+        train_step_ms_all=[t * 1e3 for t in train_s], train_peak_memory_mb=train_peak_mb,
+        loss_trace=[lg["total_loss"] for lg in losses], fp32_same_call=fp32,
+        profile_2_requests=profile,
+        share_vs_plain_gpu=plain_share, share_vs_cpu_small=cpu_share, share_limit=BF16_SHARE,
+        knn_cases=knn_rows, knn_ms=knn_ms, knn_plain_ms=knn_plain_ms,
+        knn_ms_per_forward=knn_ms["d3"] + 2 * knn_ms["d63"],
+        knn_plain_ms_per_forward=knn_plain_ms["d3"] + 2 * knn_plain_ms["d63"],
+        knn_bound_ms_per_forward=knn_bound[0], knn_bound_by=knn_bound[1],
+        knn_max_score_gap=knn_err, edgeconv_stages=ec_rows,
+        edgeconv_ms_per_forward=sum(r["ms"] for r in ec_rows.values()),
+        edgeconv_plain_ms_per_forward=sum(r["plain_ms"] for r in ec_rows.values()),
+        edgeconv_bound_ms_per_forward=bound_ms(ec_ops, ec_bytes)[0],
+        edgeconv_bound_by=bound_ms(ec_ops, ec_bytes)[1], edgeconv_max_abs_err=ec_err,
+        edgeconv_rounding=BF16_ULP, embed_gap_vs_fp32=embed_gap,
+        graph_agreement_vs_fp32=graph_agreement, decode_vs_fp32=decode_cmp,
+        train_vs_cpu_b2_n256=vs_cpu, entry_train_launches=entry_train_launches,
+        entry_train_seconds=entry_train_s, entry_infer_launches=entry_infer_launches,
+        infer_seconds_per_request=[c["seconds"] for c in served],
+        infer_vs_in_memory_max_rel_log_diff=entry_logs_rel,
+        seconds=time.perf_counter() - t_phase, card=card)
+    emit("bf16", **out)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every phase's results to this file")
@@ -1320,6 +1672,15 @@ def main():
     entry_launches = {k: sum(run[k] for run in entry["launches"].values())
                       for k in ("knn", "knn_wide", "edgeconv")}
     backbones = backbones_phase(batches, card)
+    bf16 = bf16_phase(system, batches, card, fp32=dict(
+        forward_ms_median=RESULTS["forward"]["forward_ms_median"],
+        forward_peak_memory_mb=RESULTS["forward"]["peak_memory_mb"],
+        forward_device_ms_per_request=RESULTS["profile"]["device_ms_per_call"],
+        forward_kernels_per_request=RESULTS["profile"]["kernels_per_call"],
+        test_step_ms_median=decode["test_step_ms_median"],
+        test_step_peak_memory_mb=decode["peak_memory_mb"],
+        train_step_ms_median=train["train_step_ms_median"],
+        train_peak_memory_mb=train["peak_memory_mb"]))
 
     # 10. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
@@ -1355,6 +1716,19 @@ def main():
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),
              bound_ms=bound_ms(ec_ops, ec_bytes)[0], bound_by=bound_ms(ec_ops, ec_bytes)[1],
+             library_ms=None),
+        dict(name="knn_bf16", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
+             replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
+             launches=bf16["launches_main_path"]["knn_bf16"],
+             max_abs_err=bf16["knn_max_score_gap"], ms=bf16["knn_ms_per_forward"],
+             plain_ms=bf16["knn_plain_ms_per_forward"], bound_ms=bf16["knn_bound_ms_per_forward"],
+             bound_by=bf16["knn_bound_by"], library_ms=None),
+        dict(name="edgeconv_bf16", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
+             replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
+             launches=bf16["launches_main_path"]["edgeconv_bf16"],
+             max_abs_err=bf16["edgeconv_max_abs_err"], ms=bf16["edgeconv_ms_per_forward"],
+             plain_ms=bf16["edgeconv_plain_ms_per_forward"],
+             bound_ms=bf16["edgeconv_bound_ms_per_forward"], bound_by=bf16["edgeconv_bound_by"],
              library_ms=None),
     ]
     RESULTS["kernels"] = kernels

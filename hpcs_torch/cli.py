@@ -8,8 +8,8 @@ default and the flag turns them off, and CosFace is the metric loss unless
 --accelerator names the port's device, `cuda` (or `gpu`) by default, or
 `cpu`.  The flags whose path is not ported yet raise NotImplementedError
 naming their ROADMAP item: `refuse_unported` for the flags that are not
-ModelConfig fields, HypHCSystem for --bf16 and --layout.  --model takes
-each of the JAX package's four backbones.
+ModelConfig fields, HypHCSystem for --layout vc.  --model takes each of
+the JAX package's four backbones; --bf16 computes VN-DGCNN in bf16.
 
 Data roots are relative to the working directory, as in the JAX package:
 data/ShapeNet/raw, data/PartNet/sem_seg_h5 and
@@ -75,7 +75,7 @@ def add_train_args(parser):
     parser.add_argument('--debug_nans', action='store_true',
                         help='stop at the first NaN (not ported: ROADMAP A12b)')
     parser.add_argument('--bf16', action='store_true',
-                        help='bf16 backbone compute (not ported: ROADMAP A5b)')
+                        help='bf16 compute in the VN-DGCNN backbone (the other backbones stay fp32)')
     parser.add_argument('--layout', default='cv', choices=['cv', 'vc'],
                         help="VN feature layout ('vc' is the JAX package's TPU layout, not ported)")
     return parser

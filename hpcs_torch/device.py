@@ -8,9 +8,12 @@ def resolve_device(device=None):
     With no GPU and no explicit device this raises instead of carrying on on
     the CPU.  It also turns TF32 off for matmuls and cuDNN: TF32-rounded kNN
     scores flip neighbours under rotation, so the port stays in full fp32.
+    And bf16 matmuls sum in fp32 only (no bf16 reductions inside cuBLAS), as
+    the JAX package asks with preferred_element_type=float32.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -114,8 +114,6 @@ def decode_batch(x_poincare, labels, scale, num_class):
 def _refuse_unported(cfg):
     """Raise NotImplementedError, naming the ROADMAP item, for a
     configuration whose path the port does not have yet."""
-    if cfg.bf16:
-        raise NotImplementedError("bf16: the bf16 backbone is not ported yet (ROADMAP A5b)")
     if cfg.layout != "cv":
         raise NotImplementedError(f"layout {cfg.layout!r}: the 'vc' layout is the JAX "
                                   "package's TPU layout; the port computes in 'cv'")

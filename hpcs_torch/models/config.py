@@ -2,8 +2,7 @@
 
 The fields and defaults of the JAX package's ModelConfig, in its order, so
 a config.json written by either package loads with `ModelConfig(**d)`.
-`HypHCSystem` refuses the values whose path is not ported yet (`bf16`,
-`layout="vc"`).
+`HypHCSystem` refuses `layout="vc"`, the JAX package's TPU layout.
 """
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -42,7 +41,7 @@ class ModelConfig:
     test_rotation: str = "so3"
     # optimization
     lr: float = 0.005
-    bf16: bool = False  # bf16 compute in the backbone (ROADMAP A5b)
+    bf16: bool = False  # bf16 compute in the VN-DGCNN backbone (the others: fp32)
     # VN feature layout: "cv" [.., C, 3]; "vc" [.., 3, C] is the JAX
     # package's lane-major layout for the TPU, with the same parameters
     layout: str = "cv"

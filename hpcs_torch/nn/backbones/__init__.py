@@ -1,3 +1,5 @@
+import torch
+
 from .dgcnn import DGCNNPartSeg
 from .pointnet import PointNetPartSeg
 from .vn_dgcnn import VNDGCNNPartSeg
@@ -7,10 +9,13 @@ from .vn_pointnet import VNPointNetPartSeg
 def make_backbone(cfg):
     """The backbone `cfg.model_name` names, as the JAX package's
     make_backbone builds it.  The scalar backbones and VN-PointNet output
-    num_class-wide features, so they need eucl_dim == num_class."""
+    num_class-wide features, so they need eucl_dim == num_class.  cfg.bf16
+    sets VN-DGCNN's compute dtype; the other backbones compute in fp32
+    whatever it says, as in the JAX package."""
     if cfg.model_name == "vn_dgcnn_partseg":
         return VNDGCNNPartSeg(cfg.eucl_dim, k=cfg.k, num_categories=cfg.num_categories,
-                              pooling=cfg.pooling, dropout=cfg.dropout)
+                              pooling=cfg.pooling, dropout=cfg.dropout,
+                              compute_dtype=torch.bfloat16 if cfg.bf16 else None)
     if cfg.model_name in ("dgcnn_partseg", "pointnet_partseg", "vn_pointnet_partseg") \
             and cfg.eucl_dim != cfg.num_class:
         raise ValueError(

@@ -16,12 +16,23 @@ edge features (`graph_feature_vn`), the VNLinearLeakyReLU modules (batch
 statistics in training, running ones in eval), and the mean over the
 neighbours or VNMaxPool (`pool1`..`pool3`, max pooling only).  B2 is
 eval-only in both packages.
+
+With compute_dtype=torch.bfloat16 (ModelConfig.bf16) the backbone computes
+as the JAX package's does with compute_dtype bfloat16: the points are cast
+to bf16 first, so stage 1's graph is built on bf16 coordinates; the VN
+layers follow their bf16 rules (nn.vn.layers); B1 and B2 read bf16
+features (B2 with bf16-rounded weights, fp32 inside, its output rounded to
+bf16); the head's conv7-conv10 multiply in bf16 with an fp32 BatchNorm and
+round each block's output to bf16; conv11 and the output are fp32 (the
+input's dtype).  The parameters stay fp32.
 """
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ...ops.edgeconv import edgeconv_infer, fold_bn, graph_feature_vn
 from ...ops.knn import knn
+from ...ops.vn_math import upcast
 from ..vn.layers import (BatchNorm, VNLinearLeakyReLU, VNMaxPool, VNStdFeature, invariant_project,
                          mean_pool)
 
@@ -35,6 +46,14 @@ def _head_block(in_features, out_features, relu=True):
     if relu:
         layers.append(nn.LeakyReLU(0.2))
     return nn.Sequential(*layers)
+
+
+def _head(block, h, dtype):
+    """A head block on h [B, C, N]: its Conv1d in `dtype` (the weight cast
+    to it), its BatchNorm and activation in at least fp32, the output in
+    `dtype` (the JAX package's _ScalarConvBNRelu with dtype)."""
+    y = F.conv1d(h.to(dtype), block[0].weight.to(dtype))
+    return block[1:](upcast(y)).to(dtype)
 
 
 def stage_weights(*convs):
@@ -70,11 +89,13 @@ def dropout(x, p, generator):
 class VNDGCNNPartSeg(nn.Module):
     """Rotation-equivariant DGCNN returning per-point features [B, N, F]."""
 
-    def __init__(self, out_features, k=20, num_categories=16, pooling="mean", dropout=0.5):
+    def __init__(self, out_features, k=20, num_categories=16, pooling="mean", dropout=0.5,
+                 compute_dtype=None):
         super().__init__()
         self.k = k
         self.pooling = pooling
         self.dropout = dropout
+        self.compute_dtype = compute_dtype  # None: the points' dtype
         c = EDGE_CHANNELS
         self.conv1 = VNLinearLeakyReLU(2, c)
         self.conv2 = VNLinearLeakyReLU(c, c)
@@ -109,6 +130,9 @@ class VNDGCNNPartSeg(nn.Module):
         conv8 and conv9 (training mode with dropout > 0 only).
         """
         B, N, _ = points.shape
+        out_dtype = points.dtype
+        dtype = self.compute_dtype or out_dtype
+        points = points.to(dtype)
 
         def graph(i, metric):
             return knn_graph(metric, self.k, idx_override, i)
@@ -126,20 +150,20 @@ class VNDGCNNPartSeg(nn.Module):
         x123 = torch.cat([x1, x2, x3], dim=-2)  # [B, N, 63, 3]
 
         x = self.conv6(x123)  # [B, N, 341, 3]
-        x = torch.cat([x, x.mean(dim=1, keepdim=True).expand_as(x)], dim=-2)  # 682
+        x = torch.cat([x, mean_pool(x, dim=1)[:, None].expand_as(x)], dim=-2)  # 682
 
         x_std, z0 = self.std_feature(x)
         x_std = x_std.reshape(B, N, -1)  # [B, N, 2046], channel-major
         x123_inv = invariant_project(x123, z0).reshape(B, N, -1)  # [B, N, 189]
         x_global = x_std.max(dim=1).values  # [B, 2046]
-        l = self.conv7(label[:, :, None])[:, :, 0]  # [B, 64]
+        l = _head(self.conv7, label[:, :, None], dtype)[:, :, 0]  # [B, 64]
 
         fused = torch.cat([x_global, l], dim=-1)[:, None, :].expand(B, N, -1)
         h = torch.cat([fused, x123_inv], dim=-1).transpose(1, 2)  # [B, 2299, N]
         p = self.dropout if self.training else 0.0
         if p and generator is None:
             raise ValueError("the training forward draws dropout masks: pass a generator")
-        h = dropout(self.conv8(h), p, generator)
-        h = dropout(self.conv9(h), p, generator)
-        h = self.conv11(self.conv10(h))
+        h = dropout(_head(self.conv8, h, dtype), p, generator)
+        h = dropout(_head(self.conv9, h, dtype), p, generator)
+        h = _head(self.conv11, _head(self.conv10, h, dtype), out_dtype)
         return h.transpose(1, 2)

@@ -9,11 +9,17 @@ Parameter names follow the reference's state_dict keys (`map_to_feat`,
 BatchNorm follows flax's nn.BatchNorm, not torch's (`BatchNorm`): in
 training it normalises by the batch mean and the biased variance
 E[x^2] - E[x]^2 and moves the running statistics by 0.1 of the batch's.
+
+bf16 features (VN-DGCNN with ModelConfig.bf16) follow the JAX package:
+channel mixes in bf16 with fp32 sums (`channel_mix`), the norm BatchNorm
+and the gate in fp32 with their results rounded back, the mean over the
+neighbours summed in fp32.  Parameters stay fp32: each layer casts the
+weight it uses.
 """
 import torch
 from torch import nn
 
-from ...ops.vn_math import BN_EPS, EPS, NEGATIVE_SLOPE, channel_mix, vn_leaky_relu
+from ...ops.vn_math import BN_EPS, EPS, NEGATIVE_SLOPE, channel_mix, upcast, vn_leaky_relu
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -76,15 +82,17 @@ class VNLinear(nn.Module):
 
 
 class VNBatchNorm(nn.Module):
-    """BatchNorm on vector norms: rescales each vector by bn(|v|) / |v|."""
+    """BatchNorm on vector norms: rescales each vector by bn(|v|) / |v|,
+    in fp32 for bf16 features (the result rounded back)."""
 
     def __init__(self, num_features):
         super().__init__()
         self.bn = BatchNorm(num_features)
 
     def forward(self, x):
-        norm = torch.sqrt(torch.sum(x * x, dim=-1) + EPS * EPS) + EPS
-        return x * (self.bn(norm) / norm).unsqueeze(-1)
+        xf = upcast(x)
+        norm = torch.sqrt(torch.sum(xf * xf, dim=-1) + EPS * EPS) + EPS
+        return (xf * (self.bn(norm) / norm).unsqueeze(-1)).to(x.dtype)
 
 
 class VNLinearLeakyReLU(nn.Module):
@@ -149,8 +157,9 @@ class VNMaxPool(nn.Module):
 
 
 def mean_pool(x, dim=-3):
-    """Mean over the neighbour axis of [..., K, C, 3]."""
-    return torch.mean(x, dim=dim)
+    """Mean over the neighbour axis of [..., K, C, 3] (or over `dim`),
+    summed in fp32 for bf16 features and rounded back, as jnp.mean does."""
+    return torch.mean(upcast(x), dim=dim).to(x.dtype)
 
 
 def invariant_project(x, z0_rows):

@@ -43,6 +43,15 @@
 //   (a, b) and stage 1's W1 are read from shared memory.
 // - The mean over K is a sum in edge order: through shared memory after
 //   conv2, in the (point, channel) thread's registers in the one-conv stage.
+//
+// bf16 features (VN-DGCNN's bf16 configuration): the kernels are templates
+// on the element type T of x and of the output.  They convert x to fp32 as
+// they load it, compute in fp32 as the TPU kernel does (it upcasts bf16 at
+// its entry), keep the C = 21 workspace in fp32, and round each pooled
+// output to T once, as they store it.  The wrapper gives them the
+// bf16-rounded W1, Wd1, W2, Wd2 (the JAX package's channel mixes cast their
+// weights to bf16) in fp32; the folded BatchNorm stays fp32.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstddef>
@@ -60,6 +69,14 @@ constexpr int PROJECT_POINTS = 12;   // points per projection block, 21 threads 
 constexpr int MEAN_THREADS = 256;
 constexpr float EPS = 1e-6f;
 constexpr float SLOPE = 0.2f;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // Shared parameters of an edge block: ab1, ab2 [2][21] and, for C = 1,
 // W1 and Wd1 [21][2] ([o][difference, centre]).
@@ -104,8 +121,9 @@ __device__ __forceinline__ void gate(float p[3], const float d[3], float a, floa
 // rows, the weights (rows padded to 43 floats: 21 channels, 21 banks) and
 // its output rows in shared memory, so both reads and writes are whole
 // contiguous rows.
+template <typename T>
 __global__ void __launch_bounds__(PROJECT_POINTS * COUT)
-project_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+project_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                const float* __restrict__ wd1, float* __restrict__ gath, float* __restrict__ cen,
                int points) {
   constexpr int C = 21, WROW = 2 * C + 1, THREADS = PROJECT_POINTS * COUT;
@@ -120,7 +138,8 @@ project_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     s_w[1][o * WROW + c] = wd1[f];
   }
   const int rows = min(PROJECT_POINTS, points - first);
-  for (int f = tid; f < rows * C * 3; f += THREADS) s_x[f] = x[(size_t)first * C * 3 + f];
+  for (int f = tid; f < rows * C * 3; f += THREADS)
+    s_x[f] = to_float(x[(size_t)first * C * 3 + f]);
   __syncthreads();
   const int pl = tid / COUT, o = tid - pl * COUT;
   if (pl < rows) {
@@ -220,10 +239,11 @@ struct Conv1Channel {
 // The one-conv stage for C = 21: thread (point, o) gates channel o of each
 // of the point's K edges in order and keeps their sum in registers, so it
 // needs no shared memory, no barrier and no second pass for the mean.
+template <typename T>
 __global__ void __launch_bounds__(MEAN_THREADS)
 edge_mean_kernel(const int* __restrict__ idx, const float* __restrict__ gath,
                  const float* __restrict__ cen, const float* __restrict__ ab1,
-                 float* __restrict__ out, int points, int n, int k) {
+                 T* __restrict__ out, int points, int n, int k) {
   __shared__ float par[2 * COUT];
   for (int f = threadIdx.x; f < 2 * COUT; f += MEAN_THREADS) par[PAR_AB1 + f] = ab1[f];
   __syncthreads();
@@ -248,7 +268,8 @@ edge_mean_kernel(const int* __restrict__ idx, const float* __restrict__ gath,
   }
   if (!valid) acc[0] = acc[1] = acc[2] = NAN;
 #pragma unroll
-  for (int v = 0; v < 3; ++v) out[(size_t)point * CV + o * 3 + v] = acc[v] * (1.f / k);
+  for (int v = 0; v < 3; ++v)
+    out[(size_t)point * CV + o * 3 + v] = from_float<T>(acc[v] * (1.f / k));
 }
 
 // conv2's outputs LO .. HI-1 of one edge, gated, into h2: conv1's gated
@@ -290,13 +311,13 @@ __device__ __forceinline__ void conv2_outputs(const float* h1, const float* par,
 // overwrites the row with the outputs.  Dynamic shared memory, in floats:
 // the parameters, the rows s_h[P KC][63], and, when K takes more than one
 // round, the running sums s_acc[P][63].
-template <int C, int NCONV>
+template <typename T, int C, int NCONV>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
-edge_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+edge_kernel(const T* __restrict__ x, const int* __restrict__ idx,
             const float* __restrict__ gath, const float* __restrict__ cen,
             const float* __restrict__ w1, const float* __restrict__ wd1,
             const float* __restrict__ ab1, const float* __restrict__ ab2,
-            float* __restrict__ out, int points, int n, int k, int kc, int per_block) {
+            T* __restrict__ out, int points, int n, int k, int kc, int per_block) {
   constexpr int SLOT = slot_of(C);
   extern __shared__ float4 smem4[];
   float* par = reinterpret_cast<float*>(smem4);
@@ -347,13 +368,13 @@ edge_kernel(const float* __restrict__ x, const int* __restrict__ idx,
           for (int f = 0; f < CV; ++f) hs[f] = NAN;
       } else {
         if constexpr (C == 1) {
-          const float* xc = x + (size_t)point * 3;
-          const float* xj = x + ((size_t)(point / n) * n + j) * 3;
+          const T* xc = x + (size_t)point * 3;
+          const T* xj = x + ((size_t)(point / n) * n + j) * 3;
           float xi[3], diff[3];
 #pragma unroll
           for (int v = 0; v < 3; ++v) {
-            xi[v] = xc[v];
-            diff[v] = xj[v] - xi[v];
+            xi[v] = to_float(xc[v]);
+            diff[v] = to_float(xj[v]) - xi[v];
           }
           conv1_c1(xi, diff, par, hs);
         }
@@ -380,7 +401,7 @@ edge_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 #pragma unroll 4
       for (int q = 0; q < nk; ++q) a += e[q * CV];
       if (last)
-        out[(size_t)(first + p) * CV + cv] = a * (1.f / k);
+        out[(size_t)(first + p) * CV + cv] = from_float<T>(a * (1.f / k));
       else
         s_acc[f] = a;
     }
@@ -412,10 +433,10 @@ int points_per_block(int c, int kc, int rounds, int* threads, size_t* smem) {
 std::mutex g_order_mutex;
 cudaEvent_t g_done[64] = {};
 
-template <int C, int NCONV>
-cudaError_t launch(const float* x, const int* idx, const float* w1, const float* wd1,
+template <typename T, int C, int NCONV>
+cudaError_t launch(const T* x, const int* idx, const float* w1, const float* wd1,
                    const float* ab1, const float* w2, const float* wd2, const float* ab2,
-                   float* out, float* workspace, int points, int n, int k, cudaStream_t s) {
+                   T* out, float* workspace, int points, int n, int k, cudaStream_t s) {
   cudaError_t err;
   if (NCONV == 2) {
     constexpr size_t base = slot_of(C) * sizeof(Conv2Weights);
@@ -430,14 +451,14 @@ cudaError_t launch(const float* x, const int* idx, const float* w1, const float*
   float* gath = workspace;
   float* cen = workspace + (size_t)points * ROW;
   if (C == 21) {
-    project_kernel<<<(points + PROJECT_POINTS - 1) / PROJECT_POINTS, PROJECT_POINTS * COUT, 0,
-                     s>>>(x, w1, wd1, gath, cen, points);
+    project_kernel<T><<<(points + PROJECT_POINTS - 1) / PROJECT_POINTS, PROJECT_POINTS * COUT,
+                        0, s>>>(x, w1, wd1, gath, cen, points);
     if ((err = cudaGetLastError())) return err;
   }
   if constexpr (C == 21 && NCONV == 1) {
     const long long t = (long long)points * COUT;
-    edge_mean_kernel<<<(unsigned)((t + MEAN_THREADS - 1) / MEAN_THREADS), MEAN_THREADS, 0, s>>>(
-        idx, gath, cen, ab1, out, points, n, k);
+    edge_mean_kernel<T><<<(unsigned)((t + MEAN_THREADS - 1) / MEAN_THREADS), MEAN_THREADS, 0,
+                          s>>>(idx, gath, cen, ab1, out, points, n, k);
   } else {
     const int kc = k < MAX_EDGES ? k : MAX_EDGES;
     const int rounds = (k + kc - 1) / kc;
@@ -445,10 +466,43 @@ cudaError_t launch(const float* x, const int* idx, const float* w1, const float*
     size_t smem = 0;
     const int per_block = points_per_block(C, kc, rounds, &threads, &smem);
     const int blocks = (points + per_block - 1) / per_block;
-    edge_kernel<C, NCONV><<<blocks, threads, smem, s>>>(
+    edge_kernel<T, C, NCONV><<<blocks, threads, smem, s>>>(
         x, idx, gath, cen, w1, wd1, ab1, ab2, out, points, n, k, kc, per_block);
   }
   return cudaGetLastError();
+}
+
+// The stage on features of element type T (see hpcs_edgeconv below).
+template <typename T>
+int edgeconv_entry(const T* x, const int* idx, const float* w1, const float* wd1,
+                   const float* ab1, const float* w2, const float* wd2, const float* ab2, T* out,
+                   float* workspace, int b, int n, int c, int k, int n_convs, void* stream) {
+  if (b < 1 || n < 1 || k < 1 || (long long)b * n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (!((c == 1 || c == 21) && (n_convs == 1 || n_convs == 2))) return (int)cudaErrorInvalidValue;
+  if (c == 21 && workspace == nullptr) return (int)cudaErrorInvalidValue;
+  const int points = b * n;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_convs == 1)
+    return (int)(c == 1 ? launch<T, 1, 1>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace,
+                                          points, n, k, s)
+                        : launch<T, 21, 1>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace,
+                                           points, n, k, s));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_order_mutex);
+  if (g_done[dev] == nullptr) {
+    if ((err = cudaEventCreateWithFlags(&g_done[dev], cudaEventDisableTiming))) return (int)err;
+  } else if ((err = cudaStreamWaitEvent(s, g_done[dev], 0))) {
+    return (int)err;
+  }
+  err = c == 1 ? launch<T, 1, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, points, n,
+                                 k, s)
+               : launch<T, 21, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, points, n,
+                                  k, s);
+  if (err) return (int)err;
+  return (int)cudaEventRecord(g_done[dev], s);
 }
 
 }  // namespace
@@ -462,29 +516,17 @@ extern "C" int hpcs_edgeconv(const float* x, const int* idx, const float* w1, co
                              const float* ab1, const float* w2, const float* wd2,
                              const float* ab2, float* out, float* workspace, int b, int n, int c,
                              int k, int n_convs, void* stream) {
-  if (b < 1 || n < 1 || k < 1 || (long long)b * n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (!((c == 1 || c == 21) && (n_convs == 1 || n_convs == 2))) return (int)cudaErrorInvalidValue;
-  if (c == 21 && workspace == nullptr) return (int)cudaErrorInvalidValue;
-  const int points = b * n;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_convs == 1)
-    return (int)(c == 1 ? launch<1, 1>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace,
-                                       points, n, k, s)
-                        : launch<21, 1>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace,
-                                        points, n, k, s));
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(g_order_mutex);
-  if (g_done[dev] == nullptr) {
-    if ((err = cudaEventCreateWithFlags(&g_done[dev], cudaEventDisableTiming))) return (int)err;
-  } else if ((err = cudaStreamWaitEvent(s, g_done[dev], 0))) {
-    return (int)err;
-  }
-  err = c == 1 ? launch<1, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, points, n, k, s)
-               : launch<21, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, points, n, k,
-                               s);
-  if (err) return (int)err;
-  return (int)cudaEventRecord(g_done[dev], s);
+  return edgeconv_entry(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, c, k, n_convs,
+                        stream);
+}
+
+// The same with x and out bf16 (the weights, folded BatchNorm and workspace
+// fp32).
+extern "C" int hpcs_edgeconv_bf16(const __nv_bfloat16* x, const int* idx, const float* w1,
+                                  const float* wd1, const float* ab1, const float* w2,
+                                  const float* wd2, const float* ab2, __nv_bfloat16* out,
+                                  float* workspace, int b, int n, int c, int k, int n_convs,
+                                  void* stream) {
+  return edgeconv_entry(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, c, k, n_convs,
+                        stream);
 }

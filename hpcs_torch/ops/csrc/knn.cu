@@ -1,7 +1,7 @@
 // Kernel B1: the k nearest neighbours of every point of a batch of clouds.
 //
 // Replaces hpcs_tpu/ops/pallas/knn_pallas.py::_knn_kernel.  For x [B, N, D]
-// fp32 it writes idx [B, N, k] int32: nearest first, the point itself
+// fp32 (or bf16, below) it writes idx [B, N, k] int32: nearest first, the point itself
 // included, ties broken toward the smallest index.  The ranking score of
 // column j for row i is 2 x_i.x_j - |x_j|^2, accumulated with fp32 FMAs on
 // the CUDA cores (never TF32), so the N x N score matrix never reaches
@@ -25,11 +25,21 @@
 // best per score; only the columns that beat it (a ballot) are inserted,
 // lowest lane first, each re-checked against the moving k-th best.  NaN
 // scores never rank; a slot no score reached reports -1.
+//
+// bf16 features (VN-DGCNN's bf16 configuration): knn_kernel is a template
+// on the element type of x and converts each value to fp32 as it loads it
+// into shared memory, so everything after the load, and the result, is the
+// fp32 kernel's on the upcast values (bf16 to fp32 is exact), as the TPU
+// kernel upcasts bf16 at its entry.  The loads move half the bytes.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
 
 namespace {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -46,9 +56,9 @@ __host__ inline size_t smem_bytes(int tr, int n, int d) {
                           (size_t)d * TC_STRIDE + TC);
 }
 
-template <int TR>
+template <int TR, typename T>
 __global__ void __launch_bounds__(THREADS)
-knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d, int k) {
+knn_kernel(const T* __restrict__ x, int* __restrict__ idx, int n, int d, int k) {
   constexpr int RT = TR / WARPS;  // rows per thread
   extern __shared__ float4 smem4[];
   const int np = padded_n(n);
@@ -59,21 +69,21 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d, int
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * TR;
-  const float* xb = x + (size_t)b * n * d;
+  const T* xb = x + (size_t)b * n * d;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
 
   for (int e = tid; e < TR * d; e += THREADS) {
     const int r = e / d, dd = e % d;
-    rows[dd * TR + r] = row0 + r < n ? xb[(size_t)(row0 + r) * d + dd] : 0.f;
+    rows[dd * TR + r] = row0 + r < n ? to_float(xb[(size_t)(row0 + r) * d + dd]) : 0.f;
   }
 
   for (int c0 = 0; c0 < n; c0 += TC) {
     __syncthreads();  // the previous tile has been consumed
     for (int e = tid; e < TC * d; e += THREADS) {
       const int c = e / d, dd = e % d;
-      cols[dd * TC_STRIDE + c] = c0 + c < n ? xb[(size_t)(c0 + c) * d + dd] : 0.f;
+      cols[dd * TC_STRIDE + c] = c0 + c < n ? to_float(xb[(size_t)(c0 + c) * d + dd]) : 0.f;
     }
     __syncthreads();
     if (tid < TC) {
@@ -155,15 +165,29 @@ knn_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d, int
   }
 }
 
-template <int TR>
-cudaError_t launch(const float* x, int* idx, int b, int n, int d, int k, cudaStream_t stream) {
+template <int TR, typename T>
+cudaError_t launch(const T* x, int* idx, int b, int n, int d, int k, cudaStream_t stream) {
   const size_t smem = smem_bytes(TR, n, d);
-  cudaError_t err = cudaFuncSetAttribute(knn_kernel<TR>,
+  cudaError_t err = cudaFuncSetAttribute(knn_kernel<TR, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + TR - 1) / TR, b);
-  knn_kernel<TR><<<grid, THREADS, smem, stream>>>(x, idx, n, d, k);
+  knn_kernel<TR, T><<<grid, THREADS, smem, stream>>>(x, idx, n, d, k);
   return cudaGetLastError();
+}
+
+// B1 on x [b, n, d] of element type T: the row tile as knn_kernel's entry
+// points choose it.
+template <typename T>
+int knn_entry(const T* x, int* idx, int b, int n, int d, int k, void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || n > MAX_N || d < 1 || d > MAX_D || k < 1 ||
+      k > MAX_K || k > n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the largest row tile that leaves room for two blocks on an SM
+  if (smem_bytes(32, n, d) <= 113 * 1024) return (int)launch<32>(x, idx, b, n, d, k, s);
+  if (smem_bytes(16, n, d) <= 113 * 1024) return (int)launch<16>(x, idx, b, n, d, k, s);
+  return (int)launch<8>(x, idx, b, n, d, k, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -262,14 +286,13 @@ knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d
 // x [b, n, d] fp32 and idx [b, n, k] int32, both contiguous on the device.
 // Returns the cudaError_t of the launch.
 extern "C" int hpcs_knn(const float* x, int* idx, int b, int n, int d, int k, void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || n > MAX_N || d < 1 || d > MAX_D || k < 1 ||
-      k > MAX_K || k > n)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the largest row tile that leaves room for two blocks on an SM
-  if (smem_bytes(32, n, d) <= 113 * 1024) return (int)launch<32>(x, idx, b, n, d, k, s);
-  if (smem_bytes(16, n, d) <= 113 * 1024) return (int)launch<16>(x, idx, b, n, d, k, s);
-  return (int)launch<8>(x, idx, b, n, d, k, s);
+  return knn_entry(x, idx, b, n, d, k, stream);
+}
+
+// The same for x [b, n, d] bf16.
+extern "C" int hpcs_knn_bf16(const __nv_bfloat16* x, int* idx, int b, int n, int d, int k,
+                             void* stream) {
+  return knn_entry(x, idx, b, n, d, k, stream);
 }
 
 // The wide route: x [b, n, d] fp32 and idx [b, n, k] int32, both contiguous

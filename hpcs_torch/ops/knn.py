@@ -7,6 +7,12 @@ tensor to one of two hand-written kernels in `csrc/knn.cu`, chosen by shape:
 rank by the exact fp32 score 2 x_i.x_j - |x_j|^2 (the row's own -|x_i|^2
 cannot change the order), include the point itself, return nearest first,
 and break ties toward the smallest index.
+
+x may be float32 or bfloat16.  bf16 features are ranked by their fp32
+values (bf16 to fp32 is exact), as the TPU kernel upcasts them: B1 reads
+bf16 in the kernel and converts each value on load, so its bf16 route is
+its fp32 route on x.float(), bit for bit; the wide route, which no
+configuration takes, gets x.float() from the wrapper.
 """
 import ctypes
 
@@ -32,7 +38,7 @@ def knn_scores(x):
 def knn_plain(x, k):
     """Indices [B, N, k] (int32) of the k nearest neighbours of each point.
 
-    x: [B, N, D].  A stable descending sort keeps tied scores in index order,
+    x: [B, N, D], ranked by the scores of its fp32 values (knn_scores).  A stable descending sort keeps tied scores in index order,
     so ties go to the smallest index (torch.topk does not promise that).
     """
     order = torch.sort(knn_scores(x), dim=-1, descending=True, stable=True).indices
@@ -40,8 +46,8 @@ def knn_plain(x, k):
 
 
 def _check_input(x, what):
-    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"{what} takes a contiguous float32 [B, N, D] tensor, "
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous float32 or bfloat16 [B, N, D] tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
 
 
@@ -64,11 +70,17 @@ def _knn_cuda(x, k):
     if not (1 <= D <= MAX_D and 1 <= k <= min(MAX_K, N) and N <= MAX_N):
         raise ValueError(f"knn kernel takes D <= {MAX_D}, k <= {MAX_K}, k <= N <= "
                          f"{MAX_N}; got D={D}, k={k}, N={N}")
+    if x.dtype == torch.bfloat16:
+        idx = _launch("hpcs_knn_bf16", x, k)
+        if B:
+            knn.bf16_launches += 1
+        return idx
     return _launch("hpcs_knn", x, k)
 
 
 def _knn_wide_cuda(x, k):
     _check_input(x, "wide knn kernel")
+    x = x.float()  # the wide route reads fp32: bf16 features are upcast here
     B, N, D = x.shape
     if not (D >= 1 and 1 <= k <= N and N + D <= WIDE_MAX_FLOATS):
         raise ValueError(f"wide knn kernel keeps a row's N scores and D values in 192 KiB of "
@@ -85,7 +97,7 @@ def knn(x, k):
 
     A CUDA tensor goes to kernel B1 where it takes the shape, else to the
     wide kernel; both count in `knn.launches`, the wide one also in
-    `knn.wide_launches`.
+    `knn.wide_launches`, B1 on bf16 also in `knn.bf16_launches`.
     """
     if not x.is_cuda:
         return knn_plain(x, k)
@@ -97,6 +109,7 @@ def knn(x, k):
 
 knn.launches = 0
 knn.wide_launches = 0
+knn.bf16_launches = 0
 
 
 def gather_neighbors(x, idx):

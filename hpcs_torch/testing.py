@@ -40,7 +40,7 @@ def min_prenorm(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2):
     return torch.minimum(p2, p1.amin(dim=-1, keepdim=True)).amin(dim=2)
 
 
-def check_edgeconv(got, want, x, idx, weights, n_convs):
+def check_edgeconv(got, want, x, idx, weights, n_convs, rounding=0.0):
     """Hold an EdgeConv stage's output `got` against the plain twin's `want`.
 
     weights = [W1, Wd1, ab1, W2, Wd2, ab2].  Outputs whose pre-BatchNorm
@@ -48,24 +48,33 @@ def check_edgeconv(got, want, x, idx, weights, n_convs):
     rtol 1e-4.  The others are ill-conditioned (see min_prenorm): their
     error may be at most 1e-5 + eps |b| / |p|, what a relative error of one
     fp32 ulp (eps = 2^-23) in p becomes through the folded BatchNorm's
-    b / |p|, b the largest shift of the stage.  Raises AssertionError.
+    b / |p|, b the largest shift of the stage.  `rounding` widens both by
+    that share of |want|: the bf16 route's outputs (x, weights and got and
+    want in bf16; x and the weights are taken as the fp32 stage gets them)
+    are rounded once each, so two that agree in fp32 may lie one bf16 ulp,
+    2^-7 of |want|, apart.  Raises AssertionError.
     Returns a dict: the ill-conditioned count, the largest error of the
     other outputs and of the ill-conditioned ones, and the largest share of
     its limit that an ill-conditioned error takes.
     """
     assert torch.isfinite(got).all(), "edgeconv: non-finite output"
+    got, want = got.float(), want.float()
     w64 = [None if t is None else t.double() for t in weights]
+    if x.dtype == torch.bfloat16:
+        w64 = [None if t is None else t.to(torch.bfloat16).double() if i % 3 < 2 else t.double()
+               for i, t in enumerate(w64)]
     cond = min_prenorm(x.double(), idx, *w64, n_convs=n_convs)
     cond = cond[..., None].expand_as(got)
     shifts = [w64[2][1]] + ([w64[5][1]] if n_convs == 2 else [])
     shift = max(float(s.abs().max()) for s in shifts)
     err = (got - want).abs().double()
     ill = cond < ILL_CONDITIONED
-    bad = (err > ATOL + RTOL * want.abs()) & ~ill
+    bad = (err > ATOL + (RTOL + rounding) * want.abs()) & ~ill
     assert not bad.any(), (
         f"edgeconv C={x.shape[2]}: {int(bad.sum())} outputs beyond atol {ATOL} / rtol "
-        f"{RTOL}, max abs err {float(err[~ill].max()):.3e}")
-    share = err[ill] / (ATOL + torch.finfo(torch.float32).eps * shift / cond[ill])
+        f"{RTOL + rounding}, max abs err {float(err[~ill].max()):.3e}")
+    share = err[ill] / (ATOL + rounding * want.abs()[ill]
+                        + torch.finfo(torch.float32).eps * shift / cond[ill])
     assert not (share > 1).any(), (
         f"edgeconv C={x.shape[2]}: {int((share > 1).sum())} ill-conditioned outputs beyond "
         f"1e-5 + eps |b| / |p|")
@@ -229,6 +238,8 @@ def float64_train_step(system, batch, graphs, device="cpu"):
     sys64 = copy.deepcopy(system)
     sys64.optimizer.zero_grad(set_to_none=True)
     net = sys64.net.to(device).double().train()
+    if getattr(net.nn_feat, "compute_dtype", None) is not None:
+        net.nn_feat.compute_dtype = None  # a bf16 backbone's step, in float64 throughout
     for st in sys64.optimizer.state.values():
         st.update({k: v.to(device).double() for k, v in st.items() if torch.is_tensor(v)})
     pts = torch.as_tensor(batch["points"]).to(device).double()

@@ -46,6 +46,49 @@ def torch_threads(n):
         torch.set_num_threads(old)
 
 
+def bf16_einsum_on_cpu(monkeypatch):
+    """Let hpcs_tpu's bf16 path run on this CPU: replace jax.numpy.einsum,
+    for the monkeypatch's duration, by one that runs an einsum of two bf16
+    operands with preferred_element_type float32 on their fp32 upcasts at
+    HIGHEST precision.
+
+    XLA:CPU refuses that dot at the VN channel mixes' sizes ("Unsupported
+    element type for DotThunk::Execute: BF16 x BF16 = F32"), eagerly and
+    under jit.  The replacement computes the same function up to the order
+    of the fp32 sum: every product of two bf16 values is exact in fp32, and
+    bf16 to fp32 is exact.  Every other einsum goes to JAX's own.  Nothing
+    under hpcs_tpu/ changes."""
+    import jax
+    import jax.numpy as jnp
+
+    real = jnp.einsum
+
+    def einsum(*operands, preferred_element_type=None, precision=None, **kw):
+        arrays = [o for o in operands if not isinstance(o, str)]
+        if preferred_element_type == jnp.float32 and all(
+                getattr(a, "dtype", None) == jnp.bfloat16 for a in arrays):
+            operands = [o if isinstance(o, str) else o.astype(jnp.float32) for o in operands]
+            precision = jax.lax.Precision.HIGHEST
+        return real(*operands, preferred_element_type=preferred_element_type,
+                    precision=precision, **kw)
+
+    monkeypatch.setattr(jnp, "einsum", einsum)
+
+
+def jit_as_written(fn, *args):
+    """fn compiled for args (jax.jit) with XLA's xla_allow_excess_precision
+    off, so the program rounds to bf16 wherever its source casts to bf16.  By default
+    XLA may keep a chain of bf16 operations in fp32 and drop the roundings
+    between them (VN-DGCNN with max pooling in bf16 at B=2, N=64 then moves
+    5.9-7.3 % of its output's largest entry, as far from float64 as the
+    rounded program: tools/bf16_readings.py).  The port rounds where the
+    source does, as JAX's eager mode does."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+
+
 def require_cuda():
     """Skip the calling test unless an NVIDIA GPU is present."""
     if not torch.cuda.is_available():

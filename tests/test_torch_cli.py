@@ -3,11 +3,12 @@
 The parsers must agree on every flag but --accelerator; `configure` must
 give a ModelConfig equal field by field to hpcs_tpu's, and loaders with
 equal batches, for shapenet, partnet (hierarchical) and synthetic; every
-flag whose path is not ported must raise.
+flag whose path is not ported must raise.  --bf16 trains and serves.
 """
 import argparse
 import dataclasses
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -15,10 +16,11 @@ import pytest
 import torch
 
 from hpcs_tpu import cli as jcli
-from _torch_port import torch_threads
-from hpcs_torch import cli, infer, train
-from hpcs_torch.models import HypHCSystem, ModelConfig
-from hpcs_torch.testing import write_mini_shapenet
+from _torch_port import bf16_einsum_on_cpu, torch_threads
+from hpcs_torch import cli, infer, train, trainer
+from hpcs_torch.data import DataLoader, ShapeNetDataset
+from hpcs_torch.models import HypHCSystem, ModelConfig, decode_vector_for_batch
+from hpcs_torch.testing import check_same_test_outputs, record_test_steps, write_mini_shapenet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = ("--dataset shapenet --model vn_dgcnn_partseg --fixed_points 1024 --k 20 "
@@ -120,8 +122,10 @@ def test_configure_equals_jax_package(data_dir, monkeypatch, argv):
 
 @pytest.mark.parametrize("flags,item", [
     (["--data_parallel", "2"], "A11"), (["--profile", "trace"], "A12b"),
-    (["--debug_nans"], "A12b"), (["--bf16"], "A5b"), (["--layout", "vc"], "vc"),
-    (["--plot_inference"], "A12b"),
+    (["--debug_nans"], "A12b"),
+    # the ids the cases had beside the --bf16 case (flags3), which went with its refusal
+    pytest.param(["--layout", "vc"], "vc", id="flags4-vc"),
+    pytest.param(["--plot_inference"], "A12b", id="flags5-A12b"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
     args = _parse(cli.add_train_args, ["--dataset", "synthetic", "--fixed_points", "32",
@@ -130,10 +134,67 @@ def test_unported_flags_raise_naming_their_item(flags, item):
         cli.configure(args)
 
 
-@pytest.mark.parametrize("field,value,item", [("bf16", True, "A5b"), ("layout", "vc", "vc")])
+@pytest.mark.parametrize("field,value,item", [("layout", "vc", "vc")])
 def test_system_refuses_unported_configs(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         HypHCSystem(ModelConfig(**{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("model", ["vn_dgcnn_partseg", "dgcnn_partseg"])
+def test_bf16_configures_as_jax_and_sets_vn_dgcnn_compute(model, monkeypatch):
+    """--bf16 configures as hpcs_tpu's (ModelConfigs equal field by field).
+    VN-DGCNN then computes in bf16; DGCNN computes in fp32 whatever bf16
+    says, as in hpcs_tpu: its output equals the fp32 configuration's
+    exactly."""
+    bf16_einsum_on_cpu(monkeypatch)  # hpcs_tpu's configure initialises its net in bf16
+    argv = ["--dataset", "synthetic", "--fixed_points", "32", "--k", "4", "--bf16", "--model",
+            model, "--eucl_embedding", "12"]
+    system, *_ = cli.configure(_parse(cli.add_train_args, argv + ["--accelerator", "cpu"]))
+    jsystem, *_ = jcli.configure(_parse(jcli.add_train_args, argv))
+    assert dataclasses.asdict(system.cfg) == dataclasses.asdict(jsystem.cfg)
+    assert system.cfg.bf16
+    fp32 = HypHCSystem(dataclasses.replace(system.cfg, bf16=False), device="cpu")
+    fp32.net.load_state_dict(system.net.state_dict())
+    rng = np.random.default_rng(0)
+    pts = rng.standard_normal((2, 32, 3)).astype(np.float32)
+    dv = decode_vector_for_batch(system.cfg, {"points": pts, "category": np.array([0, 1])})
+    got, want = system.embed(pts, dv), fp32.embed(pts, dv)
+    if model == "dgcnn_partseg":
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    else:
+        assert system.net.nn_feat.compute_dtype == torch.bfloat16
+        assert fp32.net.nn_feat.compute_dtype is None
+        for g, w in zip(got, want):  # bf16 noise, not garbage (hpcs_tpu's bound on the TPU)
+            assert g.dtype == torch.float32 and not torch.equal(g, w)
+            assert float((g - w).abs().max()) < 0.1 * float(w.abs().max())
+
+
+def test_bf16_trains_and_serves_on_the_cpu(tmp_path, monkeypatch):
+    """python -m hpcs_torch.train --bf16 trains VN-DGCNN in bf16 and writes
+    "bf16": true into its checkpoints' config.json; python -m
+    hpcs_torch.infer restores it in bf16 and serves what trainer.test gives
+    on the trained system in memory (prediction, best k, best score and
+    linkage exactly)."""
+    write_mini_shapenet(str(tmp_path / "data" / "ShapeNet" / "raw"), ("Airplane", "Chair"),
+                        (2, 2, 2), seed=3, points=300)
+    monkeypatch.chdir(tmp_path)
+    argv = ("--dataset shapenet --fixed_points 64 --k 4 --eucl_embedding 4 --hyp_embedding 4 "
+            "--t_per_anchor 5 --batch 2 --epochs 1 --accelerator cpu --log logs --bf16").split()
+    trained, results = train.main(argv)
+    assert trained.cfg.bf16 and trained.net.nn_feat.compute_dtype == torch.bfloat16
+    assert all(np.isfinite(v) for v in results.values())
+    final = os.path.join("logs", "shapenet_vn_dgcnn_partseg", "checkpoints", "final")
+    with open(os.path.join(final, "config.json")) as f:
+        assert json.load(f)["bf16"] is True
+    with record_test_steps() as served:
+        restored, _ = infer.main(["shapenet", "--model_path", final, "--fixed_points", "64",
+                                  "--batch", "2", "--test_batches", "1", "--accelerator", "cpu"])
+    assert restored.cfg.bf16 and restored.net.nn_feat.compute_dtype == torch.bfloat16
+    loader = DataLoader(ShapeNetDataset("data/ShapeNet/raw", 64, "test"), 2, shuffle=True, seed=0)
+    with record_test_steps() as in_memory:
+        trainer.test(trained, loader, seed=0, limit_batches=1)
+    check_same_test_outputs(served, in_memory)
 
 
 @pytest.mark.parametrize("argv", [

@@ -457,3 +457,101 @@ def test_other_backbones_train_step_on_gpu_matches_cpu(config):
     k0, e0 = K.knn.launches, E.edgeconv_infer.launches
     check_train_step_card_vs_cpu(tsys, _train_batch(2, 128))
     assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (launches, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cloud", ["random_d3", "random_d63", "ties_d3", "ties_d63", "lattice",
+                                   "line", "adjacent_d3"])
+def test_knn_kernel_bf16_equals_its_fp32_route(cloud):
+    """B1 on bf16 features reads bf16 and ranks their fp32 values: index for
+    index B1 on x.float(), and knn_plain's where the scores are exact
+    (integer coordinates, exact in bf16 up to 256)."""
+    require_cuda()
+    rng = np.random.default_rng(1)
+    if cloud == "lattice":
+        x = lattice_cloud(rng, 4, 1024)
+    elif cloud == "line":
+        x = line_cloud(4, 1024)  # bf16 rounds j > 256: runs of equal points
+    elif cloud == "adjacent_d3":
+        x = adjacent_dup_cloud(rng, 4, 1024, 3)
+    elif cloud.startswith("ties"):
+        x = np.round(tie_cloud(rng, 4, 1024, int(cloud[6:])) * 2)
+    else:
+        x = rng.standard_normal((4, 1024, int(cloud[8:]))).astype(np.float32)
+    x = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    launches, bf16 = K.knn.launches, K.knn.bf16_launches
+    got = K.knn(x, 20)
+    torch.cuda.synchronize()
+    assert (K.knn.launches, K.knn.bf16_launches) == (launches + 1, bf16 + 1)
+    torch.testing.assert_close(got, K.knn(x.float(), 20), rtol=0, atol=0)
+    want = K.knn_plain(x, 20)
+    if cloud.startswith("random"):
+        assert (got == want).float().mean() > 0.999
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,n_convs", [(1, 2), (21, 2), (21, 1)])
+def test_edgeconv_kernel_bf16_matches_plain(C, n_convs):
+    """B2's bf16 route at the three stage shapes: bf16 in and out, held to
+    its plain version (fp32 on the upcast input with bf16-rounded weights,
+    rounded once) by check_edgeconv, widened by one bf16 ulp of each
+    output for the two roundings."""
+    require_cuda()
+    x, idx, w = _edgeconv_case(np.random.default_rng(200 + C), 4, 1024, 20, C)
+    x = x.to(torch.bfloat16)
+    launches, bf16 = E.edgeconv_infer.launches, E.edgeconv_infer.bf16_launches
+    got = E.edgeconv_infer(x, idx, *w, n_convs=n_convs)
+    torch.cuda.synchronize()
+    assert (E.edgeconv_infer.launches, E.edgeconv_infer.bf16_launches) == (launches + 1, bf16 + 1)
+    want = E.edgeconv_infer_plain(x, idx, *w, n_convs=n_convs)
+    assert got.dtype == want.dtype == torch.bfloat16
+    check_edgeconv(got, want, x, idx, w, n_convs, rounding=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooling", ["mean", "max"])
+def test_bf16_embed_on_gpu_goes_through_the_bf16_routes(pooling, monkeypatch):
+    """The bf16 eval forward on the card: B1 on bf16 three times and, with
+    mean pooling, B2 on bf16 three times; against the CPU port's bf16
+    forward on the card's graphs within 3 % of the output's largest entry
+    (both round to bf16 at the same points but B2's, whose fp32 sums run in
+    another order; the CPU tests measure 0.4-1 % between the packages)."""
+    require_cuda()
+    from hpcs_torch.nn.backbones import vn_dgcnn
+
+    cfg = ModelConfig(num_class=10, num_categories=4, eucl_dim=8, hyp_dim=8, k=8, bf16=True,
+                      pooling=pooling)
+    tsys = HypHCSystem(cfg, generator=torch.Generator().manual_seed(0))
+    pts, cat, _ = SyntheticPartDataset(2, 256, 4).batch(0, 2)
+    dv = decode_vector_for_batch(cfg, {"points": pts, "category": cat})
+    graphs, real = [], vn_dgcnn.knn
+    monkeypatch.setattr(vn_dgcnn, "knn", lambda x, k: graphs.append(real(x, k)) or graphs[-1])
+    k0, e0 = K.knn.bf16_launches, E.edgeconv_infer.bf16_launches
+    got = tsys.embed(pts, dv)
+    b2 = 3 if pooling == "mean" else 0
+    assert (K.knn.bf16_launches - k0, E.edgeconv_infer.bf16_launches - e0) == (3, b2)
+    cpu = HypHCSystem(cfg, device="cpu")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in tsys.net.state_dict().items()})
+    want = cpu.embed(pts, dv.cpu(), idx_override=[g.cpu() for g in graphs])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert float((g.cpu() - w).abs().max()) <= 0.03 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_gpu_matches_cpu():
+    """One bf16 train_step on the card against the CPU port's
+    (testing.check_train_step_card_vs_cpu): the card's float64 step equals
+    the CPU's, and the card's bf16 step lies within the CPU's own bf16
+    noise (its point orders) of float64."""
+    require_cuda()
+    from _torch_port import synthetic_batch
+
+    cfg = ModelConfig(num_class=6, num_categories=2, eucl_dim=4, hyp_dim=4, k=6, t_per_anchor=5,
+                      temperature=0.1, dropout=0.0, train_rotation="none", bf16=True)
+    tsys = HypHCSystem(cfg, generator=torch.Generator().manual_seed(0))
+    launches = K.knn.bf16_launches
+    check_train_step_card_vs_cpu(tsys, synthetic_batch(2, 64, seed=4))
+    assert K.knn.bf16_launches - launches == 3
