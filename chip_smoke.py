@@ -95,7 +95,24 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    final/ (bf16 from its config.json), equal to trainer.test in memory;
    the bf16 times beside the fp32 phases' of the same run, and a profile
    of two bf16 requests;
-11. prints one JSON line per kernel summary, the card's name and power
+11. serves and resumes what hpcs_tpu's users hold (phase import): the
+   forward phase's weights after 2 training steps (B=2) and a halved rate,
+   written in hpcs_tpu's msgpack format (hpcs_torch.testing.
+   write_flax_checkpoint, stored epoch 4), read and timed, served by
+   `python -m hpcs_torch.infer synthetic` for 2 requests of 16 clouds
+   (equal to trainer.test in memory, as the entry phase holds infer) and
+   resumed by `python -m hpcs_torch.train --resume` on a ShapeNet-Part tree
+   as the entry phase's (it must start at epoch 5 from the written step,
+   moments and rate); a reference Lightning checkpoint of the same weights,
+   its backbone class unimportable, through `python -m
+   hpcs_torch.import_checkpoint` and infer, equal likewise; and the rest of
+   the decode API on 4 flagship objects: linkage in both metrics and
+   algorithms, the sequential linkage (complete, single, average) against
+   the CPU port exactly and scipy within 1e-6, cut_maxclust,
+   cut_maxclust_many and cut_maxclust_fcluster at k = 2..20 (the last equal
+   to scipy's fcluster - 1) and eval_clustering in both modes, each against
+   the CPU port exactly and timed per object;
+12. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -1434,6 +1451,314 @@ def bf16_phase(system, batches, card, fp32):
     return out
 
 
+IMPORT_EPOCH = 4  # the epoch index the hpcs_tpu-format checkpoint stores
+DECODE_OBJECTS = 4  # flagship objects the decode API runs on
+REFERENCE_STUB = "reference_hpcs_models_stub"  # unimportable when the file is read
+
+
+def import_phase(system, cfg, batches, card):
+    """What hpcs_tpu's users hold, on the card: an hpcs_tpu-format checkpoint
+    (testing.write_flax_checkpoint, flax's msgpack layout) of the forward
+    phase's weights after 2 training steps, served by infer and resumed by
+    train --resume; a reference Lightning checkpoint imported by
+    import_checkpoint and served; the rest of the decode API on 4 flagship
+    objects against the CPU port and scipy."""
+    import contextlib
+    import io
+    import tempfile
+    import types
+
+    from scipy.cluster.hierarchy import fcluster
+    from scipy.cluster.hierarchy import linkage as scipy_linkage
+    from scipy.spatial.distance import squareform
+
+    from hpcs_torch import decode as T
+    from hpcs_torch import import_checkpoint, infer, train, trainer
+    from hpcs_torch.data import DataLoader, SyntheticPartDataset
+    from hpcs_torch.models import HypHCSystem, decode_vector_for_batch
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.testing import (check_same_test_outputs, record_test_steps,
+                                    write_flax_checkpoint, write_mini_shapenet)
+    from hpcs_torch.utils import flax_msgpack
+    from hpcs_torch.utils.checkpoint import load_config, restore_checkpoint
+
+    t_phase = time.perf_counter()
+    launches = {"knn": 0, "knn_wide": 0, "edgeconv": 0}
+
+    def run(what, fn, *args, want=None):
+        """fn(*args) with every launch count at 0 before; the counts after
+        join the phase's, and must equal `want` where given."""
+        KN.knn.launches = KN.knn.wide_launches = 0
+        E.edgeconv_infer.launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = {"knn": KN.knn.launches, "knn_wide": KN.knn.wide_launches,
+               "edgeconv": E.edgeconv_infer.launches}
+        if want is not None and got != want:
+            fail(f"import: {what} launched {got}, expected {want}")
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    def served(n):  # launches of infer on n requests
+        return {"knn": 3 * n, "knn_wide": 0, "edgeconv": 3 * n}
+
+    # the state to write: the forward phase's weights, 2 training steps at
+    # B=2 (moments and step), then the rate halved as a plateau would
+    src = HypHCSystem(cfg, generator=torch.Generator().manual_seed(SEED))
+    src.net.load_state_dict(system.net.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for r in range(2):
+        p, c, seg = SyntheticPartDataset(2, N, CATEGORIES, seed=SEED + 20 + r).batch(0, 2)
+        src.train_step({"points": p, "category": c, "labels": seg}, gen)
+    src.set_learning_rate(cfg.lr / 2)
+    lr = src.optimizer.param_groups[0]["lr"]
+
+    def same_state(got, what):
+        for k, v in src.net.state_dict().items():
+            # num_batches_tracked is not in hpcs_tpu's format (flax has none)
+            if not k.endswith("num_batches_tracked") and not torch.equal(got.net.state_dict()[k], v):
+                fail(f"import: {what}: {k} differs from the written state")
+        named = dict(got.net.named_parameters())
+        for name, p in src.net.named_parameters():
+            want, have = src.optimizer.state[p], got.optimizer.state[named[name]]
+            if have["step"] != want["step"] or not all(
+                    torch.equal(have[k], want[k]) for k in ("exp_avg", "exp_avg_sq")):
+                fail(f"import: {what}: the moments of {name} differ from the written state")
+        if got.step != src.step or any(g["lr"] != float(np.float32(lr))
+                                       for g in got.optimizer.param_groups):
+            fail(f"import: {what}: step {got.step} or rate differs from {src.step}, {lr}")
+
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # 1. an hpcs_tpu-format checkpoint: read, served, resumed
+        flax_dir = os.path.join(tmp.name, "hpcs_tpu_ckpt")
+        write_flax_checkpoint(flax_dir, src, cfg, epoch=IMPORT_EPOCH)
+        ckpt_file = os.path.join(flax_dir, "model.ckpt")
+        size_mb = os.path.getsize(ckpt_file) / 2 ** 20
+        read_ms = host_ms(lambda: flax_msgpack.read(ckpt_file), 3)
+        fresh = HypHCSystem(cfg, generator=torch.Generator().manual_seed(7))
+        restore_ms = host_ms(lambda: restore_checkpoint(flax_dir, fresh), 3)
+        if restore_checkpoint(flax_dir, fresh)[0] != IMPORT_EPOCH + 1:
+            fail("import: an hpcs_tpu checkpoint must resume at its epoch + 1")
+        same_state(fresh, "restore_checkpoint")
+
+        infer_argv = ["synthetic", "--fixed_points", str(N), "--batch", str(B),
+                      "--test_batches", "2"]
+        t = time.perf_counter()
+        with record_test_steps() as served_flax:
+            flax_sys, flax_results = run("infer (hpcs_tpu checkpoint)", infer.main,
+                                         infer_argv + ["--model_path", flax_dir], want=served(2))
+        infer_flax_s = time.perf_counter() - t
+        same_state(flax_sys, "infer")
+        with record_test_steps() as in_memory:
+            in_memory_results = trainer.test(
+                src, DataLoader(SyntheticPartDataset(num_objects=32, npoints=N, seed=3), B,
+                                shuffle=True, seed=0), seed=0, limit_batches=2)
+        try:
+            flax_rel = check_same_test_outputs(served_flax, in_memory)
+        except AssertionError as e:
+            fail(f"import: infer of the hpcs_tpu checkpoint differs from trainer.test: {e}")
+
+        write_mini_shapenet(os.path.join(tmp.name, "data", "ShapeNet", "raw"), ENTRY_CATEGORIES,
+                            ENTRY_SPLITS, seed=SEED)
+        os.chdir(tmp.name)
+        first = []
+        original = HypHCSystem.train_step
+
+        def recorded(self, batch, generator):
+            if not first:
+                try:
+                    same_state(self, "the first resumed step")
+                    first.append(True)
+                except RuntimeError as e:
+                    first.append(str(e))
+            return original(self, batch, generator)
+
+        n_train, n_val, n_test = (len(ENTRY_CATEGORIES) * n for n in ENTRY_SPLITS)
+        steps, val_batches = n_train // TRAIN_B, n_val // TRAIN_B
+        test_batches = min(10, -(-n_test // TRAIN_B))
+        HypHCSystem.train_step = recorded
+        try:
+            t = time.perf_counter()
+            run("train --resume", train.main,
+                ENTRY_FLAGS + ["--epochs", str(IMPORT_EPOCH + 2), "--resume", flax_dir],
+                want={"knn": 3 * (steps + val_batches + test_batches), "knn_wide": 0,
+                      "edgeconv": 3 * (val_batches + test_batches)})
+            resume_s = time.perf_counter() - t
+        finally:
+            HypHCSystem.train_step = original
+        if first != [True]:
+            fail(f"import: the resumed run did not start from the written state: {first}")
+        with open(os.path.join("logs", "shapenet_vn_dgcnn_partseg", "metrics.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "epoch" in r]
+        if [r["epoch"] for r in epochs] != [IMPORT_EPOCH + 1] or \
+                epochs[0]["step"] != src.step + steps:
+            fail(f"import: resumed epochs {[(r['epoch'], r['step']) for r in epochs]}, expected "
+                 f"epoch {IMPORT_EPOCH + 1} ending at step {src.step + steps}")
+
+        # 2. a reference Lightning checkpoint, its backbone class unimportable
+        stub = types.ModuleType(REFERENCE_STUB)
+        stub.VN_DGCNN_partseg = type("VN_DGCNN_partseg", (), {
+            "__module__": REFERENCE_STUB, "__qualname__": "VN_DGCNN_partseg"})
+        feat = stub.VN_DGCNN_partseg()
+        feat.k, feat.out_features, feat.num_categories = K, EUCL, CATEGORIES
+        feat.dropout, feat.pooling = cfg.dropout, cfg.pooling
+        hparams = dict(euclidean_size=EUCL, hyp_size=HYP, num_class=cfg.num_class, lr=cfg.lr,
+                       margin=cfg.margin, t_per_anchor=cfg.t_per_anchor, fraction=cfg.fraction,
+                       temperature=cfg.temperature, anneal_factor=cfg.anneal_factor,
+                       anneal_step=cfg.anneal_step, trade_off=cfg.trade_off, miner=cfg.miner,
+                       cosface=cfg.cosface, nn_feat=feat, nn_emb=None)
+        lightning = os.path.join(tmp.name, "lightning.ckpt")
+        sys.modules[REFERENCE_STUB] = stub
+        try:
+            torch.save({"state_dict": {k: v.cpu() for k, v in src.net.state_dict().items()},
+                        "hyper_parameters": hparams}, lightning)
+        finally:
+            del sys.modules[REFERENCE_STUB]
+        imported_dir = os.path.join(tmp.name, "imported")
+        printed = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            run("import_checkpoint", import_checkpoint.main, [lightning, imported_dir],
+                want={"knn": 0, "knn_wide": 0, "edgeconv": 0})
+        import_s = time.perf_counter() - t
+        got_cfg = load_config(imported_dir)
+        want_cfg = dict(eucl_dim=EUCL, hyp_dim=HYP, num_class=cfg.num_class, k=K,
+                        model_name="vn_dgcnn_partseg", dataset="shapenet",
+                        num_categories=CATEGORIES)
+        if any(got_cfg[k] != v for k, v in want_cfg.items()):
+            fail(f"import: imported config {got_cfg}, expected {want_cfg}")
+        with record_test_steps() as served_ref:
+            run("infer (imported Lightning checkpoint)", infer.main,
+                infer_argv + ["--model_path", imported_dir], want=served(2))
+        try:
+            ref_rel = check_same_test_outputs(served_ref, in_memory)
+        except AssertionError as e:
+            fail(f"import: infer of the imported Lightning checkpoint differs: {e}")
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+
+    # 3. the decode API on the card, on 4 flagship objects
+    pts, cat, seg = (a[:DECODE_OBJECTS] for a in batches[0])
+    _, x_p = run("embed", src.embed, pts, decode_vector_for_batch(
+        cfg, {"points": pts, "category": cat}), want=served(1))
+    leaves = T.decode_leaves(x_p, src.net.scale[0].detach())
+    labels = torch.as_tensor(seg, device="cuda").long()
+    per_obj = {}
+
+    def timed(name, fn):
+        per_obj[name] = host_ms(fn, 2) / DECODE_OBJECTS
+        return fn()
+
+    def equal(what, got, want):
+        if not torch.equal(got.cpu(), want):
+            fail(f"import: decode API: {what} differs between the card and the CPU port")
+
+    D = {"cosine": timed("cosine_distance_matrix", lambda: T.cosine_distance_matrix(leaves)),
+         "euclidean": timed("euclidean_distance_matrix",
+                            lambda: T.euclidean_distance_matrix(leaves))}
+    equal("cosine distances", D["cosine"], T.cosine_distance_matrix(leaves.cpu()))
+    euclid_gap = float((D["euclidean"].cpu() - T.euclidean_distance_matrix(leaves.cpu()))
+                       .abs().max())
+    for metric in D:
+        for alg, fn in (("mnn", T.linkage_from_distances_mnn),
+                        ("sequential", T.linkage_from_distances)):
+            Z = timed(f"linkage_{metric}_{alg}", lambda m=metric, a=alg: T.linkage(
+                leaves, "complete", m, a))
+            equal(f"linkage({metric}, {alg})", Z, fn(D[metric].cpu(), "complete"))
+    # scipy's linkage on the same D: heights within 1e-6 for every method;
+    # the sizes equal for complete linkage wherever D has no tied distances
+    # (equal distances leave the merge order, and so the sizes, to each
+    # implementation's tie rule; single and average may also order merges
+    # whose fp32 and float64 heights tie differently): reported for all
+    Zs, scipy_h, scipy_sizes = {}, 0.0, {}
+    upper = torch.triu_indices(N, N, 1)
+    tied_pairs = [int((torch.sort(d[upper[0], upper[1]]).values.diff() == 0).sum())
+                  for d in D["cosine"].cpu()]
+    for method in ("complete", "single", "average"):
+        Z = timed(f"linkage_from_distances_{method}",
+                  lambda m=method: T.linkage_from_distances(D["cosine"], m))
+        Z_cpu = T.linkage_from_distances(D["cosine"].cpu(), method)
+        equal(f"linkage_from_distances({method})", Z, Z_cpu)
+        Zs[method] = Z
+        for b in range(DECODE_OBJECTS):
+            D64 = D["cosine"][b].cpu().double().numpy()
+            D64 = 0.5 * (D64 + D64.T)
+            np.fill_diagonal(D64, 0.0)
+            ref = scipy_linkage(squareform(D64, checks=False), method=method)
+            scipy_h = max(scipy_h, float(np.abs(np.sort(Z_cpu[b, :, 2].double().numpy())
+                                                - np.sort(ref[:, 2])).max()))
+            scipy_sizes.setdefault(method, []).append(bool(np.array_equal(
+                np.sort(Z_cpu[b, :, 3].numpy()), np.sort(ref[:, 3]))))
+    if scipy_h > 1e-6 or any(not same and not ties for same, ties in
+                             zip(scipy_sizes["complete"], tied_pairs)):
+        fail(f"import: decode API: heights {scipy_h:.3e} from scipy's, or complete linkage's "
+             f"sizes differ on tie-free D: {scipy_sizes['complete']}, ties {tied_pairs}")
+    # the sequential linkage's launches: N - 1 host-driven steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        T.linkage_from_distances(D["cosine"], "complete")
+        torch.cuda.synchronize()
+    seq_kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0)
+    seq_device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+    Z, Z_cpu = Zs["complete"], Zs["complete"].cpu()
+    ks = torch.arange(2, 21, device="cuda")
+    many = timed("cut_maxclust_many", lambda: T.cut_maxclust_many(Z, ks))
+    equal("cut_maxclust_many", many, T.cut_maxclust_many(Z_cpu, ks.cpu()))
+    fcluster_equal = True
+    for i, k in enumerate(range(2, 21)):
+        cut = T.cut_maxclust(Z, k)
+        equal(f"cut_maxclust({k})", cut, T.cut_maxclust(Z_cpu, k))
+        if not torch.equal(cut, many[:, i]):
+            fail(f"import: decode API: cut_maxclust({k}) differs from cut_maxclust_many")
+        fc = T.cut_maxclust_fcluster(Z, k)
+        equal(f"cut_maxclust_fcluster({k})", fc, T.cut_maxclust_fcluster(Z_cpu, k))
+        for b in range(DECODE_OBJECTS):
+            ref = fcluster(Z_cpu[b].double().numpy(), k, "maxclust") - 1
+            fcluster_equal &= bool(np.array_equal(fc[b].cpu().numpy(), ref))
+    if not fcluster_equal:
+        fail("import: decode API: cut_maxclust_fcluster differs from scipy's fcluster - 1")
+    per_obj["cut_maxclust_k2_to_20"] = host_ms(
+        lambda: [T.cut_maxclust(Z, k) for k in range(2, 21)], 2) / DECODE_OBJECTS
+    per_obj["cut_maxclust_fcluster_k2_to_20"] = host_ms(
+        lambda: [T.cut_maxclust_fcluster(Z, k) for k in range(2, 21)], 2) / DECODE_OBJECTS
+    scores = {}
+    for fc in (False, True):
+        got = timed(f"eval_clustering_fcluster_ids_{fc}",
+                    lambda f=fc: T.eval_clustering(labels, Z, cfg.num_class, f))
+        want = T.eval_clustering(labels.cpu(), Z_cpu, cfg.num_class, fc)
+        for name, g, w in zip(("ari", "weighted_iou", "purity"), got, want):
+            equal(f"eval_clustering(fcluster_ids={fc}) {name}", g, w)
+        scores[f"fcluster_ids_{fc}"] = [[float(v) for v in t] for t in got]
+
+    out = dict(B_infer=B, N=N, k=K, eucl=EUCL, hyp=HYP, launches=launches,
+               checkpoint_mb=size_mb, read_ms=read_ms, read_mb_per_s=size_mb / read_ms * 1e3,
+               restore_ms=restore_ms, stored_epoch=IMPORT_EPOCH, resumed_epoch=IMPORT_EPOCH + 1,
+               written_step=src.step, written_lr=lr, infer_seconds_per_request=[
+                   c["seconds"] for c in served_flax], infer_call_seconds=infer_flax_s,
+               infer_results=flax_results, in_memory_results=in_memory_results,
+               infer_vs_in_memory_max_rel_log_diff=[flax_rel, ref_rel],
+               resume_call_seconds=resume_s, resume_epoch_seconds=epochs[0]["epoch_time_s"],
+               import_checkpoint_seconds=import_s, imported_lines=printed.getvalue().splitlines(),
+               decode_objects=DECODE_OBJECTS, decode_ms_per_object=per_obj,
+               sequential_linkage_steps=N - 1, sequential_linkage_kernels=seq_kernels,
+               sequential_linkage_device_ms=seq_device_ms,
+               max_abs_err_euclidean_d_vs_cpu=euclid_gap, max_height_err_vs_scipy=scipy_h,
+               sizes_equal_scipy=scipy_sizes, tied_distance_pairs=tied_pairs,
+               eval_clustering=scores, seconds=time.perf_counter() - t_phase, card=card)
+    emit("import", **out)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every phase's results to this file")
@@ -1681,6 +2006,7 @@ def main():
         test_step_peak_memory_mb=decode["peak_memory_mb"],
         train_step_ms_median=train["train_step_ms_median"],
         train_peak_memory_mb=train["peak_memory_mb"]))
+    imp = import_phase(system, cfg, batches, card)
 
     # 10. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
@@ -1696,7 +2022,7 @@ def main():
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
              launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
              + train["fit_launches"]["knn"] + entry_launches["knn"]
-             + backbones["launches"]["knn"],
+             + backbones["launches"]["knn"] + imp["launches"]["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
@@ -1704,14 +2030,16 @@ def main():
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
              launches=launches["knn_wide"] + decode["launches"]["knn_wide"]
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
-             + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"],
+             + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
+             + imp["launches"]["knn_wide"],
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
-             + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"],
+             + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
+             + imp["launches"]["edgeconv"],
              max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),

@@ -2,13 +2,18 @@
 
 The decode of `HypHCSystem.test_step`: cosine distances between an object's
 embeddings, complete (or single, average) linkage in scipy's Z format, and
-the tables that cut the dendrogram at every k of the best-k sweep.
+the tables that cut the dendrogram at every k of the best-k sweep.  Beside
+it, the rest of the reference's linkage API, which no entry point calls:
+Euclidean distances, the sequential linkage (one merge per step),
+`linkage` from raw observations, and flat cuts at given k, one of them
+numbered as scipy's fcluster numbers.
 
-Every function takes a batch of objects: D [B, N, N], Z [B, N-1, 4].  The
-linkage runs the B objects in lockstep, as a vmap of the reference's
-while-loop does: one round updates every object still merging and leaves
-the others as they are, so a round costs one host synchronisation, not one
-per object.  Selections are plain indexing, which is exact.
+Every function takes a batch of objects: D [B, N, N], Z [B, N-1, 4]; the
+public ones also take one object, D [N, N] or Z [N-1, 4].  The linkage
+runs the B objects in lockstep, as a vmap of the reference's while-loop
+does: one round updates every object still merging and leaves the others
+as they are, so a round costs one host synchronisation, not one per
+object.  Selections are plain indexing, which is exact.
 """
 import torch
 
@@ -58,6 +63,86 @@ def cosine_distance_matrix(x):
             acc = fma(d, d, acc)
         D[:, r0:r0 + rows] = torch.clamp(0.5 * acc, 0.0, 2.0)
     return D.reshape(*lead, N, N)
+
+
+def euclidean_distance_matrix(x):
+    """Pairwise Euclidean distances [..., N, N] of x [..., N, F], in the
+    reference's expansion form sqrt(max(|x_i|^2 - 2 x_i.x_j + |x_j|^2, 0))
+    (a matmul: fp32, no TF32)."""
+    sq = (x * x).sum(-1)
+    d2 = sq[..., :, None] - 2.0 * (x @ x.transpose(-1, -2)) + sq[..., None, :]
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def _batched(t, dims):
+    """(t with a leading batch axis, whether it had none): `dims` is the
+    rank of one object's tensor."""
+    return (t[None], True) if t.dim() == dims else (t, False)
+
+
+def linkage_from_distances(D, method="complete"):
+    """Sequential agglomerative linkage, one merge per step, of distance
+    matrices D [B, N, N] (or [N, N]): Z [B, N-1, 4] in scipy's format, as
+    the reference's loop.
+
+    Each step merges the pair at the smallest distance, the first flat
+    index among equal ones (as torch.argmin and jnp.argmin take it; a NaN
+    counts as the smallest), into the lower slot; its row becomes the max
+    (complete), min (single) or size-weighted mean (average) of the two
+    rows.  N - 1 steps run on every object, driven from the host with no
+    synchronisation.
+    """
+    if method not in ("complete", "single", "average"):
+        raise ValueError(f"unknown linkage method {method!r}")
+    D, unbatched = _batched(D, 2)
+    B, N, _ = D.shape
+    dev = D.device
+    D = D.to(torch.float32)
+    D = 0.5 * (D + D.transpose(1, 2))  # exact symmetry; this copy is updated in place
+    D.diagonal(dim1=1, dim2=2).fill_(INF)
+    rows = torch.arange(B, device=dev)
+    cid = torch.arange(N, device=dev).expand(B, N).clone()
+    size = torch.ones((B, N), dtype=torch.int64, device=dev)
+    Z = torch.zeros((B, max(N - 1, 0), 4), dtype=torch.float32, device=dev)
+    for t in range(N - 1):
+        flat = D.reshape(B, -1).argmin(dim=1)
+        i, j = torch.minimum(flat // N, flat % N), torch.maximum(flat // N, flat % N)
+        ci, cj = cid[rows, i], cid[rows, j]
+        si, sj = size[rows, i], size[rows, j]
+        Z[:, t] = torch.stack([torch.minimum(ci, cj).float(), torch.maximum(ci, cj).float(),
+                               D[rows, i, j], (si + sj).float()], dim=-1)
+        row_i, row_j = D[rows, i], D[rows, j]
+        if method == "complete":
+            new_row = torch.maximum(row_i, row_j)
+        elif method == "single":
+            new_row = torch.minimum(row_i, row_j)
+        else:  # the size-weighted mean, its weighted sum one FMA as the reference's
+            wi, wj = si.float()[:, None], sj.float()[:, None]
+            new_row = torch.where((row_i < INF) & (row_j < INF),
+                                  fma(wi, row_i, wj * row_j) / (wi + wj), INF)
+        new_row[rows, i] = INF
+        D[rows, i, :] = new_row
+        D[rows, :, i] = new_row
+        D[rows, j, :] = INF
+        D[rows, :, j] = INF
+        cid[rows, i] = N + t
+        size[rows, i] = si + sj
+    return Z[0] if unbatched else Z
+
+
+def linkage(x, method="complete", metric="cosine", algorithm="mnn"):
+    """scipy.cluster.hierarchy.linkage of observations x [B, N, F] (or
+    [N, F]): the cosine or Euclidean distances, then the MNN rounds
+    (algorithm "mnn") or the sequential loop (any other algorithm)."""
+    if metric == "cosine":
+        D = cosine_distance_matrix(x)
+    elif metric == "euclidean":
+        D = euclidean_distance_matrix(x)
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    if algorithm == "mnn":
+        return linkage_from_distances_mnn(D, method=method)
+    return linkage_from_distances(D, method=method)
 
 
 def merge_cap(M):
@@ -351,3 +436,95 @@ def cut_roots_sweep(Z, child_row, up, is_b, k_hi):
     ms = N - ks
     labels = 2 * (torch.stack(all_cr, 1) - ms[:, None]) + torch.stack(all_ib, 1)
     return torch.stack(all_roots, 1), labels, ks
+
+
+# ---------------------------------------------------------------- flat cuts
+
+def _per_object(v, B, device):
+    """An int, a 0-d or a [B] tensor as a [B, 1] int64 tensor."""
+    return torch.as_tensor(v, device=device).long().reshape(-1, 1).expand(B, 1)
+
+
+def cut_maxclust(Z, k):
+    """Labels [B, N] (or [N]) of the flat cut of Z into at most k clusters
+    (k an int or [B]): the first N - k merges applied, as scipy's
+    fcluster(criterion="maxclust") for monotone linkages.  Labels are
+    consecutive in order of the clusters' root ids, not fcluster's
+    numbering (`cut_maxclust_fcluster`)."""
+    Z, unbatched = _batched(Z, 2)
+    N = Z.shape[1] + 1
+    k = torch.clamp(_per_object(k, Z.shape[0], Z.device), 1, N)
+    child_row, up, _ = build_cut_tables(Z)
+    labels = _relabel_consecutive(_climb_to_cut(child_row, up, N - k))
+    return labels[0] if unbatched else labels
+
+
+def cut_maxclust_many(Z, ks):
+    """cut_maxclust of Z at every k of ks [K]: labels [B, K, N] (or [K, N]),
+    the cut tables built once."""
+    Z, unbatched = _batched(Z, 2)
+    N = Z.shape[1] + 1
+    child_row, up, _ = build_cut_tables(Z)
+    ks = torch.clamp(torch.as_tensor(ks, device=Z.device).long(), 1, N)
+    labels = torch.stack([_relabel_consecutive(_climb_to_cut(child_row, up, N - k))
+                          for k in ks], dim=1)
+    return labels[0] if unbatched else labels
+
+
+def cut_maxclust_fcluster(Z, k):
+    """Labels [B, N] (or [N]) equal to scipy's fcluster(Z, k, "maxclust") - 1
+    for each object (k an int or [B]).
+
+    Two rules set it apart from `cut_maxclust`:
+    1. *Ties.* fcluster takes the smallest height whose threshold cut gives
+       at most k clusters, so a block of equal heights across the k
+       boundary merges whole and the cut may have fewer than k clusters.
+    2. *Numbering.* fcluster numbers clusters in the order a pre-order walk
+       of the tree meets them, descending into internal children before leaf
+       children (the left first within each kind); for k >= N the labels
+       are the identity.
+    The walk's order is each cluster's first leaf in the reordered leaf
+    sequence, found without a walk: a leaf's position is the sum, over the
+    edges on its path to the root, of the leaf counts of the siblings that
+    precede the edge's child (binary lifting); clusters then rank by their
+    smallest leaf position.
+    """
+    Z, unbatched = _batched(Z, 2)
+    B, N = Z.shape[0], Z.shape[1] + 1
+    dev = Z.device
+    kc = torch.clamp(_per_object(k, B, dev), 1, N)
+    h = Z[..., 2]
+    m0 = N - kc
+    hb = h.gather(1, torch.clamp(m0 - 1, min=0))
+    m = torch.where(m0 > 0, (h <= hb).sum(1, keepdim=True), 0)
+    child_row, up, is_b = build_cut_tables(Z)
+    roots = _climb_to_cut(child_row, up, m)
+    a, b = Z[..., 0].long(), Z[..., 1].long()
+    # the walk's sibling order: a before b unless a is a leaf and b is not
+    a_first = ~((a < N) & (b >= N))
+    sizes = torch.cat([torch.ones((B, N), dtype=torch.int64, device=dev), Z[..., 3].long()], 1)
+    row = torch.clamp(child_row, max=N - 2)  # the root's sentinel row; its value is zeroed
+    isb = is_b.bool()
+    first = a_first.gather(1, row)
+    later = torch.where(isb, first, ~first)
+    sibling = torch.where(isb, a.gather(1, row), b.gather(1, row))
+    val = torch.where(later, sizes.gather(1, sibling), 0)
+    val[:, 2 * N - 2] = 0  # the root has no edge above it
+    # path sums by lifting: the root is absorbing (value 0, its own parent)
+    P, s = up[0], val
+    for _ in range(_doubling_steps(N)):
+        s = s + s.gather(1, P)
+        P = P.gather(1, P)
+    pos = s[:, :N]  # each leaf's place in the reordered leaf sequence
+
+    # the smallest position in each cluster: sort by (root, pos), carry each
+    # group's first position forward, unsort
+    by_pos = torch.sort(pos, dim=1, stable=True).indices
+    order = by_pos.gather(1, torch.sort(roots.gather(1, by_pos), dim=1, stable=True).indices)
+    rs, ps = roots.gather(1, order), pos.gather(1, order)
+    boundary = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                          rs[:, 1:] != rs[:, :-1]], 1)
+    lead = torch.cummax(torch.where(boundary, torch.arange(N, device=dev), 0), dim=1).values
+    minpos = torch.empty_like(ps).scatter_(1, order, ps.gather(1, lead))
+    labels = torch.where(kc >= N, torch.arange(N, device=dev), _relabel_consecutive(minpos))
+    return labels[0] if unbatched else labels

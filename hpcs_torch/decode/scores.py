@@ -3,10 +3,14 @@
 Every function takes a batch of objects.  Contingency tables are counted
 by plain indexing (exact); the scores repeat the reference's fp32
 arithmetic operation for operation, so equal tables give equal scores.
+`purity`, `weighted_jaccard` and `eval_clustering`, which no entry point
+calls, score one flat cut at the true cluster count.
 """
 import torch
 
-from .linkage import _relabel_consecutive, build_cut_tables, cut_roots_sweep
+from ..geometry.math_ops import fma
+from .linkage import (_batched, _relabel_consecutive, build_cut_tables, cut_maxclust,
+                      cut_maxclust_fcluster, cut_roots_sweep)
 
 
 def remap_consecutive(y, upper):
@@ -41,6 +45,57 @@ def adjusted_rand_index(y_true, y_pred, c_max, k_max):
     expected = sum_a * sum_b / torch.clamp(comb2(n), min=1.0)
     denom = 0.5 * (sum_a + sum_b) - expected
     return torch.where(denom.abs() < 1e-6, torch.ones_like(denom), (sum_ij - expected) / denom)
+
+
+def purity(y_true, y_pred, c_max, k_max):
+    """Majority-vote purity [...]: each predicted cluster counts its most
+    common true label, over all points."""
+    cont = contingency(y_true, y_pred, c_max, k_max)
+    return cont.amax(dim=-2).sum(dim=-1) / torch.clamp(cont.sum(dim=(-2, -1)), min=1.0)
+
+
+def weighted_jaccard(y_true, y_pred, c_max, k_max):
+    """sklearn's jaccard_score(average="weighted") of cluster ids read as
+    class predictions [...]: per class TP / (TP + FP + FN), 0 where the
+    union is empty, weighted by the class's support.  The value depends on
+    which number each cluster gets; `eval_clustering(fcluster_ids=True)`
+    numbers them as scipy's fcluster does.  The weighted sum runs as FMAs
+    in class order, so every device gives the same bits."""
+    m = max(c_max, k_max)
+    cont = contingency(y_true, y_pred, m, m)
+    tp = cont.diagonal(dim1=-2, dim2=-1)
+    support = cont.sum(dim=-1)
+    denom = support + cont.sum(dim=-2) - tp
+    j = torch.where(denom > 0, tp / torch.clamp(denom, min=1e-12), torch.zeros_like(tp))
+    acc = torch.zeros_like(tp[..., 0])
+    for c in range(m):
+        acc = fma(support[..., c], j[..., c], acc)
+    return acc / torch.clamp(support.sum(dim=-1), min=1.0)
+
+
+def eval_clustering(y, Z, num_class, fcluster_ids=False):
+    """Cut each dendrogram at its object's true cluster count and score the
+    cut: (ARI, weighted IoU, purity), each [B] (or 0-d for y [N], Z [N-1, 4]).
+
+    The first two are the reference's eval_clustering pair (the adjusted
+    Rand index and the weighted Jaccard of consecutively renumbered ids).
+    fcluster_ids=True cuts with `cut_maxclust_fcluster` (fcluster's ties
+    and numbering), so the numbering-sensitive weighted IoU is the
+    reference's; the default `cut_maxclust` is cheaper, and ARI and purity
+    are the same either way.
+    """
+    y = torch.as_tensor(y, device=Z.device).long()
+    y, unbatched = _batched(y, 1)
+    Z, _ = _batched(Z, 2)
+    y_true, n_true = remap_consecutive(y, num_class)
+    cut = cut_maxclust_fcluster if fcluster_ids else cut_maxclust
+    y_pred_raw = cut(Z, n_true)
+    k_max = min(num_class + 4, Z.shape[1] + 1) + 1
+    y_pred, _ = remap_consecutive(y_pred_raw, k_max)
+    out = (adjusted_rand_index(y_true, y_pred, num_class, k_max),
+           weighted_jaccard(y_true, y_pred, num_class, k_max),
+           purity(y_true, y_pred, num_class, k_max))
+    return tuple(v[0] for v in out) if unbatched else out
 
 
 def _iou_matching_score(y_true, y_pred, n_true, c_max, k_max):

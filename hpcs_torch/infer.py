@@ -2,10 +2,12 @@
 --model_path <checkpoint> [flags]`.
 
 The subcommands and flags are the JAX package's infer.py's; the run goes
-on CUDA unless --accelerator cpu.  The checkpoint is a directory written
-by the port's save_checkpoint (model.ckpt + config.json) or its model.ckpt;
-its config is taken with --test_rotation and --fixed_points from the
-flags.  The test split (data/ShapeNet/raw, data/PartNet/sem_seg_h5/
+on CUDA unless --accelerator cpu.  The checkpoint is a directory with
+model.ckpt + config.json, or its model.ckpt: one the port's save_checkpoint
+wrote, one the JAX package wrote (its msgpack model.ckpt), or one
+`python -m hpcs_torch.import_checkpoint` made from a reference Lightning
+checkpoint.  Its config is taken with --test_rotation and --fixed_points
+from the flags.  The test split (data/ShapeNet/raw, data/PartNet/sem_seg_h5/
 <category>-<level>, or 16 synthetic clouds) is shuffled with --seed and
 `trainer.test` runs on at most --test_batches batches.
 """
@@ -30,7 +32,8 @@ def check_model_path(model_path):
         return model_path
     raise FileNotFoundError(
         f"checkpoint not found: {model_path} (expected a directory with model.ckpt + "
-        "config.json, or a model.ckpt file)")
+        "config.json, or its model.ckpt: written by hpcs_torch or hpcs_tpu, or imported from a "
+        "reference Lightning checkpoint by python -m hpcs_torch.import_checkpoint)")
 
 
 def build_args(sub, dataset):

@@ -1,13 +1,16 @@
-"""Checks of the port's kernels against their plain versions, and the
-test data and probes of the entry points' checks.
+"""Checks of the port's kernels against their plain versions, the test
+data and probes of the entry points' checks, and a writer of the JAX
+package's checkpoint format (`write_flax_checkpoint`).
 
 Used by chip_smoke.py and the tests; nothing on the forward path imports
 this module.
 """
 import contextlib
 import copy
+import dataclasses
 import json
 import os
+import struct
 import time
 
 import numpy as np
@@ -624,3 +627,217 @@ def check_same_test_outputs(got, want):
             assert rel <= 1e-5, f"batch {i}: {key} {g['logs'][key]} against {v}"
             worst = max(worst, rel)
     return worst
+
+
+# ------------------------------------------- the JAX package's checkpoints
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def _flax_place(name):
+    """Where the port's VN-DGCNN HypHCNet state entry `name` lies in the JAX
+    package's trees: (tree "params" or "batch_stats", key path, layout
+    "v" as is, "t" transposed, "conv" a Conv1d [out, in, 1] as [in, out]),
+    or None for BatchNorm's num_batches_tracked, which flax lacks.  The
+    inverse of `utils.jax_params.from_jax_params` for VN-DGCNN."""
+    top = {"scale": ("params", ["scale"], "v"),
+           "metric_hyp_loss.loss_cosface.W": ("params", ["cosface_W"], "v"),
+           "nn_emb.mlp.0.0.weight": ("params", ["embedder", "Dense_0", "kernel"], "t")}
+    if name in top:
+        return top[name]
+    parts = name.split(".")
+    if parts[0] != "nn_feat":
+        raise ValueError(f"no flax place for {name}")
+    p, leaf = ["backbone"] + parts[1:-1], parts[-1]
+    if leaf == "num_batches_tracked":
+        return None
+    if p[-2:] == ["batchnorm", "bn"]:
+        tree, flax_leaf = _BN_LEAVES[leaf]
+        return tree, p + [flax_leaf], "v"
+    if p[-1] == "map_to_feat":
+        return "params", p[:-1] + ["linear", "kernel"], "t"
+    if p[-1] == "map_to_dir":
+        return "params", p[:-1] + ["dir_kernel"], "t"
+    if p[1:] == ["std_feature", "vn_lin"]:
+        return "params", ["backbone", "std_feature", "frame_kernel"], "t"
+    if len(p) == 3 and p[2] == "0":
+        return "params", p[:2] + ["Dense_0", "kernel"], "conv"
+    if len(p) == 3 and p[2] == "1":
+        tree, flax_leaf = _BN_LEAVES[leaf]
+        return tree, p[:2] + ["BatchNorm_0", flax_leaf], "v"
+    raise ValueError(f"no flax place for {name} (VN-DGCNN only)")
+
+
+def _to_flax_layout(x, layout):
+    x = x.detach().cpu().float().numpy()
+    if layout == "conv":
+        x = x[..., 0]
+    return np.ascontiguousarray(x.T if layout != "v" else x)
+
+
+def _set_path(tree, path, value):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _pack_buckets(tree, pad_with_row):
+    """A flax-layout moment tree packed as the JAX package's fused Riemannian
+    Adam packs it: leaves in tree-flatten order (keys sorted), each as rows
+    [prod(shape[:-1]), d] padded to a multiple of 128 columns (at least
+    128), stacked per width.  The padding is 0, or with `pad_with_row` the
+    row's own value (exp_avg_sq, equal along the row)."""
+    from .utils.jax_params import _lane_round
+
+    buckets = {}
+
+    def walk(node):
+        for key in sorted(node):
+            x = node[key]
+            if isinstance(x, dict):
+                walk(x)
+                continue
+            shape = x.shape or (1,)
+            d = shape[-1]
+            rows = x.reshape(-1, d)
+            db = _lane_round(d)
+            fill = np.repeat(rows[:, :1], db - d, axis=1) if pad_with_row else \
+                np.zeros((rows.shape[0], db - d), np.float32)
+            buckets.setdefault(db, []).append(np.concatenate([rows, fill], axis=1))
+
+    walk(tree)
+    return {str(db): np.concatenate(parts) for db, parts in sorted(buckets.items())}
+
+
+def flax_state_of(system):
+    """The JAX package's TrainState, in its state-dict form (string keys,
+    numpy leaves), holding `system`'s state: params and batch_stats, the
+    inject_hyperparams(riemannian_adam_fused) optimizer state (packed
+    moments, the step count, the param groups' learning rate) and the step.
+    The inverse of `utils.checkpoint.load_jax_state`, for VN-DGCNN."""
+    from .optim.radam import BETAS
+    from .optim.radam import EPS as ADAM_EPS
+
+    trees = {"params": {}, "batch_stats": {}}
+    m_tree, v_tree, count = {}, {}, 0
+    named = dict(system.net.named_parameters())
+    for name, x in system.net.state_dict().items():
+        place = _flax_place(name)
+        if place is None:
+            continue
+        tree, path, layout = place
+        value = _to_flax_layout(x, layout)
+        _set_path(trees[tree], path, value)
+        if name in named:
+            st = system.optimizer.state.get(named[name]) or {}
+            m = st.get("exp_avg", torch.zeros_like(x))
+            v = st.get("exp_avg_sq", torch.zeros_like(x))
+            count = st.get("step", count)
+            _set_path(m_tree, path, _to_flax_layout(m, layout))
+            _set_path(v_tree, path, np.ascontiguousarray(
+                np.broadcast_to(_to_flax_layout(v, layout), value.shape)))
+    f32 = np.float32
+    inner = {"count": np.array(count, np.int32), "exp_avg": _pack_buckets(m_tree, False),
+             "exp_avg_sq": _pack_buckets(v_tree, True)}
+    hyper = {"b1": np.array(BETAS[0], f32), "b2": np.array(BETAS[1], f32),
+             "eps": np.array(ADAM_EPS, f32), "learning_rate":
+             np.array(system.optimizer.param_groups[0]["lr"], f32),
+             "weight_decay": np.array(0.0, f32)}
+    opt = {"count": np.array(count, np.int32), "hyperparams": hyper, "hyperparams_states": {},
+           "inner_state": inner}
+    return {**trees, "opt_state": opt, "step": np.array(system.step, np.int32)}
+
+
+def msgpack_pack(obj):
+    """msgpack bytes of obj, as flax.serialization writes its state dicts:
+    dicts (string keys), lists, str, bytes, bool, None, int, float, numpy
+    arrays as ext 1 [shape, dtype name, C bytes] and numpy scalars as
+    ext 3."""
+    out = bytearray()
+
+    def header(n, small, small_max, codes):
+        if small is not None and n <= small_max:
+            out.append(small | n)
+            return
+        for code, fmt, top in codes:
+            if n < top:
+                out.append(code)
+                out.extend(struct.pack(fmt, n))
+                return
+        raise ValueError(f"length {n} too large for msgpack")
+
+    sized = {"str": [(0xd9, ">B", 1 << 8), (0xda, ">H", 1 << 16), (0xdb, ">I", 1 << 32)],
+             "bin": [(0xc4, ">B", 1 << 8), (0xc5, ">H", 1 << 16), (0xc6, ">I", 1 << 32)],
+             "array": [(0xdc, ">H", 1 << 16), (0xdd, ">I", 1 << 32)],
+             "map": [(0xde, ">H", 1 << 16), (0xdf, ">I", 1 << 32)]}
+
+    def ext(code, payload):
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            out.append(0xd4 + n.bit_length() - 1)
+        else:
+            header(n, None, 0, [(0xc7, ">B", 1 << 8), (0xc8, ">H", 1 << 16),
+                                (0xc9, ">I", 1 << 32)])
+        out.extend(struct.pack(">b", code))
+        out.extend(payload)
+
+    def array_record(a):
+        return msgpack_pack([list(a.shape), a.dtype.name, a.tobytes("C")])
+
+    def pack(x):
+        if isinstance(x, np.ndarray):
+            ext(1, array_record(x))
+        elif isinstance(x, np.generic):  # before int and float: np.float64 is a float
+            ext(3, array_record(np.asarray(x)))
+        elif x is None:
+            out.append(0xc0)
+        elif isinstance(x, bool):
+            out.append(0xc3 if x else 0xc2)
+        elif isinstance(x, int):
+            if -32 <= x <= 0x7f:  # positive and negative fixint
+                out.extend(struct.pack(">b", x) if x < 0 else bytes([x]))
+            elif x >= 1 << 63:
+                out.append(0xcf)
+                out.extend(struct.pack(">Q", x))
+            else:
+                out.append(0xd3)
+                out.extend(struct.pack(">q", x))
+        elif isinstance(x, float):
+            out.append(0xcb)
+            out.extend(struct.pack(">d", x))
+        elif isinstance(x, str):
+            raw = x.encode("utf-8")
+            header(len(raw), 0xa0, 31, sized["str"])
+            out.extend(raw)
+        elif isinstance(x, bytes):
+            header(len(x), None, 0, sized["bin"])
+            out.extend(x)
+        elif isinstance(x, (list, tuple)):
+            header(len(x), 0x90, 15, sized["array"])
+            for v in x:
+                pack(v)
+        elif isinstance(x, dict):
+            header(len(x), 0x80, 15, sized["map"])
+            for k, v in x.items():
+                pack(k)
+                pack(v)
+        else:
+            raise TypeError(f"cannot pack {type(x).__name__}")
+
+    pack(obj)
+    return bytes(out)
+
+
+def write_flax_checkpoint(path, system, cfg, epoch=0, extra=None):
+    """Write `system`'s state as the JAX package's single-file checkpoint
+    into the directory `path`: model.ckpt, the msgpack of {"state":
+    TrainState, "epoch", "extra"} that its save_checkpoint writes with
+    flax (`flax_state_of`, `msgpack_pack`), and config.json.  `epoch` is
+    stored as given: the JAX package's index of the epoch it finished."""
+    os.makedirs(path, exist_ok=True)
+    payload = {"state": flax_state_of(system), "epoch": int(epoch), "extra": extra or {}}
+    with open(os.path.join(path, "model.ckpt"), "wb") as f:
+        f.write(msgpack_pack(payload))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)

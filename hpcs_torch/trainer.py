@@ -40,7 +40,8 @@ def fit(system, train_loader, valid_loader, *, epochs, patience=50, seed=0, log_
     state is saved to `ckpt_dir/last` after every epoch and to
     `ckpt_dir/best` when val_loss improves, with the number of epochs
     trained.  `resume`, a checkpoint (directory or model.ckpt), restores
-    the state and starts at its stored epoch.
+    the state and starts at its stored epoch (a JAX-package checkpoint at
+    its epoch + 1: `utils.checkpoint.restore_checkpoint`).
 
     The state returned (`system.state_dict()`) is the one after the epoch
     with the best val_loss, and the system is left in it; when no finite

@@ -6,14 +6,21 @@
 - `config.json`: the ModelConfig as `dataclasses.asdict` gives it, the keys
   of the JAX package's config.json.
 
-The JAX package's own `model.ckpt` is a flax msgpack file, which this
-module does not read (ROADMAP A9).
+`restore_checkpoint` also reads the JAX package's own single-file
+checkpoint: the same two files, its `model.ckpt` the flax msgpack of
+{"state": TrainState, "epoch", "extra"}.  The first bytes tell the two
+apart: a `torch.save` file is a zip (b"PK"), a flax file a msgpack map
+(0x80-0x8f, 0xde or 0xdf).  The JAX package's multi-process format, a
+directory with orbax/, is not read (ROADMAP A11).
 """
 import dataclasses
 import json
 import os
 
 import torch
+
+from . import flax_msgpack
+from .jax_params import from_jax_hyperparams, from_jax_opt_state, from_jax_params
 
 
 def save_checkpoint(path, system, cfg, epoch=0, extra=None):
@@ -33,10 +40,54 @@ def load_config(path):
         return json.load(f)
 
 
+def checkpoint_format(ckpt_file):
+    """"torch" for a `torch.save` file, "flax" for the JAX package's msgpack
+    file; raises ValueError for anything else."""
+    with open(ckpt_file, "rb") as f:
+        head = f.read(2)
+    if head == b"PK":
+        return "torch"
+    if head and (0x80 <= head[0] <= 0x8f or head[0] in (0xde, 0xdf)):
+        return "flax"
+    raise ValueError(f"{ckpt_file} is neither a torch.save zip nor a flax msgpack checkpoint")
+
+
 def restore_checkpoint(path, system):
     """Load the checkpoint at `path` (its directory or its model.ckpt) into
-    `system`, onto the system's device.  Returns (epoch, extra)."""
+    `system`, onto the system's device.  Returns (epoch, extra): `epoch` is
+    the number of epochs trained, where a resumed `fit` starts.
+
+    A JAX-package checkpoint gives the net's parameters and BatchNorm
+    statistics, the Riemannian Adam moments and step count, the learning
+    rate its optimizer state holds (the plateau-reduced one) and the step.
+    The JAX package stores the index of the epoch it had finished, and its
+    own resume trains that epoch again; here the port's rule holds, so such
+    a checkpoint resumes at its epoch + 1.
+    """
+    if os.path.isdir(os.path.join(path, "orbax")):
+        raise NotImplementedError(
+            f"{path} is the JAX package's multi-process (orbax) checkpoint, which the port "
+            "does not read yet (ROADMAP A11)")
     ckpt_file = path if os.path.isfile(path) else os.path.join(path, "model.ckpt")
+    if checkpoint_format(ckpt_file) == "flax":
+        payload = flax_msgpack.read(ckpt_file)
+        load_jax_state(system, payload["state"])
+        return int(payload["epoch"]) + 1, payload.get("extra") or {}
     payload = torch.load(ckpt_file, map_location=system.device, weights_only=True)
     system.load_state_dict(payload["state"])
     return payload["epoch"], payload["extra"]
+
+
+def load_jax_state(system, state):
+    """Load the JAX package's TrainState, in its state-dict form (nested
+    dicts of numpy arrays: params, batch_stats, opt_state, step), into
+    `system`."""
+    params = state["params"]
+    system.net.load_state_dict(from_jax_params(params, state["batch_stats"]))
+    moments = from_jax_opt_state(state["opt_state"], params)
+    system.optimizer.state.clear()
+    for name, p in system.net.named_parameters():
+        system.optimizer.state[p] = {k: v.to(p.device) if torch.is_tensor(v) else v
+                                     for k, v in moments[name].items()}
+    system.set_learning_rate(from_jax_hyperparams(state["opt_state"]))
+    system.step = int(state["step"])

@@ -5,7 +5,10 @@ of numpy arrays (no JAX needed) and returns a state_dict for
 `hpcs_torch.models.base.HypHCNet`.  Dense kernels are [in, out] and become
 [out, in] weights; BatchNorm scale/bias/mean/var become
 weight/bias/running_mean/running_var.  `from_jax_opt_state` does the same
-for the packed Riemannian Adam moments.
+for the packed Riemannian Adam moments, and `from_jax_hyperparams` reads
+the learning rate.  Each takes the trees as the JAX package holds them or
+in their state-dict form (string keys throughout, as a flax checkpoint
+restores them: `utils.flax_msgpack`).
 """
 import numpy as np
 import torch
@@ -21,10 +24,12 @@ def ball_dim(name, p):
 
 
 def _t(w):
-    return torch.tensor(np.asarray(w, np.float32).T)
+    return _v(w).T.contiguous()
 
 
 def _v(a):
+    if torch.is_tensor(a):  # a bfloat16 leaf of a flax checkpoint
+        return a.float()
     return torch.tensor(np.asarray(a, np.float32))
 
 
@@ -145,6 +150,7 @@ def _unpack(packed, params):
             offsets[db] = off + rows
         return out
 
+    packed = {int(db): v for db, v in packed.items()}  # "128" in the state-dict form
     return walk(params)
 
 
@@ -154,15 +160,47 @@ def from_jax_opt_state(opt_state, params):
 
     opt_state: `riemannian_adam_fused`'s state (count, exp_avg, exp_avg_sq,
     the moments packed {D: [R, D]}), or the `inject_hyperparams` state
-    around it, as numpy; params: the flax params tree it belongs to.
+    around it, as numpy, or either in its state-dict form (dicts, bucket
+    keys "128"); params: the flax params tree it belongs to.
     Returns {name: {"step", "exp_avg", "exp_avg_sq"}} in the port's layout,
     the ball axis moved as `from_jax_params` moves it; exp_avg_sq, equal
     along the ball axis, keeps one entry there.
     """
-    inner = getattr(opt_state, "inner_state", opt_state)
-    m = _params_sd(_unpack(inner.exp_avg, params))
-    v = _params_sd(_unpack(inner.exp_avg_sq, params))
-    count = int(np.asarray(inner.count))
+    inner = _field(opt_state, "inner_state", opt_state)
+    m = _params_sd(_unpack(_field(inner, "exp_avg"), params))
+    v = _params_sd(_unpack(_field(inner, "exp_avg_sq"), params))
+    count = int(np.asarray(_field(inner, "count")))
     return {name: {"step": count, "exp_avg": m[name],
                    "exp_avg_sq": v[name].narrow(ball_dim(name, v[name]), 0, 1).clone()}
             for name in m}
+
+
+def _field(state, name, default=None):
+    """Field `name` of an optax state (a NamedTuple) or of its state-dict
+    form (a dict); `default` where it has none."""
+    if isinstance(state, dict):
+        return state.get(name, default)
+    return getattr(state, name, default)
+
+
+def from_jax_hyperparams(opt_state):
+    """The learning rate that the JAX package's `inject_hyperparams` state
+    holds (the plateau-reduced one, which `set_learning_rate` writes), as
+    the port's param-group lr.
+
+    Raises ValueError where the state's b1, b2, eps or weight_decay differ
+    from the port's Riemannian Adam (`optim.radam.BETAS`, `EPS`, no weight
+    decay): the port would train differently.
+    """
+    from ..optim.radam import BETAS, EPS
+
+    hp = _field(opt_state, "hyperparams")
+    if hp is None:
+        raise ValueError("the optimizer state holds no hyperparams (inject_hyperparams)")
+    want = {"b1": BETAS[0], "b2": BETAS[1], "eps": EPS, "weight_decay": 0.0}
+    for name, value in want.items():
+        got = np.float32(np.asarray(hp.get(name, value)))
+        if got != np.float32(value):
+            raise ValueError(f"optimizer hyperparameter {name} = {got}; the port's Riemannian "
+                             f"Adam runs with {name} = {value}")
+    return float(np.float32(np.asarray(hp["learning_rate"])))

@@ -555,3 +555,70 @@ def test_bf16_train_step_on_gpu_matches_cpu():
     launches = K.knn.bf16_launches
     check_train_step_card_vs_cpu(tsys, synthetic_batch(2, 64, seed=4))
     assert K.knn.bf16_launches - launches == 3
+
+
+@pytest.mark.cuda
+def test_checkpoint_imports_round_trip_on_gpu(tmp_path):
+    """At the flagship width on the card: hpcs_tpu's checkpoint format
+    (testing.write_flax_checkpoint) and a reference Lightning checkpoint
+    (python -m hpcs_torch.import_checkpoint) of the same system restore its
+    weights, and serve its embeddings, through B1 and B2, bit for bit."""
+    require_cuda()
+    from hpcs_torch import import_checkpoint
+    from hpcs_torch.testing import write_flax_checkpoint
+    from hpcs_torch.utils.checkpoint import restore_checkpoint
+
+    cfg = ModelConfig(num_class=50, num_categories=16, eucl_dim=32, hyp_dim=32, k=20)
+    src = HypHCSystem(cfg, generator=torch.Generator().manual_seed(1))
+    pts, cat, seg = SyntheticPartDataset(2, 1024, 16, seed=2).batch(0, 2)
+    src.train_step({"points": pts, "category": cat, "labels": seg},
+                   torch.Generator(device="cuda").manual_seed(0))
+    write_flax_checkpoint(str(tmp_path / "flax"), src, cfg, epoch=2)
+    flax = HypHCSystem(cfg, generator=torch.Generator().manual_seed(3))
+    assert restore_checkpoint(str(tmp_path / "flax"), flax)[0] == 3
+    assert flax.step == src.step == 1
+    torch.save({"state_dict": {k: v.cpu() for k, v in src.net.state_dict().items()},
+                "hyper_parameters": {"euclidean_size": 32, "hyp_size": 32, "num_class": 50}},
+               str(tmp_path / "lightning.ckpt"))
+    ref = import_checkpoint.main([str(tmp_path / "lightning.ckpt"), str(tmp_path / "ref"),
+                                  "--k", "20", "--num_categories", "16"])
+    dv = decode_vector_for_batch(cfg, {"points": pts, "category": cat})
+    want = src.embed(pts, dv)
+    for system in (flax, ref):
+        for k, v in src.net.state_dict().items():
+            if not k.endswith("num_batches_tracked"):
+                assert torch.equal(system.net.state_dict()[k], v), k
+        k0, e0 = K.knn.launches, E.edgeconv_infer.launches
+        got = system.embed(pts, dv)
+        assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 3)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["complete", "single", "average"])
+@pytest.mark.parametrize("kind", ["untied", "tied"])
+def test_sequential_linkage_on_gpu_equals_cpu(method, kind):
+    """linkage_from_distances on the card equals the CPU port's on the same
+    D, bit for bit (torch.argmin's first index among tied distances on
+    both), and so do the flat cuts of its Z."""
+    require_cuda()
+    from hpcs_torch.decode import (cut_maxclust, cut_maxclust_fcluster, eval_clustering,
+                                   linkage_from_distances)
+
+    rng = np.random.default_rng(5)
+    if kind == "tied":
+        x = np.repeat(rng.standard_normal((2, 12, 5)), 16, axis=1)  # 192 points, 12 groups
+    else:
+        x = rng.standard_normal((2, 192, 8))
+    D = torch.cdist(torch.from_numpy(x), torch.from_numpy(x)).float()
+    Z = linkage_from_distances(D.cuda(), method)
+    Z_cpu = linkage_from_distances(D, method)
+    torch.testing.assert_close(Z.cpu(), Z_cpu, rtol=0, atol=0)
+    for k in (1, 2, 12, 191, 192):
+        assert torch.equal(cut_maxclust(Z, k).cpu(), cut_maxclust(Z_cpu, k))
+        assert torch.equal(cut_maxclust_fcluster(Z, k).cpu(), cut_maxclust_fcluster(Z_cpu, k))
+    y = torch.from_numpy(rng.integers(0, 6, size=(2, 192)))
+    for fc in (False, True):
+        for g, w in zip(eval_clustering(y.cuda(), Z, 6, fc), eval_clustering(y, Z_cpu, 6, fc)):
+            assert torch.equal(g.cpu(), w)

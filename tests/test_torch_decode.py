@@ -6,6 +6,8 @@ Z exactly, on tie-free data and on exact-duplicate groups; so must the cut
 tables and the best-k sweep on a shared Z.  Fast cases keep N <= 300, so
 one passes the compaction stages 300 -> 150 -> 128; N = 1024 is `slow`.
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,9 +29,11 @@ from hpcs_torch.decode import (
     linkage_from_distances_mnn,
     remap_consecutive,
 )
-from hpcs_torch.decode import linkage as linkage_module
 from hpcs_torch.decode.linkage import pair_hash
 from hpcs_torch.geometry.math_ops import fma, l2_normalize_rn, sqrt_rn
+
+# the module: the package's `linkage` is the function, as in hpcs_tpu.decode
+linkage_module = sys.modules["hpcs_torch.decode.linkage"]
 
 METHODS = ["complete", "single", "average"]
 

@@ -120,10 +120,10 @@ def test_restored_embeddings_match_the_jax_package(entry):
 
 def test_port_imports_and_runs_without_jax(tmp_path):
     """Every module of hpcs_torch imports, and both entry points run as
-    `python -m`, with jax and hpcs_tpu unimportable."""
+    `python -m`, with jax, flax, msgpack and hpcs_tpu unimportable."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['hpcs_tpu'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "sys.modules['flax'] = None; sys.modules['msgpack'] = None\n"
         "import importlib, pkgutil, runpy, hpcs_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(hpcs_torch.__path__, 'hpcs_torch.')]\n"
         "for name in names:\n"
@@ -137,7 +137,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "'--batch', '16', '--test_batches', '1', '--accelerator', 'cpu']\n"
         "runpy.run_module('hpcs_torch.infer', run_name='__main__')\n"
         "bad = [k for k, v in sys.modules.items() if v is not None\n"
-        "       and (k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'hpcs_tpu'))]\n"
+        "       and (k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack', 'hpcs_tpu'))]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="2")
