@@ -48,8 +48,12 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    50, temperature 0.05, lr 0.005, dropout 0.5, so3 rotations; synthetic
    clouds of 6 parts, seed 5): 2 warm-up and 8 timed steps, B1 launched 3
    times a step and B2 never, every loss and parameter finite; a profile of
-   2 steps; and trainer.fit for 1 epoch of 2 training batches and 1
-   validation batch, whose validation launches B2 3 times;
+   2 steps; the packed optimizer (FusedRiemannianAdam, what the system
+   trains with) against the per-parameter one (RiemannianAdam) on copies
+   of the same card gradients and state, within testing.UPDATE_ATOL /
+   UPDATE_RTOL, and each one's step alone: kernels and device ms under the
+   profiler, and wall ms; and trainer.fit for 1 epoch of 2 training
+   batches and 1 validation batch, whose validation launches B2 3 times;
 8. runs the entry points (phase entry) in a temporary working directory
    holding a ShapeNet-Part tree of 4 categories (Airplane, Chair, Table,
    Lamp; 8 / 2 / 8 objects each, hpcs_torch.testing.write_mini_shapenet):
@@ -112,7 +116,20 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    cut_maxclust_many and cut_maxclust_fcluster at k = 2..20 (the last equal
    to scipy's fcluster - 1) and eval_clustering in both modes, each against
    the CPU port exactly and timed per object;
-12. prints one JSON line per kernel summary, the card's name and power
+12. trains the flagship to convergence (phase trained,
+   hpcs_torch.trained_readings): `python -m hpcs_torch.train`'s main with
+   the flags of hpcs_tpu's 60-epoch synthetic run
+   (benchmarks/results_round2.json) and seed 0 in a temporary working
+   directory, then its final/ checkpoint loaded in fp32 and in bf16 and
+   served by test_step on 32 held-out synthetic objects (seed 123, 4
+   batches of 8): the test score (at least 0.98), test_acc and test_iou,
+   the validation loss of every epoch, and each serving's mean best score,
+   purity of the best-k cut and best k, with the purity delta (at most
+   0.005) and the best-k agreement, beside hpcs_tpu's readings
+   (benchmarks/results_round2.json, benchmarks/bf16_quality.json); B1 and
+   B2 counted on every batch, in fp32 and bf16; times the epochs and the
+   phase;
+13. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -596,7 +613,8 @@ def train_phase(card):
     from hpcs_torch.models import HypHCSystem, ModelConfig
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
-    from hpcs_torch.testing import check_train_step_card_vs_cpu
+    from hpcs_torch.testing import (UPDATE_ATOL, UPDATE_RTOL, check_packed_update,
+                                    check_train_step_card_vs_cpu)
 
     def batch_of(data, start, size):
         p, c, seg = data.batch(start, size)
@@ -672,9 +690,20 @@ def train_phase(card):
     parts = {"grads_and_logs": profile_calls(lambda i: system.grads_and_logs(batch, gen), 2),
              "optimizer_step": profile_calls(lambda i: system.apply_gradients(), 2),
              "edge_stages_forward_backward": profile_calls(edge_stages, 2)}
+
+    # 4. the packed optimizer against the per-parameter one on the same card
+    # gradients (copies of the system's parameters and state), then each
+    # one's step alone: kernels and device ms under the profiler, wall ms
+    system.grads_and_logs(batch, gen)
+    packed, plain, vs_per_parameter = check_packed_update(system.optimizer)
+    optimizer_forms = {name: dict(**profile_calls(lambda i, o=opt: o.step(), 2),
+                                  wall_ms=host_ms(opt.step, 5))
+                       for name, opt in (("packed", packed), ("per_parameter", plain))}
+    optimizer_forms["packed"]["packs"] = len({p.shape[g["ball_dim"]] for g in packed.param_groups
+                                              for p in g["params"]})
     system.optimizer.zero_grad(set_to_none=True)
 
-    # 4. trainer.fit, 1 epoch: 2 training batches, 1 validation batch (8
+    # 5. trainer.fit, 1 epoch: 2 training batches, 1 validation batch (8
     # categories: labels < 50)
     data = SyntheticPartDataset(3 * TRAIN_B, N, 8, parts_per_object=6, seed=5)
     train_batches = [batch_of(data, 0, TRAIN_B), batch_of(data, TRAIN_B, TRAIN_B)]
@@ -698,6 +727,8 @@ def train_phase(card):
                loss_trace=[lg["total_loss"] for lg in logs_trace],
                scale_trace=[lg["scale"] for lg in logs_trace],
                optimizer_params=sum(len(g["params"]) for g in system.optimizer.param_groups),
+               optimizer_packed_vs_per_parameter=vs_per_parameter,
+               optimizer_forms=optimizer_forms, update_atol=UPDATE_ATOL, update_rtol=UPDATE_RTOL,
                profile_2_steps=profile, profile_parts=parts, fit_seconds=fit_s,
                fit_launches=fit_launches,
                fit_val_loss=best, card=card)
@@ -1759,6 +1790,74 @@ def import_phase(system, cfg, batches, card):
     return out
 
 
+TRAINED_SCORE_GUARD = 0.98  # well under the 0.9969 of hpcs_tpu's converged run
+TRAINED_PURITY_DELTA = 0.005  # bench.py's bound on the fp32 / bf16 purity delta
+SYNTHETIC_BATCHES = (8, 2, 2)  # batches of 8 in cli.py's synthetic train / val / test splits
+
+
+def trained_phase(card):
+    """The flagship trained to convergence and served in fp32 and bf16
+    (hpcs_torch.trained_readings at seed 0), beside hpcs_tpu's readings."""
+    import tempfile
+
+    from hpcs_torch import trained_readings
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "benchmarks", "results_round2.json")) as f:
+        ref_run = json.load(f)["end_to_end_training_flagship_synthetic"]
+    with open(os.path.join(here, "benchmarks", "bf16_quality.json")) as f:
+        ref_bf16 = json.load(f)
+    KN.knn.launches = KN.knn.wide_launches = KN.knn.bf16_launches = 0
+    E.edgeconv_infer.launches = E.edgeconv_infer.bf16_launches = 0
+    cwd, tmp = os.getcwd(), tempfile.TemporaryDirectory()
+    t = time.perf_counter()
+    try:
+        os.chdir(tmp.name)
+        _, r = trained_readings.run(seed=SEED)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    seconds = time.perf_counter() - t
+    launches = {"knn": KN.knn.launches, "knn_bf16": KN.knn.bf16_launches,
+                "knn_wide": KN.knn.wide_launches, "edgeconv": E.edgeconv_infer.launches,
+                "edgeconv_bf16": E.edgeconv_infer.bf16_launches}
+    # B1 3 a batch: every training, validation and test batch, and the
+    # held-out batches served in fp32 and in bf16; B2 3 a batch of all but
+    # the training batches; the bf16 serving on the bf16 routes
+    steps, val, test = SYNTHETIC_BATCHES
+    held_out = len(trained_readings.held_out_batches(N))
+    evals = r["epochs"] * val + test + 2 * held_out
+    want = {"knn": 3 * (r["epochs"] * steps + evals), "knn_bf16": 3 * held_out, "knn_wide": 0,
+            "edgeconv": 3 * evals, "edgeconv_bf16": 3 * held_out}
+    q = r["quality"]
+    out = dict(**r, seconds=seconds, launches=launches, launches_expected=want,
+               launches_fp32={k: launches[k] - launches[f"{k}_bf16"] for k in ("knn", "edgeconv")},
+               epoch_s_median=float(np.median(r["epoch_time_s"])),
+               score_guard=TRAINED_SCORE_GUARD, purity_delta_limit=TRAINED_PURITY_DELTA,
+               hpcs_tpu=dict(test={k: ref_run[k] for k in ("score", "test_acc", "test_iou")},
+                             fp32={k: ref_bf16["fp32"][k] for k in ("score", "purity")},
+                             bf16={k: ref_bf16["bf16"][k] for k in ("score", "purity")},
+                             purity_delta=abs(ref_bf16["fp32"]["purity"]
+                                              - ref_bf16["bf16"]["purity"]),
+                             best_k_agreement=ref_bf16["best_k_agreement"]),
+               card=card)
+    emit("trained", **out)
+    if launches != want or r["steps"] != r["epochs"] * steps:
+        fail(f"trained: launched {launches} in {r['steps']} steps, expected {want}")
+    if not all(np.isfinite(r["val_loss"])):
+        fail(f"trained: non-finite validation losses {r['val_loss']}")
+    if r["test"]["score"] < TRAINED_SCORE_GUARD:
+        fail(f"trained: test score {r['test']['score']:.4f} after {r['epochs']} epochs, below "
+             f"{TRAINED_SCORE_GUARD}")
+    if q["purity_delta"] > TRAINED_PURITY_DELTA:
+        fail(f"trained: fp32 / bf16 purity delta {q['purity_delta']:.5f} over "
+             f"{TRAINED_PURITY_DELTA}")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every phase's results to this file")
@@ -2007,6 +2106,7 @@ def main():
         train_step_ms_median=train["train_step_ms_median"],
         train_peak_memory_mb=train["peak_memory_mb"]))
     imp = import_phase(system, cfg, batches, card)
+    trained = trained_phase(card)
 
     # 10. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
@@ -2022,7 +2122,8 @@ def main():
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
              launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
              + train["fit_launches"]["knn"] + entry_launches["knn"]
-             + backbones["launches"]["knn"] + imp["launches"]["knn"],
+             + backbones["launches"]["knn"] + imp["launches"]["knn"]
+             + trained["launches_fp32"]["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
@@ -2031,7 +2132,7 @@ def main():
              launches=launches["knn_wide"] + decode["launches"]["knn_wide"]
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
-             + imp["launches"]["knn_wide"],
+             + imp["launches"]["knn_wide"] + trained["launches"]["knn_wide"],
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
@@ -2039,7 +2140,7 @@ def main():
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
-             + imp["launches"]["edgeconv"],
+             + imp["launches"]["edgeconv"] + trained["launches_fp32"]["edgeconv"],
              max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),
@@ -2047,13 +2148,14 @@ def main():
              library_ms=None),
         dict(name="knn_bf16", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
-             launches=bf16["launches_main_path"]["knn_bf16"],
+             launches=bf16["launches_main_path"]["knn_bf16"] + trained["launches"]["knn_bf16"],
              max_abs_err=bf16["knn_max_score_gap"], ms=bf16["knn_ms_per_forward"],
              plain_ms=bf16["knn_plain_ms_per_forward"], bound_ms=bf16["knn_bound_ms_per_forward"],
              bound_by=bf16["knn_bound_by"], library_ms=None),
         dict(name="edgeconv_bf16", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
-             launches=bf16["launches_main_path"]["edgeconv_bf16"],
+             launches=bf16["launches_main_path"]["edgeconv_bf16"]
+             + trained["launches"]["edgeconv_bf16"],
              max_abs_err=bf16["edgeconv_max_abs_err"], ms=bf16["edgeconv_ms_per_forward"],
              plain_ms=bf16["edgeconv_plain_ms_per_forward"],
              bound_ms=bf16["edgeconv_bound_ms_per_forward"], bound_by=bf16["edgeconv_bound_by"],

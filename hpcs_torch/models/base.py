@@ -18,7 +18,7 @@ from ..loss import LossConfig, compute_losses, get_logits, hierarchy_sum_matrice
 from ..loss.hyphc import anneal_temperature
 from ..nn.backbones import make_backbone
 from ..nn.embed import make_embedder
-from ..optim import RiemannianAdam, plateau_init, plateau_update
+from ..optim import FusedRiemannianAdam, plateau_init, plateau_update
 from ..utils.jax_params import ball_dim
 from ..utils.metrics import accuracy_top1, multiclass_jaccard
 from ..utils.rotations import augment
@@ -125,7 +125,8 @@ class HypHCSystem:
     Entry points: `embed` (eval forward), `train_step`, `eval_step`,
     `test_step`, and the epoch hooks `epoch_end` / `set_learning_rate`.
     The system owns its state: the net's parameters and BatchNorm
-    statistics, the Riemannian Adam moments (`optimizer`), the step count,
+    statistics, the Riemannian Adam moments (`optimizer`, the packed form
+    `FusedRiemannianAdam`, as the JAX package's system), the step count,
     the plateau schedule and the temperature.
     """
 
@@ -148,7 +149,7 @@ class HypHCSystem:
         groups = {0: [], -1: []}
         for name, p in self.net.named_parameters():
             groups[ball_dim(name, p)].append(p)
-        self.optimizer = RiemannianAdam(
+        self.optimizer = FusedRiemannianAdam(
             [{"params": ps, "ball_dim": d} for d, ps in groups.items() if ps], lr=cfg.lr)
         self.step = 0
         self.plateau = plateau_init(cfg.lr)

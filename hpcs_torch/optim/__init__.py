@@ -1,3 +1,5 @@
-from .radam import PlateauState, RiemannianAdam, plateau_init, plateau_update
+from .radam import (FusedRiemannianAdam, PlateauState, RiemannianAdam, plateau_init,
+                    plateau_update)
 
-__all__ = ["PlateauState", "RiemannianAdam", "plateau_init", "plateau_update"]
+__all__ = ["FusedRiemannianAdam", "PlateauState", "RiemannianAdam", "plateau_init",
+           "plateau_update"]

@@ -1,9 +1,11 @@
-"""Checks of the port's kernels against their plain versions, the test
-data and probes of the entry points' checks, and a writer of the JAX
-package's checkpoint format (`write_flax_checkpoint`).
+"""Checks of the port's kernels against their plain versions, of the
+card's training step and of the packed optimizer against the
+per-parameter one, the test data and probes of the entry points' checks,
+the fp32 / bf16 serving of a trained checkpoint (`fp32_bf16_quality`), and
+a writer of the JAX package's checkpoint format (`write_flax_checkpoint`).
 
-Used by chip_smoke.py and the tests; nothing on the forward path imports
-this module.
+Used by chip_smoke.py, `trained_readings` and the tests; nothing on the
+forward or training path imports this module.
 """
 import contextlib
 import copy
@@ -522,6 +524,56 @@ def check_train_step_card_vs_cpu(system, batch, seed=0):
     return out
 
 
+def optimizer_twin(optimizer, cls):
+    """A copy of `optimizer`'s parameters, their gradients and its state
+    under the Riemannian Adam form `cls` (RiemannianAdam or
+    FusedRiemannianAdam), with the same groups and hyperparameters."""
+    groups, state = [], {}
+    for group in optimizer.param_groups:
+        params = []
+        for p in group["params"]:
+            twin = p.detach().clone().requires_grad_(p.requires_grad)
+            twin.grad = None if p.grad is None else p.grad.detach().clone()
+            state[twin] = {k: v.clone() if torch.is_tensor(v) else v
+                           for k, v in optimizer.state[p].items()}
+            params.append(twin)
+        groups.append({**{k: v for k, v in group.items() if k != "params"}, "params": params})
+    out = cls(groups)
+    out.state.update(state)
+    return out
+
+
+def check_packed_update(optimizer):
+    """One step of `optimizer`'s packed form (FusedRiemannianAdam) against
+    its per-parameter form (RiemannianAdam), both on copies of its
+    parameters, gradients and state: parameters and moments within
+    UPDATE_ATOL / UPDATE_RTOL (on the card the packs' reductions may run in
+    another order than each parameter's).  Raises AssertionError; returns
+    (packed, per-parameter twins after their step, {"max_abs_err_params",
+    "max_abs_err_moments", "parameters"})."""
+    from .optim import FusedRiemannianAdam, RiemannianAdam
+
+    packed, plain = optimizer_twin(optimizer, FusedRiemannianAdam), \
+        optimizer_twin(optimizer, RiemannianAdam)
+    packed.step()
+    plain.step()
+    out = {"max_abs_err_params": 0.0, "max_abs_err_moments": 0.0, "parameters": 0}
+    pairs = zip((p for g in packed.param_groups for p in g["params"]),
+                (p for g in plain.param_groups for p in g["params"]))
+    for i, (a, b) in enumerate(pairs):
+        for key in ("param", "exp_avg", "exp_avg_sq"):
+            got, want = (a, b) if key == "param" else (packed.state[a][key], plain.state[b][key])
+            got, want = got.detach().double(), want.detach().double()
+            err = (got - want).abs()
+            assert bool((err <= UPDATE_ATOL + UPDATE_RTOL * want.abs()).all()), \
+                f"parameter {i} {key}: packed and per-parameter updates differ by " \
+                f"{float(err.max()):.3e}"
+            which = "max_abs_err_params" if key == "param" else "max_abs_err_moments"
+            out[which] = max(out[which], float(err.max()))
+        out["parameters"] += 1
+    return packed, plain, out
+
+
 # ShapeNet-Part's 16 categories and their synset offsets, in the order of the
 # dataset's synsetoffset2category.txt (a category's id is its line's position)
 SHAPENET_SYNSETS = {
@@ -627,6 +679,61 @@ def check_same_test_outputs(got, want):
             assert rel <= 1e-5, f"batch {i}: {key} {g['logs'][key]} against {v}"
             worst = max(worst, rel)
     return worst
+
+
+def trained_system(path, device=None, **over):
+    """A HypHCSystem holding the checkpoint at `path` (a directory), with
+    the ModelConfig of its config.json and the fields `over` (bf16=True for
+    its bf16 serving)."""
+    from .cli import freeze_hierarchy
+    from .models import HypHCSystem, ModelConfig
+    from .utils.checkpoint import load_config, restore_checkpoint
+
+    cfg = load_config(path)
+    cfg["hierarchy_list"] = freeze_hierarchy(cfg.get("hierarchy_list", ()))
+    system = HypHCSystem(ModelConfig(**{**cfg, **over}), device=device)
+    restore_checkpoint(path, system)
+    return system
+
+
+def fp32_bf16_quality(fp32, bf16, batches, seed=0):
+    """The decode's quality of two systems (a trained checkpoint served in
+    fp32 and in bf16) on the same batches: each runs test_step on every
+    batch, its rotations and triplets drawn from a generator seeded with
+    `seed`.
+
+    Per system: "score" (the mean best score), "purity" (the mean purity
+    of the best-k cut, `decode.purity`), "test_acc", "test_iou",
+    "test_loss" (means over the batches), "best_k" (per object) and
+    "objects".  Then "purity_delta" (|fp32 - bf16|), "score_delta"
+    (fp32 - bf16) and "best_k_agreement" (the share of objects whose best
+    k is the same).
+    """
+    from .decode import purity
+
+    def serve(system):
+        gen = torch.Generator(device=system.device).manual_seed(seed)
+        C = system.cfg.num_class
+        logs, purities, best_k, scores = [], [], [], []
+        for batch in batches:
+            lg, extras = system.test_step(batch, gen)
+            labels = torch.as_tensor(batch["labels"], device=system.device).long()
+            purities.append(purity(labels, extras["pred"], C, C + 4).cpu())
+            best_k.append(extras["best_k"].cpu())
+            scores.append(extras["best_score"].cpu())
+            logs.append({k: float(v) for k, v in lg.items()})
+        best_k = torch.cat(best_k)
+        return dict(score=float(torch.cat(scores).double().mean()),
+                    purity=float(torch.cat(purities).double().mean()),
+                    **{k: float(np.mean([lg[k] for lg in logs]))
+                       for k in ("test_acc", "test_iou", "test_loss") if k in logs[0]},
+                    best_k=best_k.tolist(), objects=len(best_k))
+
+    a, b = serve(fp32), serve(bf16)
+    return dict(fp32=a, bf16=b, purity_delta=abs(a["purity"] - b["purity"]),
+                score_delta=a["score"] - b["score"],
+                best_k_agreement=float(np.mean([x == y for x, y in zip(a["best_k"],
+                                                                       b["best_k"])])))
 
 
 # ------------------------------------------- the JAX package's checkpoints
