@@ -129,7 +129,34 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    (benchmarks/results_round2.json, benchmarks/bf16_quality.json); B1 and
    B2 counted on every batch, in fp32 and bf16; times the epochs and the
    phase;
-13. prints one JSON line per kernel summary, the card's name and power
+13. runs hpcs_torch.parallel (phase parallel) at the flagship width: (a)
+   the data-parallel step at world size 1 over NCCL (B=8, N=1024, 2
+   warm-up + 5 timed steps) against the single-device step from the same
+   state and generator: the mean all-reduce the identity bit for bit on
+   the first (warm-up) step, the first step's logs equal where the forward
+   repeats run to run, and the state within 4 times S, the largest entry
+   by which two single-device runs differ (the card's backward is not
+   ordered run to run); the timed steps run the real collective, then 5
+   more of each step in parts (gradients, all-reduce, update);
+   (b) two gloo ranks sharing the card (NCCL refuses two ranks on one
+   device): the 2-rank step at B=2, N=256 against the CPU port's 2-rank
+   step (testing.check_train_step_card_vs_cpu with the group), the
+   flagship step timed, every loss and parameter finite and the ranks'
+   parameters equal bit for bit; (c) the sharded test_step on 2 x 8
+   flagship objects, whose per-object linkage, prediction, best k and best
+   score equal the single-process decode of its embeddings; (d) the
+   point-sharded eval forward at B=2, N=4096 over the 2 ranks against the
+   unsharded forward (atol 1e-4 / rtol 1e-3), timed beside it, and the
+   point-sharded training step at B=2, N=256 against the unsharded step:
+   in fp32 the loss within rtol 2e-5 and the ranks equal, in float64
+   (knn_plain's graphs) logs and gradients within testing.FLOAT64_WITNESS
+   (the fp32 step is ill-conditioned: another order of its sums moves a
+   weight by 1.4e-4 where two runs of one order agree); --data_parallel beyond
+   the visible GPUs must raise.  Prints the step ms at world sizes 1 and 2,
+   the world-size-1 step's parts beside the single-device step's, the
+   all-reduce ms per step, each backend and the phase's B1 and B2
+   launches, which the kernels line counts;
+14. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -1858,6 +1885,354 @@ def trained_phase(card):
     return out
 
 
+PAR_WARMUP, PAR_TIMED = 2, 5  # flagship data-parallel steps: warm-up, timed
+PAR_TEST_B = 8  # flagship objects per rank in the sharded test_step
+PAR_LONG_N = 4096  # the point-sharded forward's cloud (B1 takes N <= 4096)
+FACTOR = 4.0  # card-vs-card rule: FACTOR times the spread of the reference step's two runs
+
+
+def _flagship(**over):
+    """The train phase's flagship configuration (random weights from SEED)."""
+    from hpcs_torch.models import ModelConfig
+
+    return ModelConfig(num_class=50, num_categories=CATEGORIES, eucl_dim=EUCL, hyp_dim=HYP, k=K,
+                       t_per_anchor=50, temperature=0.05, lr=0.005, **over)
+
+
+def _synthetic(b, n, categories=8, seed=5):
+    """b synthetic clouds of n points, 6 parts each; 8 categories keep the
+    labels (category * 6 + part) under the flagship's 50 classes."""
+    from hpcs_torch.data import SyntheticPartDataset
+
+    p, c, seg = SyntheticPartDataset(b, n, categories, parts_per_object=6, seed=seed).batch(0, b)
+    return {"points": p, "category": c, "labels": seg}
+
+
+def _counts(reset=False):
+    """The kernels' launch counts in this process (zeroed with reset)."""
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+
+    out = {"knn": KN.knn.launches, "knn_wide": KN.knn.wide_launches,
+           "edgeconv": E.edgeconv_infer.launches}
+    if reset:
+        KN.knn.launches = KN.knn.wide_launches = E.edgeconv_infer.launches = 0
+    return out
+
+
+def _timed_steps(step, batch, gen, system, warmup=PAR_WARMUP):
+    """warmup + PAR_TIMED calls of step(batch, gen): (logs of each as
+    floats, host ms of each, each ending in a synchronize)."""
+    logs, ms = [], []
+    for _ in range(warmup + PAR_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logs.append({k: float(v) for k, v in step(batch, gen).items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    if not all(np.isfinite(v) for lg in logs for v in lg.values()):
+        fail("parallel: non-finite losses")
+    if not all(bool(torch.isfinite(p).all()) for p in system.net.parameters()):
+        fail("parallel: non-finite parameters")
+    return logs, ms
+
+
+def _split_ms(system, batch, gen, reduce):
+    """PAR_TIMED training steps of `system` in parts, each part ending in a
+    synchronize: the median host ms of the gradients (grads_and_logs), of
+    the mean all-reduce (data_parallel.all_reduce_step over the default
+    group, with `reduce`: the data-parallel step's) and of the update."""
+    from hpcs_torch.parallel.data_parallel import all_reduce_step
+
+    parts = {"grads": [], "all_reduce": [], "update": []}
+    for _ in range(PAR_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = system.grads_and_logs(batch, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if reduce:
+            all_reduce_step(system, logs)
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        system.apply_gradients()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, ms in (("grads", t1 - t0), ("all_reduce", t2 - t1), ("update", t3 - t2)):
+            parts[name].append(ms * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items() if reduce or k != "all_reduce"}
+
+
+def _card_vs_card(got, runs):
+    """The card-vs-card rule: each float entry of state_dict `got` within
+    FACTOR S of the reference step's first run, S the
+    largest entry by which its two runs (`runs`, two state_dicts) differ:
+    the card's backward is not ordered run to run (cuBLAS's weight
+    gradients), so one run of a step lies up to S from another; S is
+    taken over the whole state, since any one entry may agree in two runs
+    by chance.  Returns the worst entry as [share of its bound, name] and S."""
+    ref = runs[0]
+    names = [k for k, v in ref.items() if v.is_floating_point()]
+    spread = max(float((runs[1][k].double() - ref[k].double()).abs().max()) for k in names)
+    worst = [0.0, ""]
+    for name in names:
+        gap = (got[name].double() - ref[name].double()).abs()
+        share = float(gap.max()) / max(FACTOR * spread, 1e-300) if gap.max() > 0 else 0.0
+        if share > worst[0]:
+            worst = [share, name]
+        if share > 1.0:
+            fail(f"parallel: {name} {float(gap.max()):.3e} from the reference step, whose two "
+                 f"runs differ by up to {spread:.3e}")
+    return worst, spread
+
+
+def _parallel_nccl():
+    """(a) The data-parallel step at world size 1 over NCCL against the
+    single-device step from the same state and generator, timed whole and
+    in parts beside the single-device step's parts."""
+    import copy
+
+    import torch.distributed as dist
+
+    from hpcs_torch.models import HypHCSystem
+    from hpcs_torch.parallel import collectives, make_data_parallel_train_step
+    from hpcs_torch.parallel.data_parallel import all_reduce_step
+
+    batch = _synthetic(TRAIN_B, N)
+    initial = HypHCSystem(_flagship(), generator=torch.Generator().manual_seed(SEED))
+    runs, single_ms, first_logs = [], [], []
+    for _ in range(2):
+        single = copy.deepcopy(initial)
+        single_gen = torch.Generator(device=single.device).manual_seed(SEED)
+        logs, ms = _timed_steps(single.train_step, batch, single_gen, single)
+        runs.append({k: v.clone() for k, v in single.net.state_dict().items()})
+        single_ms += ms[PAR_WARMUP:]
+        first_logs.append(logs[0])
+    system = copy.deepcopy(initial)
+    step = make_data_parallel_train_step(system)
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    real, identity = collectives.mean_all_reduce_, []
+
+    def checked(tensors, group=None):  # at world size 1 the mean is the identity
+        before = [t.clone() for t in tensors]
+        real(tensors, group)
+        identity.append(all(torch.equal(a, b) for a, b in zip(before, tensors)))
+        return tensors
+
+    # the first warm-up step checks the identity (its clones and compares
+    # are outside the timed steps); the others run the real collective
+    collectives.mean_all_reduce_ = checked
+    try:
+        _counts(reset=True)
+        first = {k: float(v) for k, v in step(batch, gen).items()}
+    finally:
+        collectives.mean_all_reduce_ = real
+    if identity != [True]:
+        fail(f"parallel: the mean all-reduce at world size 1 changed a tensor ({identity})")
+    logs, ms = _timed_steps(step, batch, gen, system, warmup=PAR_WARMUP - 1)
+    launches = _counts()
+    logs = [first] + logs
+    reproducible = first_logs[0] == first_logs[1]  # the forward, run to run
+    if reproducible and logs[0] != first_logs[0]:
+        fail(f"parallel: the world-size-1 step's first logs {logs[0]} differ from the "
+             f"single-device step's {first_logs[0]}")
+    worst, spread = _card_vs_card(system.net.state_dict(), runs)
+    reduce_logs = {k: torch.tensor(v, device=system.device) for k, v in logs[-1].items()}
+    allreduce = cuda_ms(lambda: all_reduce_step(system, reduce_logs), 20)
+    split = {"data_parallel": _split_ms(system, batch, gen, reduce=True),
+             "single_device": _split_ms(single, batch, single_gen, reduce=False)}
+    return dict(backend=dist.get_backend(), world=dist.get_world_size(), launches=launches,
+                step_ms_median=float(np.median(ms[PAR_WARMUP - 1:])), step_ms_all=ms,
+                single_device_step_ms_median=float(np.median(single_ms)),
+                all_reduce_ms_per_step=allreduce, step_split_ms=split,
+                forward_reproducible=reproducible, all_reduce_identity_steps=len(identity),
+                first_step_logs_equal=logs[0] == first_logs[0],
+                worst_vs_single_device=worst, single_device_spread=spread)
+
+
+def _parallel_gloo():
+    """(b) 2 ranks sharing the card over gloo: the small step against the
+    CPU port's 2-rank step, the flagship step timed and replicated; (c) the
+    sharded test_step; (d) the point-sharded forward on a long cloud and the
+    point-sharded training step."""
+    import torch.distributed as dist
+
+    from hpcs_torch.models import HypHCSystem, decode_vector_for_batch
+    from hpcs_torch.models.base import decode_batch
+    from hpcs_torch.parallel import (collectives, make_data_parallel_test_step,
+                                     make_data_parallel_train_step, make_mesh, make_mesh_2d,
+                                     make_point_sharded_forward, make_point_sharded_train_step,
+                                     shard_batch, shard_points_batch)
+    import copy
+
+    from hpcs_torch.nn.backbones import vn_dgcnn
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.parallel.data_parallel import all_reduce_step, shard_seed
+    from hpcs_torch.parallel.point_parallel import PointShard
+    from hpcs_torch.testing import (FLOAT64_WITNESS, GRAD_FLOOR, check_train_step_card_vs_cpu,
+                                    float64_train_step)
+
+    rank, out, launches = dist.get_rank(), {"backend": dist.get_backend()}, {}
+    mesh = make_mesh()
+
+    # (b) the small step, B=2, N=256, against the CPU port's 2-rank step
+    small = HypHCSystem(_flagship(dropout=0.0, train_rotation="none"),
+                        generator=torch.Generator().manual_seed(SEED))
+    t = time.perf_counter()
+    out["vs_cpu_b2_n256"] = check_train_step_card_vs_cpu(
+        small, shard_batch(mesh, _synthetic(2, 256)), seed=SEED + rank,
+        group=mesh.get_group())
+    out["vs_cpu_seconds"] = time.perf_counter() - t
+
+    # (b) the flagship step, B=8 (4 a rank), N=1024
+    system = HypHCSystem(_flagship(), generator=torch.Generator().manual_seed(SEED))
+    step = make_data_parallel_train_step(system, mesh=mesh)
+    gen = torch.Generator(device=system.device).manual_seed(shard_seed(SEED, rank))
+    _counts(reset=True)
+    logs, ms = _timed_steps(step, _synthetic(TRAIN_B, N), gen, system)
+    launches["train"] = _counts()
+    flat = torch.cat([p.detach().reshape(-1) for p in system.net.parameters()])
+    copies = collectives.gather_slots(flat).reshape(2, -1)
+    if not torch.equal(copies[0], copies[1]):
+        fail("parallel: the 2-rank step left the ranks' parameters apart")
+    reduce_logs = {k: torch.tensor(v, device=system.device) for k, v in logs[-1].items()}
+    out.update(step_ms_median=float(np.median(ms[PAR_WARMUP:])), step_ms_all=ms,
+               loss_trace=[lg["total_loss"] for lg in logs], replicated_bit_for_bit=True,
+               all_reduce_ms_per_step=cuda_ms(lambda: all_reduce_step(system, reduce_logs), 20))
+
+    # (c) the sharded test_step, 8 flagship objects a rank
+    batch = _synthetic(2 * PAR_TEST_B, N, seed=6)
+    tester = make_data_parallel_test_step(system, mesh=mesh)
+    _counts(reset=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    test_logs, extras = tester(batch, torch.Generator(device=system.device).manual_seed(
+        shard_seed(SEED, rank)))
+    torch.cuda.synchronize()
+    out["test_step_ms"] = (time.perf_counter() - t) * 1e3
+    launches["test_step"] = _counts()
+    labels = torch.as_tensor(batch["labels"], device=system.device)
+    pred, best_k, best_score, Z = decode_batch(extras["x_poincare"], labels, system.net.scale[0],
+                                               system.cfg.num_class)
+    for name, got, want in (("linkage", extras["linkage"], Z), ("best_k", extras["best_k"], best_k),
+                            ("best_score", extras["best_score"], best_score),
+                            ("pred", extras["pred"], pred)):
+        if not torch.equal(got, want):
+            fail(f"parallel: the sharded test_step's {name} differs from the single-process "
+                 "decode of its embeddings")
+    out["test_score"] = float(test_logs["score"])
+
+    # (d) the point-sharded eval forward, B=2, N=4096, over the 2 ranks
+    points_mesh = make_mesh_2d(1, 2)
+    long = _synthetic(2, PAR_LONG_N, seed=7)
+    part = shard_points_batch(points_mesh, long)
+    forward = make_point_sharded_forward(system, points_mesh)
+    dv = decode_vector_for_batch(system.cfg, part)
+    _counts(reset=True)
+    _, x_p = forward(part["points"], dv)
+    launches["point_forward"] = _counts()
+    gathered = collectives.gather_slots(x_p, 1)
+    _, want = system.embed(long["points"], decode_vector_for_batch(system.cfg, long))
+    err = (gathered - want).abs()
+    if not bool((err <= 1e-4 + 1e-3 * want.abs()).all()):
+        fail(f"parallel: the point-sharded forward is {float(err.max()):.3e} from the unsharded")
+    out.update(point_forward_max_abs_err=float(err.max()),
+               point_forward_ms=host_ms(lambda: forward(part["points"], dv), 5),
+               unsharded_forward_ms=host_ms(lambda: system.embed(
+                   long["points"], decode_vector_for_batch(system.cfg, long)), 5))
+
+    # (d) the point-sharded training step, B=2, N=256 (one generator seed on
+    # every rank): in fp32 its loss against the unsharded step's and its
+    # ranks equal; in float64 (dropout 0, no rotation, knn_plain's graphs:
+    # B1 takes no float64) its logs and gradients against the unsharded
+    # float64 step's, within testing.FLOAT64_WITNESS of each leaf's scale
+    plain = HypHCSystem(_flagship(), generator=torch.Generator().manual_seed(SEED))
+    small_batch = _synthetic(2, 256)
+    ref_logs = copy.deepcopy(plain).train_step(
+        small_batch, torch.Generator(device=plain.device).manual_seed(SEED))
+    step = make_point_sharded_train_step(plain, points_mesh)
+    part = shard_points_batch(points_mesh, small_batch)
+    _counts(reset=True)
+    sharded_logs = step(part, torch.Generator(device=plain.device).manual_seed(SEED))
+    launches["point_train"] = _counts()
+    gap = abs(float(sharded_logs["total_loss"]) / float(ref_logs["total_loss"]) - 1)
+    if gap > 2e-5:
+        fail(f"parallel: the point-sharded step's loss is {gap:.3e} from the unsharded")
+    flat = torch.cat([p.detach().reshape(-1) for p in plain.net.parameters()])
+    if not torch.equal(*collectives.gather_slots(flat).reshape(2, -1)):
+        fail("parallel: the point-sharded step left the ranks' parameters apart")
+    plain64 = HypHCSystem(_flagship(dropout=0.0, train_rotation="none"),
+                          generator=torch.Generator().manual_seed(SEED))
+    real_knn, vn_dgcnn.knn = vn_dgcnn.knn, KN.knn_plain
+    try:
+        logs64, grads64, _ = float64_train_step(plain64, small_batch, None, plain64.device)
+        got_logs, got_grads, _ = float64_train_step(plain64, part, None, plain64.device,
+                                                    shard=PointShard(points_mesh))
+    finally:
+        vn_dgcnn.knn = real_knn
+    top = max(float(np.abs(g).max()) for g in grads64.values())
+    worst = max(abs(got_logs[k] / v - 1) for k, v in logs64.items())
+    worst_grad = max(float(np.abs(got_grads[k] - g).max()) / max(float(np.abs(g).max()),
+                                                                 GRAD_FLOOR * top)
+                     for k, g in grads64.items())
+    if max(worst, worst_grad) > FLOAT64_WITNESS:
+        fail(f"parallel: the point-sharded float64 step's logs {worst:.3e} and gradients "
+             f"{worst_grad:.3e} from the unsharded float64 step's")
+    out.update(point_train_loss_rel_err=gap, point_train_float64_logs_rel_err=worst,
+               point_train_float64_grad_share=worst_grad, launches=launches)
+    return out
+
+
+def parallel_phase(card):
+    """hpcs_torch.parallel on the card: (a) one NCCL rank, (b)-(d) two gloo
+    ranks sharing the card (NCCL refuses two ranks on one device)."""
+    import argparse as _argparse
+
+    from hpcs_torch import cli
+    from hpcs_torch.parallel.multihost import run_ranks
+
+    t0 = time.time()
+    args = cli.add_train_args(_argparse.ArgumentParser()).parse_args(
+        ["--data_parallel", str(torch.cuda.device_count() + 1), "--batch", "64"])
+    try:
+        cli.data_parallel_size(args)
+        fail("parallel: --data_parallel beyond the visible GPUs did not raise")
+    except ValueError as e:
+        refused = str(e)
+    one = run_ranks(_parallel_nccl, 1, backend="nccl", device_ids=[0])[0]
+    two = run_ranks(_parallel_gloo, 2, backend="gloo", device_ids=[0, 0])
+    launches = {k: one["launches"][k] + sum(sum(part[k] for part in r["launches"].values())
+                                            for r in two)
+                for k in ("knn", "knn_wide", "edgeconv")}
+    want = {"train": {"knn": 3 * (PAR_WARMUP + PAR_TIMED), "knn_wide": 0, "edgeconv": 0},
+            "test_step": {"knn": 3, "knn_wide": 0, "edgeconv": 3},
+            "point_forward": {"knn": 3, "knn_wide": 0, "edgeconv": 3},
+            "point_train": {"knn": 3, "knn_wide": 0, "edgeconv": 0}}
+    if any(r["launches"] != want for r in two) or one["launches"] != want["train"]:
+        fail(f"parallel: launch counts {[r['launches'] for r in two]} (ranks), "
+             f"{one['launches']} (world size 1), expected {want} a rank")
+    r0 = two[0]
+    out = dict(B=TRAIN_B, N=N, k=K, eucl=EUCL, hyp=HYP, launches=launches,
+               backends={"world_size_1": one["backend"], "world_size_2": r0["backend"]},
+               step_ms={"world_size_1": one["step_ms_median"], "world_size_2": r0["step_ms_median"],
+                        "single_device": one["single_device_step_ms_median"]},
+               all_reduce_ms_per_step={"world_size_1": one["all_reduce_ms_per_step"],
+                                       "world_size_2": r0["all_reduce_ms_per_step"]},
+               step_split_ms_world_size_1=one["step_split_ms"],
+               point_forward_ms={"sharded_2_ranks": r0["point_forward_ms"],
+                                 "unsharded": r0["unsharded_forward_ms"], "B": 2,
+                                 "N": PAR_LONG_N},
+               world_size_1=one, ranks=two, refused_beyond_visible=refused,
+               rule=f"world size 1: every entry within {FACTOR} S, S the largest entry by "
+                    "which two single-device runs differ, the all-reduce the identity on the "
+                    "first step; "
+                    "point-sharded step: loss rtol 2e-5, in float64 logs and gradients within "
+                    "FLOAT64_WITNESS; point-sharded forward atol 1e-4 / rtol 1e-3",
+               seconds=time.time() - t0, card=card)
+    emit("parallel", **out)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every phase's results to this file")
@@ -2107,6 +2482,7 @@ def main():
         train_peak_memory_mb=train["peak_memory_mb"]))
     imp = import_phase(system, cfg, batches, card)
     trained = trained_phase(card)
+    par = parallel_phase(card)
 
     # 10. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
@@ -2123,7 +2499,7 @@ def main():
              launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
              + train["fit_launches"]["knn"] + entry_launches["knn"]
              + backbones["launches"]["knn"] + imp["launches"]["knn"]
-             + trained["launches_fp32"]["knn"],
+             + trained["launches_fp32"]["knn"] + par["launches"]["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
@@ -2132,7 +2508,8 @@ def main():
              launches=launches["knn_wide"] + decode["launches"]["knn_wide"]
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
-             + imp["launches"]["knn_wide"] + trained["launches"]["knn_wide"],
+             + imp["launches"]["knn_wide"] + trained["launches"]["knn_wide"]
+             + par["launches"]["knn_wide"],
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
@@ -2140,7 +2517,8 @@ def main():
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
-             + imp["launches"]["edgeconv"] + trained["launches_fp32"]["edgeconv"],
+             + imp["launches"]["edgeconv"] + trained["launches_fp32"]["edgeconv"]
+             + par["launches"]["edgeconv"],
              max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),

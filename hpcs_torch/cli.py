@@ -9,7 +9,8 @@ default and the flag turns them off, and CosFace is the metric loss unless
 `cpu`.  The flags whose path is not ported yet raise NotImplementedError
 naming their ROADMAP item: `refuse_unported` for the flags that are not
 ModelConfig fields, HypHCSystem for --layout vc.  --model takes each of
-the JAX package's four backbones; --bf16 computes VN-DGCNN in bf16.
+the JAX package's four backbones; --bf16 computes VN-DGCNN in bf16;
+--data_parallel N trains on N ranks (`data_parallel_size`).
 
 Data roots are relative to the working directory, as in the JAX package:
 data/ShapeNet/raw, data/PartNet/sem_seg_h5 and
@@ -17,6 +18,8 @@ data/PartNet/after_merging_label_ids.
 """
 import json
 import os.path as osp
+
+import torch
 
 from .data import DataLoader, PartNetDataset, ShapeNetDataset, SyntheticPartDataset
 from .data.hierarchy import get_hierarchy_list
@@ -69,7 +72,8 @@ def add_train_args(parser):
     parser.add_argument('--num_triplets', type=int, default=0,
                         help='static triplet budget per step (0 = t_per_anchor * points)')
     parser.add_argument('--data_parallel', type=int, default=0,
-                        help='devices to shard the batch over (0 and 1: one; more is not ported: ROADMAP A11)')
+                        help='devices to shard the batch over (0 = all visible GPUs; with '
+                             '--accelerator cpu, N gloo processes)')
     parser.add_argument('--profile', type=str, default='',
                         help='write a profiler trace to this directory (not ported: ROADMAP A12b)')
     parser.add_argument('--debug_nans', action='store_true',
@@ -96,7 +100,6 @@ def refuse_unported(args):
     """Raise NotImplementedError, naming the ROADMAP item, for a flag whose
     path the port does not have yet (train's flags or infer's)."""
     unported = [
-        (getattr(args, 'data_parallel', 0) > 1, '--data_parallel > 1: ROADMAP A11'),
         (getattr(args, 'profile', ''), '--profile: ROADMAP A12b'),
         (getattr(args, 'debug_nans', False), '--debug_nans: ROADMAP A12b'),
         (args.plot_inference, '--plot_inference (plots): ROADMAP A12b'),
@@ -104,6 +107,27 @@ def refuse_unported(args):
     for given, what in unported:
         if given:
             raise NotImplementedError(f"not ported yet: {what}")
+
+
+def data_parallel_size(args):
+    """The number of ranks --data_parallel trains on, as the JAX package's
+    train.py reads the flag: 0 means every visible GPU (one process with
+    --accelerator cpu), N > 1 means N ranks, one process each (gloo ranks
+    on the CPU).  More GPUs than are visible raise, naming both counts.
+    When the batch does not split over the ranks, the JAX package's warning
+    is printed and training runs on one device (1)."""
+    n = args.data_parallel
+    on_cpu = args.accelerator == "cpu"
+    if n == 0:
+        n = 1 if on_cpu else torch.cuda.device_count()
+    if n > 1 and not on_cpu and n > torch.cuda.device_count():
+        raise ValueError(f"--data_parallel {n}: {torch.cuda.device_count()} GPUs are visible; "
+                         "one process per GPU needs as many")
+    if n > 1 and args.batch % n:
+        print(f"warning: --data_parallel {n} ignored — batch {args.batch} is not divisible by "
+              f"{n}; training single-device", flush=True)
+        return 1
+    return max(n, 1)
 
 
 def configure_data(args):

@@ -17,6 +17,7 @@ from ..device import resolve_device
 from ..loss import LossConfig, compute_losses, get_logits, hierarchy_sum_matrices
 from ..loss.hyphc import anneal_temperature
 from ..nn.backbones import make_backbone
+from ..nn import point_shard
 from ..nn.embed import make_embedder
 from ..optim import FusedRiemannianAdam, plateau_init, plateau_update
 from ..utils.jax_params import ball_dim
@@ -128,6 +129,11 @@ class HypHCSystem:
     statistics, the Riemannian Adam moments (`optimizer`, the packed form
     `FusedRiemannianAdam`, as the JAX package's system), the step count,
     the plateau schedule and the temperature.
+
+    In a point-sharded call (hpcs_torch.nn.point_shard.current(), a
+    hpcs_torch.parallel.point_parallel.PointShard) a batch holds this
+    rank's points only, the rotations are drawn for the whole batch, and the
+    losses see every rank's embeddings.
     """
 
     def __init__(self, cfg: ModelConfig, device=None, generator=None):
@@ -157,7 +163,9 @@ class HypHCSystem:
 
     def _inputs(self, batch, generator, rotation):
         points = torch.as_tensor(batch["points"], dtype=torch.float32, device=self.device)
-        points = augment(generator, points, rotation).contiguous()
+        shard = point_shard.current()
+        rotate = augment if shard is None else shard.augment
+        points = rotate(generator, points, rotation).contiguous()
         dv = torch.as_tensor(decode_vector_for_batch(self.cfg, batch), dtype=torch.float32,
                              device=self.device)
         labels = torch.as_tensor(batch["labels"], dtype=torch.int64, device=self.device)
@@ -204,6 +212,9 @@ class HypHCSystem:
         points, dv, labels = self._inputs(batch, generator, self.cfg.train_rotation)
         self.optimizer.zero_grad(set_to_none=True)
         _, x_p = self.net(points, dv, generator=generator)
+        shard = point_shard.current()
+        if shard is not None:
+            x_p, labels = shard.whole_batch(x_p, labels)
         losses, metrics = self._losses_and_metrics(generator, x_p, labels)
         total = losses["loss_metric"] + losses["loss_hyp"]
         total.backward()

@@ -25,7 +25,15 @@ features (B2 with bf16-rounded weights, fp32 inside, its output rounded to
 bf16); the head's conv7-conv10 multiply in bf16 with an fp32 BatchNorm and
 round each block's output to bf16; conv11 and the output are fp32 (the
 input's dtype).  The parameters stay fp32.
+
+In a point-sharded call (hpcs_torch.nn.point_shard.current(), a
+hpcs_torch.parallel.point_parallel.PointShard) this rank holds some of the
+points of some of the clouds, and the EdgeConv stages, the mean and max
+over the points, the batch statistics and the dropout masks go through the
+shard.  Without one the forward is the single-device one.
 """
+import contextlib
+
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -33,6 +41,7 @@ from torch.nn import functional as F
 from ...ops.edgeconv import edgeconv_infer, fold_bn, graph_feature_vn
 from ...ops.knn import knn
 from ...ops.vn_math import upcast
+from .. import point_shard
 from ..vn.layers import (BatchNorm, VNLinearLeakyReLU, VNMaxPool, VNStdFeature, invariant_project,
                          mean_pool)
 
@@ -129,6 +138,7 @@ class VNDGCNNPartSeg(nn.Module):
         generator: the torch.Generator that draws the dropout masks after
         conv8 and conv9 (training mode with dropout > 0 only).
         """
+        shard = point_shard.current()
         B, N, _ = points.shape
         out_dtype = points.dtype
         dtype = self.compute_dtype or out_dtype
@@ -138,7 +148,9 @@ class VNDGCNNPartSeg(nn.Module):
             return knn_graph(metric, self.k, idx_override, i)
 
         x = points[:, :, None, :].contiguous()
-        if self.training or self.pooling == "max":
+        if shard is not None:
+            x1, x2, x3 = shard.edge_stages(self, x)
+        elif self.training or self.pooling == "max":
             pools = (self.pool1, self.pool2, self.pool3) if self.pooling == "max" else (None,) * 3
             x1 = self._edge_stage(x, graph(0, points), self.conv1, self.conv2, pool=pools[0])
             x2 = self._edge_stage(x1, graph(1, x1), self.conv3, self.conv4, pool=pools[1])
@@ -150,20 +162,23 @@ class VNDGCNNPartSeg(nn.Module):
         x123 = torch.cat([x1, x2, x3], dim=-2)  # [B, N, 63, 3]
 
         x = self.conv6(x123)  # [B, N, 341, 3]
-        x = torch.cat([x, mean_pool(x, dim=1)[:, None].expand_as(x)], dim=-2)  # 682
+        x_mean = mean_pool(x, dim=1) if shard is None else shard.mean_over_points(x)
+        x = torch.cat([x, x_mean[:, None].expand_as(x)], dim=-2)  # 682
 
         x_std, z0 = self.std_feature(x)
         x_std = x_std.reshape(B, N, -1)  # [B, N, 2046], channel-major
         x123_inv = invariant_project(x123, z0).reshape(B, N, -1)  # [B, N, 189]
-        x_global = x_std.max(dim=1).values  # [B, 2046]
-        l = _head(self.conv7, label[:, :, None], dtype)[:, :, 0]  # [B, 64]
+        x_global = x_std.max(dim=1).values if shard is None else shard.max_over_points(x_std)
+        with contextlib.nullcontext() if shard is None else point_shard.use(shard.objects()):
+            l = _head(self.conv7, label[:, :, None], dtype)[:, :, 0]  # [B, 64]
 
         fused = torch.cat([x_global, l], dim=-1)[:, None, :].expand(B, N, -1)
         h = torch.cat([fused, x123_inv], dim=-1).transpose(1, 2)  # [B, 2299, N]
         p = self.dropout if self.training else 0.0
         if p and generator is None:
             raise ValueError("the training forward draws dropout masks: pass a generator")
-        h = dropout(_head(self.conv8, h, dtype), p, generator)
-        h = dropout(_head(self.conv9, h, dtype), p, generator)
+        drop = dropout if shard is None else shard.dropout
+        h = drop(_head(self.conv8, h, dtype), p, generator)
+        h = drop(_head(self.conv9, h, dtype), p, generator)
         h = _head(self.conv11, _head(self.conv10, h, dtype), out_dtype)
         return h.transpose(1, 2)

@@ -9,6 +9,8 @@ Parameter names follow the reference's state_dict keys (`map_to_feat`,
 BatchNorm follows flax's nn.BatchNorm, not torch's (`BatchNorm`): in
 training it normalises by the batch mean and the biased variance
 E[x^2] - E[x]^2 and moves the running statistics by 0.1 of the batch's.
+In a point-sharded call (hpcs_torch.nn.point_shard) those E[x] and
+E[x^2] come from the shard, over every rank's rows.
 
 bf16 features (VN-DGCNN with ModelConfig.bf16) follow the JAX package:
 channel mixes in bf16 with fp32 sums (`channel_mix`), the norm BatchNorm
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from ...ops.vn_math import BN_EPS, EPS, NEGATIVE_SLOPE, channel_mix, upcast, vn_leaky_relu
+from .. import point_shard
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -43,8 +46,12 @@ class BatchNorm(nn.BatchNorm1d):
             mean, var = self.running_mean, self.running_var
         else:
             axes = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
-            mean = torch.mean(x, dim=axes)
-            var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
+            shard = point_shard.current()
+            if shard is None:
+                mean, mean_sq = torch.mean(x, dim=axes), torch.mean(x * x, dim=axes)
+            else:
+                mean, mean_sq = shard.moments(x, axes)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)

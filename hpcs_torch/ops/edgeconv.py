@@ -26,16 +26,19 @@ KERNEL_C_OUT = 21
 WORKSPACE_ROW = 128  # floats per point in each of the kernel's two workspace arrays
 
 
-def graph_feature_vn(x, k, idx=None):
+def graph_feature_vn(x, k, idx=None, table=None):
     """Vector-neuron edge features [B, N, K, 2C, 3] of x [B, N, C, 3].
 
     Without `idx` the kNN graph is built on the features flattened to C*3
-    scalars in channel-major order.  Returns (edge features, idx).
+    scalars in channel-major order.  `table` [B, M, C, 3], when given, is
+    what idx indexes and the neighbours come from (x's rows being centres
+    only: the point-sharded stage's local rows against the gathered cloud).
+    Returns (edge features, idx).
     """
     B, N, C, _ = x.shape
     if idx is None:
         idx = knn(x.reshape(B, N, C * 3).contiguous(), k)
-    neighbors = gather_neighbors(x, idx)
+    neighbors = gather_neighbors(x if table is None else table, idx)
     center = x[:, :, None].expand_as(neighbors)
     return torch.cat([neighbors - center, center], dim=-2), idx
 

@@ -225,6 +225,56 @@ def knn_queue_insertions(x, k, row_step=1):
     return total / (s.shape[0] * s.shape[1])
 
 
+NEAR_TIE = 1e-3  # |sim(a,p) - sim(a,n)| below which two fp32 'easy' masks may differ
+
+
+class GivenTriplets:
+    """Triplets and an 'easy' mask given from outside (the JAX package's
+    draws, say), served in place of the port's sampler and filter by
+    `install_given_triplets`.  `set` takes numpy arrays: anchor, positive,
+    negative [T] (flat indices), valid [T] (the sampler's mask), mask [T]
+    (the filtered mask to serve) and, where the port's own filtered mask
+    may differ from `mask` only at near-ties, the margins
+    sim(a, p) - sim(a, n) [T] those near-ties are read from (None: no
+    check; NEAR_TIE inf: none either).  Each `set` serves until the next."""
+
+    NEAR_TIE = NEAR_TIE
+
+    def set(self, anchor, positive, negative, valid, mask, margins=None):
+        from .miner import Triplets
+
+        self.trip = Triplets(*(torch.from_numpy(np.array(a, np.int64))
+                               for a in (anchor, positive, negative)),
+                             torch.from_numpy(np.array(valid, np.float32)))
+        self.mask, self.margins = np.array(mask, np.float32), margins
+        return self
+
+
+def install_given_triplets(given, setattr=setattr):
+    """Patch hpcs_torch.loss.joint so that its sampler returns given.trip
+    and its 'easy' filter given.mask, after checking (fp32 embeddings, with
+    given.margins) that the port's own mask differs from it only where
+    |margin| < given.NEAR_TIE.  `setattr` makes the patches: the builtin's for
+    good (a rank process of a test), a pytest monkeypatch's for one test."""
+    from .loss import joint
+
+    real_filter = joint.margin_filter
+
+    def margin_filter(emb, trip, margin=0.0, type_of_triplets="easy"):
+        if emb.dtype == torch.float32 and given.margins is not None:
+            got = real_filter(emb, trip, margin, type_of_triplets).mask.cpu().numpy()
+            flipped = got != given.mask
+            if not (np.abs(given.margins[flipped]) < given.NEAR_TIE).all():
+                raise AssertionError("the port's 'easy' mask differs from the given one "
+                                     "beyond near-ties")
+        return trip._replace(mask=torch.from_numpy(given.mask).to(emb.device))
+
+    setattr(joint, "sample_balanced_triplets",
+            lambda generator, labels, *a, **k: type(given.trip)(
+                *(t.to(labels.device) for t in given.trip)))
+    setattr(joint, "margin_filter", margin_filter)
+
+
 def grad_array(p):
     """p's gradient as a float64 numpy array, zeros where the loss does not
     reach p (a VNMaxPool's direction map: its argmax has no gradient, where
@@ -232,13 +282,20 @@ def grad_array(p):
     return (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().double().numpy()
 
 
-def float64_train_step(system, batch, graphs, device="cpu"):
+def float64_train_step(system, batch, graphs, device="cpu", shard=None, group=None):
     """One training step of a float64 copy of `system` (on `device`, in
     training mode, on the kNN graphs `graphs`, without rotation or
     dropout): its logs {"total_loss", "loss_metric", "loss_hyp"}, its
     gradients by parameter name and its new state_dict, as numpy.  The
-    triplets are what the loss's sampler gives."""
+    triplets are what the loss's sampler gives.  graphs None: the step's
+    own (`knn` on its float64 features).  shard: a point_parallel.PointShard,
+    for the point-sharded step on this rank's part of the batch (its own
+    graphs).  group: a process group, for the data-parallel step on this
+    rank's shard.  Either way the gradients, logs and running statistics
+    are the mean over the ranks (data_parallel.all_reduce_step)."""
     from .models import decode_vector_for_batch
+    from .parallel.data_parallel import all_reduce_step
+    from .nn import point_shard
 
     sys64 = copy.deepcopy(system)
     sys64.optimizer.zero_grad(set_to_none=True)
@@ -249,13 +306,19 @@ def float64_train_step(system, batch, graphs, device="cpu"):
         st.update({k: v.to(device).double() for k, v in st.items() if torch.is_tensor(v)})
     pts = torch.as_tensor(batch["points"]).to(device).double()
     dv = torch.as_tensor(decode_vector_for_batch(system.cfg, batch)).to(device).double()
-    _, x_p = net(pts, dv, idx_override=[g.to(device) for g in graphs])
     labels = torch.as_tensor(batch["labels"]).long().to(device)
+    with point_shard.use(shard):
+        _, x_p = net(pts, dv, idx_override=None if graphs is None else
+                     [g.to(device) for g in graphs])
+        if shard is not None:
+            x_p, labels = shard.whole_batch(x_p, labels)
     losses, _ = sys64._losses_and_metrics(torch.Generator(device=device), x_p, labels)
     total = losses["loss_metric"] + losses["loss_hyp"]
     total.backward()
-    logs = {"total_loss": float(total.detach()),
-            **{k: float(v.detach()) for k, v in losses.items()}}
+    logs = {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+    if shard is not None or group is not None:
+        logs = all_reduce_step(sys64, logs, group)
+    logs = {k: float(v) for k, v in logs.items()}
     grads = {name: grad_array(p) for name, p in net.named_parameters()}
     sys64.apply_gradients()
     return logs, grads, {k: v.cpu().numpy() for k, v in net.state_dict().items()}
@@ -285,7 +348,6 @@ def permute_step_inputs(batch, graphs, triplets, perm):
                                        negative=flat[t.negative.cpu()])
 
 
-NEAR_TIE = 1e-3  # |sim(a,p) - sim(a,n)| below which two fp32 'easy' masks may differ
 ORDERS = 4  # point orders besides the given one in which the CPU's fp32 step is run
 ORDERS_FLOAT64 = 2  # of which the CPU's float64 step is also run in the first ones
 FLOAT64_WITNESS = 1e-8  # card vs CPU float64 step: gradients / leaf's largest entry, logs rel.
@@ -294,10 +356,14 @@ GRAD_FLOOR = 1e-6  # a leaf's gradient scale: at least this share of the net's l
 UPDATE_ATOL, UPDATE_RTOL = 1e-6, 1e-5  # the card's optimizer step against the CPU's on its gradients
 
 
-def check_train_step_card_vs_cpu(system, batch, seed=0):
+def check_train_step_card_vs_cpu(system, batch, seed=0, group=None):
     """One train_step of `system` (on the card; any backbone) against the
     same step of its copy on the CPU, and both against the CPU copy's step
-    in float64.
+    in float64.  With `group` (a process group: gloo carries CPU and CUDA
+    tensors alike) every step is the data-parallel step on this rank's
+    shard `batch`: each one's gradients, logs and running statistics take
+    the mean over the group (data_parallel.all_reduce_step) before they are
+    compared, on every rank alike; each rank passes its own seed.
 
     The system's config must have dropout 0 and train_rotation 'none'.  The
     triplets are drawn once on the CPU (from `seed`) and given to both; the
@@ -359,6 +425,11 @@ def check_train_step_card_vs_cpu(system, batch, seed=0):
     from .miner import cosine_similarity01, sample_balanced_triplets
     from .models import HypHCSystem
     from .nn.backbones import vn_dgcnn
+    from .parallel.data_parallel import all_reduce_step
+
+    def step(sys_, b, generator):
+        logs = sys_.grads_and_logs(b, generator)
+        return logs if group is None else all_reduce_step(sys_, logs, group)
 
     cfg = system.cfg
     if cfg.dropout or cfg.train_rotation != "none":
@@ -402,11 +473,12 @@ def check_train_step_card_vs_cpu(system, batch, seed=0):
     try:
         joint.sample_balanced_triplets, joint.margin_filter = sampler, margin_filter
         vn_dgcnn.knn = card_knn
-        logs = system.grads_and_logs(batch, torch.Generator(device=system.device))
-        ref_logs, ref_grads, ref_sd = float64_train_step(cpu, batch, graphs)
-        card64_logs, card64_grads, _ = float64_train_step(before, batch, graphs, system.device)
+        logs = step(system, batch, torch.Generator(device=system.device))
+        ref_logs, ref_grads, ref_sd = float64_train_step(cpu, batch, graphs, group=group)
+        card64_logs, card64_grads, _ = float64_train_step(before, batch, graphs, system.device,
+                                                          group=group)
         vn_dgcnn.knn = given_graphs(graphs)
-        cpu_logs = cpu.grads_and_logs(batch, torch.Generator())
+        cpu_logs = step(cpu, batch, torch.Generator())
         perm_gen = torch.Generator().manual_seed(seed + 1)
         B, N = torch.as_tensor(batch["labels"]).shape
         for _ in range(ORDERS):
@@ -416,8 +488,9 @@ def check_train_step_card_vs_cpu(system, batch, seed=0):
             other = HypHCSystem(cfg, device="cpu")
             other.net.load_state_dict(initial)
             if len(reordered) < ORDERS_FLOAT64:  # float64's own noise
-                reordered64.append(float64_train_step(other, p_batch, p_graphs)[:2])
-            other_logs = other.grads_and_logs(p_batch, torch.Generator())
+                reordered64.append(float64_train_step(other, p_batch, p_graphs,
+                                                      group=group)[:2])
+            other_logs = step(other, p_batch, torch.Generator())
             other_grads = {n: grad_array(p) for n, p in other.net.named_parameters()}
             other.apply_gradients()
             reordered.append((other_logs, other_grads,

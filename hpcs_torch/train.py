@@ -11,6 +11,15 @@ untrained system or the one --resume restores.  --pretrained grafts a raw
 VN-DGCNN backbone checkpoint (--pretrained_path, or the reference's default
 paths) onto the fresh system first.
 
+--data_parallel N (0: every visible GPU; cli.data_parallel_size) trains on
+N ranks, one process each (torch.multiprocessing, spawn): NCCL on cuda:r,
+or gloo on the CPU with --accelerator cpu (the ranks share this process's
+intra-op threads).  Each rank runs `fit` with
+hpcs_torch.parallel's data-parallel step in lockstep; rank 0 writes the
+logs and checkpoints (the single-device format: `.infer` serves them as
+they are) and tests its final state on one device.  This process then
+loads final/ and returns it.
+
 Example, the flagship (ShapeNet-Part under data/ShapeNet/raw):
 
     python -m hpcs_torch.train --dataset shapenet --model vn_dgcnn_partseg \\
@@ -20,8 +29,11 @@ Example, the flagship (ShapeNet-Part under data/ShapeNet/raw):
 """
 import argparse
 import os
+import sys
 
-from .cli import add_train_args, configure
+import torch
+
+from .cli import add_train_args, configure, data_parallel_size
 from .trainer import fit, test
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.logging import MetricLogger
@@ -45,33 +57,83 @@ def graft_pretrained(system, path=""):
           + (" (conv11 head re-initialized: width mismatch)" if swapped else ""), flush=True)
 
 
-def main(argv=None):
-    """Run the CLI on `argv` (default sys.argv[1:]); returns (system, the
-    test results)."""
+def _parse(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_train_args(parser)
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def _run(args, make_step=None, lead=True):
+    """Configure, train (unless --infer) and test; the data-parallel ranks
+    run this with make_step(system) their step, rank 0 as `lead`, which
+    alone logs, writes and tests.  Returns (system, the test results or
+    None)."""
     system, train_loader, valid_loader, test_loader = configure(args)
     if args.pretrained:
         graft_pretrained(system, args.pretrained_path)
-
     run_name = f"{args.dataset}_{args.model}"
-    logger = MetricLogger(args.log, run_name, use_wandb=args.wandb == "online",
-                          wandb_mode=args.wandb, config=vars(args))
     ckpt_dir = os.path.join(args.log, run_name, "checkpoints")
+    logger = MetricLogger(args.log, run_name, use_wandb=args.wandb == "online",
+                          wandb_mode=args.wandb, config=vars(args)) if lead else None
     try:
+        step = make_step(system) if make_step is not None else None
         if args.infer:
             if args.resume:
                 restore_checkpoint(args.resume, system)
         else:
             fit(system, train_loader, valid_loader, epochs=args.epochs, patience=args.patience,
-                seed=args.seed, logger=logger, ckpt_dir=ckpt_dir, resume=args.resume or None)
+                seed=args.seed, logger=logger, ckpt_dir=ckpt_dir, resume=args.resume or None,
+                train_step_fn=step)
+            if not lead:
+                return system, None
             print("End Training", flush=True)
             save_checkpoint(os.path.join(ckpt_dir, "final"), system, system.cfg)
         results = test(system, test_loader, seed=args.seed,
                        limit_batches=None if args.infer else 10, logger=logger)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+    return system, results
+
+
+def _data_parallel_step(system):
+    """The rank's data-parallel step, the weights first made rank 0's."""
+    from .parallel import make_data_parallel_train_step, replicate
+
+    step = make_data_parallel_train_step(system)
+    replicate(step.mesh, system.net.state_dict())
+    return step
+
+
+def _rank_main(argv):
+    """One rank of a --data_parallel run: the test results on rank 0."""
+    import torch.distributed as dist
+
+    return _run(_parse(argv), _data_parallel_step, lead=dist.get_rank() == 0)[1]
+
+
+def main(argv=None):
+    """Run the CLI on `argv` (default sys.argv[1:]); returns (system, the
+    test results)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+    world = 1 if args.infer else data_parallel_size(args)
+    if world == 1:
+        system, results = _run(args)
+    else:
+        from .parallel.multihost import run_ranks
+
+        on_cpu = args.accelerator == "cpu"
+        print(f"data-parallel over {world} devices", flush=True)
+        # no deadline: a run takes as long as its epochs; a rank that dies
+        # ends the wait, and a collective that waits past its group's
+        # timeout fails its rank
+        results = run_ranks(_rank_main, world, args=(argv,), backend="gloo" if on_cpu else "nccl",
+                            device_ids=None if on_cpu else list(range(world)),
+                            threads=max(1, torch.get_num_threads() // world), timeout=None)[0]
+        system = configure(args)[0]
+        final = os.path.join(args.log, f"{args.dataset}_{args.model}", "checkpoints", "final")
+        restore_checkpoint(final, system)
     print({k: round(v, 4) for k, v in results.items()}, flush=True)
     return system, results
 

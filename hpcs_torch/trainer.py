@@ -7,6 +7,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.logging import MetricLogger
@@ -19,7 +20,7 @@ def _mean_logs(logs_list):
 
 
 def fit(system, train_loader, valid_loader, *, epochs, patience=50, seed=0, log_dir=None,
-        run_name="run", logger=None, ckpt_dir=None, resume=None, log=print):
+        run_name="run", logger=None, ckpt_dir=None, resume=None, train_step_fn=None, log=print):
     """Train with validation, the plateau LR, temperature annealing and
     early stopping; returns (state, best_val_loss).
 
@@ -47,18 +48,41 @@ def fit(system, train_loader, valid_loader, *, epochs, patience=50, seed=0, log_
     with the best val_loss, and the system is left in it; when no finite
     val_loss was seen (an empty valid loader, or NaN), it is the last state
     instead, not the untrained one.
+
+    `train_step_fn(batch, generator) -> logs` takes the place of
+    `system.train_step`.  A step that runs on several ranks has `shard`
+    (its rank's index, 0 the lead), `group` (its process group, None the
+    whole world) and `seed(seed)` (its rank's generator seed), as
+    hpcs_torch.parallel's data-parallel step, built on every rank, has;
+    `fit` then runs in lockstep on every rank: each rank draws from its
+    own generator, rank 0 alone validates and broadcasts its validation
+    means, so the plateau LR, the temperature, early stopping and the best
+    state are decided on the same numbers on every rank; only rank 0 logs
+    and writes checkpoints, and the other ranks wait for them at a barrier.
     """
-    generator = torch.Generator(device=system.device).manual_seed(seed)
-    own_logger = logger is None and log_dir is not None
+    ranked = hasattr(train_step_fn, "shard")
+    group = train_step_fn.group if ranked else None
+    lead = not ranked or train_step_fn.shard == 0  # validates, logs and writes
+    step_fn = train_step_fn or system.train_step
+    generator = torch.Generator(device=system.device).manual_seed(
+        train_step_fn.seed(seed) if ranked else seed)
+    if not lead:
+        logger, log = None, lambda line: None
+    own_logger = logger is None and log_dir is not None and lead
     if own_logger:
         logger = MetricLogger(log_dir, run_name)
     start_epoch = restore_checkpoint(resume, system)[0] if resume else 0
     best_val, best_state, bad_epochs = math.inf, None, 0
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
-        train_logs = [system.train_step(batch, generator) for batch in train_loader]
-        val_logs = [system.eval_step(batch, generator) for batch in valid_loader]
-        tl, vl = _mean_logs(train_logs), _mean_logs(val_logs)
+        train_logs = [step_fn(batch, generator) for batch in train_loader]
+        vl = _mean_logs([system.eval_step(batch, generator) for batch in valid_loader]) \
+            if lead else None
+        if ranked:
+            shared = [vl]
+            dist.broadcast_object_list(shared, src=0, group=group)
+            vl = shared[0]
+        tl = _mean_logs(train_logs)
         val_loss = vl.get("val_loss", math.inf)
         lr = system.epoch_end(epoch, val_loss)
         system.set_learning_rate(lr)
@@ -75,10 +99,12 @@ def fit(system, train_loader, valid_loader, *, epochs, patience=50, seed=0, log_
             best_val, best_state, bad_epochs = val_loss, system.state_dict(), 0
         else:
             bad_epochs += 1
-        if ckpt_dir:
+        if ckpt_dir and lead:
             if improved:
                 save_checkpoint(os.path.join(ckpt_dir, "best"), system, system.cfg, epoch + 1)
             save_checkpoint(os.path.join(ckpt_dir, "last"), system, system.cfg, epoch + 1)
+        if ckpt_dir and ranked:
+            dist.barrier(group)
         if bad_epochs >= patience:
             break
     if own_logger:

@@ -42,12 +42,18 @@ def rotate_cloud(points, R):
     return p[..., 0] + p[..., 1] + p[..., 2]
 
 
+def random_rotation(generator, batch, mode):
+    """The rotations [batch, 3, 3] of mode 'so3' or 'z'; None for 'none'."""
+    if mode == "so3":
+        return random_so3(generator, batch)
+    if mode == "z":
+        return random_z(generator, batch)
+    if mode == "none":
+        return None
+    raise ValueError(f"unknown rotation mode {mode!r}")
+
+
 def augment(generator, points, mode):
     """mode in {'so3', 'z', 'none'} (the train/test rotation flags)."""
-    if mode == "so3":
-        return rotate_cloud(points, random_so3(generator, points.shape[0]))
-    if mode == "z":
-        return rotate_cloud(points, random_z(generator, points.shape[0]))
-    if mode == "none":
-        return points
-    raise ValueError(f"unknown rotation mode {mode!r}")
+    R = random_rotation(generator, points.shape[0], mode)
+    return points if R is None else rotate_cloud(points, R)

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from hpcs_torch.testing import GivenTriplets, install_given_triplets
+
 
 def _first_vectorised_math_calls():
     """Make, and discard, the process's first multi-threaded calls of the
@@ -238,43 +240,53 @@ def load_opt_state(system, moments):
                                      for k, v in moments[name].items()}
 
 
-class InjectedTriplets:
-    """Patches the port's sampler (hpcs_torch.loss.joint) and 'easy' filter
-    with hpcs_tpu's draws from a key and its mask on JAX's embeddings
-    (`add`, as hpcs_tpu's compute_losses draws them from its key).  The
+def jax_triplets(k_loss, labels, x_p, cfg):
+    """hpcs_tpu's triplets from k_loss (as its compute_losses draws them)
+    and its 'easy' mask on JAX's embeddings x_p, with the margins
+    sim(a, p) - sim(a, n) on them: the arguments of GivenTriplets.set, as
+    numpy arrays."""
+    import jax
+
+    from hpcs_tpu.miner import margin_filter as j_margin_filter
+    from hpcs_tpu.miner import sample_balanced_triplets as j_balanced
+    from hpcs_torch.miner import cosine_similarity01
+
+    k_hyp, _ = jax.random.split(k_loss)
+    trip = j_balanced(k_hyp, labels.reshape(-1), cfg.num_class, cfg.t_per_anchor,
+                      cfg.fraction, num_triplets=cfg.num_triplets)
+    flat = x_p.reshape(-1, x_p.shape[-1])
+    mask = np.array(j_margin_filter(flat, trip, 0.0, "easy").mask)
+    a, p, n = (np.array(t, np.int64) for t in trip[:3])
+    e = torch.from_numpy(np.array(flat))
+    tm = (cosine_similarity01(e[a], e[p]) - cosine_similarity01(e[a], e[n])).numpy()
+    return a, p, n, np.array(trip.mask), mask, tm
+
+
+def jax_params_tree(grads, like):
+    """The port's VN-DGCNN gradients {state-dict name: numpy array} as
+    hpcs_tpu's params tree, shaped like `like` (a TrainState's params)."""
+    import jax
+    import jax.numpy as jnp
+
+    from hpcs_torch.testing import _flax_place, _set_path, _to_flax_layout
+
+    tree = {}
+    for name, g in grads.items():
+        _, path, layout = _flax_place(name)
+        _set_path(tree, path, _to_flax_layout(torch.from_numpy(g), layout))
+    return jax.tree_util.tree_map(lambda _, g: jnp.asarray(g), like, tree)
+
+
+class InjectedTriplets(GivenTriplets):
+    """Patches the port's sampler (hpcs_torch.loss.joint) and 'easy' filter,
+    for the monkeypatch's duration, with hpcs_tpu's draws from a key and
+    its mask on JAX's embeddings (`add`, as hpcs_tpu's compute_losses draws
+    them from its key; hpcs_torch.testing.install_given_triplets).  The
     port's own mask may differ from JAX's only where |sim(a,p) - sim(a,n)|
     < NEAR_TIE.  Each `add` serves until the next one."""
 
-    NEAR_TIE = 1e-3
-
     def __init__(self, monkeypatch):
-        from hpcs_torch.loss import joint
-
-        real_filter = joint.margin_filter
-        monkeypatch.setattr(joint, "sample_balanced_triplets", lambda *a, **k: self.trip)
-
-        def margin_filter(emb, trip, margin=0.0, type_of_triplets="easy"):
-            if emb.dtype == torch.float32:
-                got = real_filter(emb, trip, margin, type_of_triplets).mask.numpy()
-                flipped = got != self.mask
-                assert (np.abs(self.tm[flipped]) < self.NEAR_TIE).all()
-            return trip._replace(mask=torch.from_numpy(self.mask))
-
-        monkeypatch.setattr(joint, "margin_filter", margin_filter)
+        install_given_triplets(self, monkeypatch.setattr)
 
     def add(self, k_loss, labels, x_p, cfg):
-        import jax
-
-        from hpcs_tpu.miner import margin_filter as j_margin_filter
-        from hpcs_tpu.miner import sample_balanced_triplets as j_balanced
-        from hpcs_torch.miner import Triplets, cosine_similarity01
-
-        k_hyp, _ = jax.random.split(k_loss)
-        trip = j_balanced(k_hyp, labels.reshape(-1), cfg.num_class, cfg.t_per_anchor,
-                          cfg.fraction, num_triplets=cfg.num_triplets)
-        flat = x_p.reshape(-1, x_p.shape[-1])
-        self.mask = np.array(j_margin_filter(flat, trip, 0.0, "easy").mask)
-        a, p, n = (torch.from_numpy(np.array(t, np.int64)) for t in trip[:3])
-        e = torch.from_numpy(np.array(flat))
-        self.tm = (cosine_similarity01(e[a], e[p]) - cosine_similarity01(e[a], e[n])).numpy()
-        self.trip = Triplets(a, p, n, torch.from_numpy(np.array(trip.mask)))
+        self.set(*jax_triplets(k_loss, labels, x_p, cfg))

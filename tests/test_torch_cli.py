@@ -121,7 +121,9 @@ def test_configure_equals_jax_package(data_dir, monkeypatch, argv):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data_parallel", "2"], "A11"), (["--profile", "trace"], "A12b"),
+    # --data_parallel (ROADMAP A11) is ported: the case now configures and asks for 2 ranks
+    pytest.param(["--data_parallel", "2"], None, id="flags0-A11"),
+    (["--profile", "trace"], "A12b"),
     (["--debug_nans"], "A12b"),
     # the ids the cases had beside the --bf16 case (flags3), which went with its refusal
     pytest.param(["--layout", "vc"], "vc", id="flags4-vc"),
@@ -130,6 +132,10 @@ def test_configure_equals_jax_package(data_dir, monkeypatch, argv):
 def test_unported_flags_raise_naming_their_item(flags, item):
     args = _parse(cli.add_train_args, ["--dataset", "synthetic", "--fixed_points", "32",
                                        "--accelerator", "cpu"] + flags)
+    if item is None:
+        cli.configure(args)
+        assert cli.data_parallel_size(args) == 2
+        return
     with pytest.raises(NotImplementedError, match=item):
         cli.configure(args)
 

@@ -622,3 +622,32 @@ def test_sequential_linkage_on_gpu_equals_cpu(method, kind):
     for fc in (False, True):
         for g, w in zip(eval_clustering(y.cuda(), Z, 6, fc), eval_clustering(y, Z_cpu, 6, fc)):
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_collectives_on_the_card(backend, world):
+    """hpcs_torch.parallel.collectives on CUDA tensors: NCCL at world size 1,
+    gloo with 2 ranks sharing device 0 (NCCL refuses two ranks on one
+    device); values and gradients as on the CPU (test_torch_parallel.py)."""
+    require_cuda()
+    import _torch_parallel_ranks as ranks
+    from hpcs_torch.parallel.multihost import run_ranks
+
+    for got in run_ranks(ranks.collectives_check, world, args=("cuda",), backend=backend,
+                         device_ids=[0] * world):
+        assert all(got.values()), got
+
+
+@pytest.mark.cuda
+def test_data_parallel_beyond_the_visible_gpus_raises_on_the_card():
+    require_cuda()
+    import argparse
+
+    from hpcs_torch import cli
+
+    n = torch.cuda.device_count() + 1
+    args = cli.add_train_args(argparse.ArgumentParser()).parse_args(
+        ["--data_parallel", str(n), "--batch", str(4 * n)])
+    with pytest.raises(ValueError, match=f"--data_parallel {n}: {n - 1} GPUs are visible"):
+        cli.data_parallel_size(args)

@@ -131,7 +131,10 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "names = [m.name for m in pkgutil.walk_packages(hpcs_torch.__path__, 'hpcs_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert {'hpcs_torch.train', 'hpcs_torch.infer', 'hpcs_torch.cli'} <= set(names)\n"
+        "assert {'hpcs_torch.train', 'hpcs_torch.infer', 'hpcs_torch.cli',\n"
+        "        'hpcs_torch.parallel.collectives', 'hpcs_torch.parallel.data_parallel',\n"
+        "        'hpcs_torch.parallel.multihost', 'hpcs_torch.parallel.point_parallel',\n"
+        "        'hpcs_torch.multihost_dryrun'} <= set(names)\n"
         "sys.argv = ['train', '--dataset', 'synthetic', '--fixed_points', '32', '--k', '4', "
         "'--batch', '16', '--epochs', '1', '--t_per_anchor', '4', '--accelerator', 'cpu']\n"
         "runpy.run_module('hpcs_torch.train', run_name='__main__')\n"
