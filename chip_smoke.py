@@ -156,7 +156,24 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    the world-size-1 step's parts beside the single-device step's, the
    all-reduce ms per step, each backend and the phase's B1 and B2
    launches, which the kernels line counts;
-14. prints one JSON line per kernel summary, the card's name and power
+14. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
+   with --profile at the flagship (B=8, N=1024, a ShapeNet-Part tree of 2
+   categories: 2 training steps, 1 validation and 1 test batch): one
+   trace file holding CUDA kernels and a span for every module of
+   VNDGCNNPartSeg, for train_step, eval_step, test_step, embed, decode,
+   optimizer.step, knn and edgeconv, every B1 kernel launched inside a
+   `knn` span and every B2 kernel inside an `edgeconv` span; its size per
+   step and the test request's device ms by module; the flagship step's
+   and a B=16 request's ms plain, under the trace and under NaN
+   debugging; (b) --debug_nans on a healthy B=2, N=256 run (no raise, and
+   every check off afterwards), then a NaN planted in stage 2's conv
+   weight (an eval forward must raise naming kernel B2) and in conv6's
+   (an eval forward and a training step must raise naming conv6);
+   (c) --plot_inference: two PNGs where matplotlib imports, else the
+   ImportError before any launch; (d) `python -m
+   hpcs_torch.check_invariance` at B=16, N=1024, 8 rotations, fp32 and
+   bf16 (its verdict must be PASS), with each stage's graph agreement;
+15. prints one JSON line per kernel summary, the card's name and power
    limit, and last {"ok": true, "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -2233,6 +2250,372 @@ def parallel_phase(card):
     return out
 
 
+
+OBSERVE_SEED = 14  # the observe phase's data, weights and rotations
+OBSERVE_SPLITS = (8, 4, 4)  # objects per category (Airplane, Chair): 2 + 1 batches of 8, 1 test
+OBSERVE_SMALL_SPLITS = (2, 1, 1)  # B=2: 2 training steps, 1 validation and 1 test batch
+OBSERVE_TIMED = 3  # steps (and requests) timed with and without the observers
+OBSERVE_ROTATIONS = 8
+
+
+def _launch_counts(reset=False):
+    """fp32 and bf16 launches of B1 (wide route included in knn) and B2."""
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+
+    out = {"knn": KN.knn.launches - KN.knn.bf16_launches, "knn_bf16": KN.knn.bf16_launches,
+           "knn_wide": KN.knn.wide_launches,
+           "edgeconv": E.edgeconv_infer.launches - E.edgeconv_infer.bf16_launches,
+           "edgeconv_bf16": E.edgeconv_infer.bf16_launches}
+    if reset:
+        KN.knn.launches = KN.knn.wide_launches = KN.knn.bf16_launches = 0
+        E.edgeconv_infer.launches = E.edgeconv_infer.bf16_launches = 0
+    return out
+
+
+def _trace_events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _span_index(events):
+    """{(pid, tid): [(start, end, name)]} of the spans (user annotations)
+    on the host's timeline."""
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            spans.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0), e["name"]))
+    return spans
+
+
+def _kernel_spans(events):
+    """[(kernel name, device us, [names of the spans around its launch,
+    outermost first])] for every kernel: the launch (the CUDA API call
+    with the kernel's correlation id) placed inside the host-side spans;
+    a kernel whose launch the trace lacks, inside the spans that the
+    profiler drew on its stream's device timeline."""
+    spans = _span_index(events)
+    device_spans = {}
+    launches = {}
+    for e in events:
+        if e.get("cat", "").startswith("cuda_") and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = e
+        elif e.get("cat") == "gpu_user_annotation" and e.get("ph") == "X":
+            device_spans.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0), e["name"]))
+
+    def inside(index, key, ts):
+        return [name for start, end, name in sorted(index.get(key, []),
+                                                    key=lambda s: (s[0], -s[1]))
+                if start <= ts <= end]
+
+    out = []
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is not None:
+            around = inside(spans, (launch["pid"], launch["tid"]), launch["ts"])
+        else:
+            around = inside(device_spans, (e["pid"], e["tid"]), e["ts"])
+        out.append((e["name"], e.get("dur", 0.0), around))
+    return out
+
+
+def _by_module(kernels, within, under=None, calls=1):
+    """Device ms per call (of `calls`) of the kernels launched inside span
+    `within` (inside span `under` when given), by the backbone's module
+    (the span path's first two parts: nn_feat.conv6) or kernel span (knn,
+    edgeconv) they were launched in."""
+    out = {}
+    for _, us, around in kernels:
+        if within not in around or (under is not None and under not in around):
+            continue
+        inner = around[around.index(within) + 1:]
+        kernel_span = [n for n in inner if n in ("knn", "edgeconv")]
+        modules = [n for n in inner if n.startswith(("nn_feat", "nn_emb"))]
+        group = (kernel_span[-1] if kernel_span else
+                 ".".join(modules[-1].split(".")[:2]) if modules else f"{within} (outside modules)")
+        out[group] = out.get(group, 0.0) + us / 1e3 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _expect_raise(fn, words):
+    """fn() must raise FloatingPointError whose message holds every word."""
+    try:
+        fn()
+    except FloatingPointError as e:
+        if not all(w in str(e) for w in words):
+            fail(f"observe: the NaN error names {str(e)[:300]!r}, expected {words}")
+        return str(e)[:300]
+    fail(f"observe: no FloatingPointError for a planted NaN (expected one naming {words})")
+
+
+def observe_phase(card):
+    """--profile, --debug_nans, --plot_inference and the SO(3) probe on the
+    card: (a) train --profile at the flagship, (b) --debug_nans healthy and
+    on planted NaNs, (c) --plot_inference, (d) check_invariance."""
+    import tempfile
+
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from hpcs_torch import check_invariance, train
+    from hpcs_torch.models import HypHCSystem, decode_vector_for_batch
+    from hpcs_torch.nn.backbones.vn_dgcnn import VNDGCNNPartSeg
+    from hpcs_torch.testing import write_mini_shapenet
+    from hpcs_torch.utils import profiling
+
+    t0 = time.time()
+    launches = dict.fromkeys(("knn", "knn_bf16", "knn_wide", "edgeconv", "edgeconv_bf16"), 0)
+
+    def counted(fn, *args):
+        _launch_counts(reset=True)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = _launch_counts()
+        for k, v in got.items():
+            launches[k] += v
+        return out, got
+
+    flags = ENTRY_FLAGS + ["--epochs", "1", "--seed", str(OBSERVE_SEED)]
+    cwd, tmp = os.getcwd(), tempfile.TemporaryDirectory()
+    out = dict(B=TRAIN_B, N=N, k=K, eucl=EUCL, hyp=HYP)
+    try:
+        os.chdir(tmp.name)
+        # (a) train --profile: 2 training steps, 1 validation and 1 test batch
+        write_mini_shapenet(os.path.join("big", "data", "ShapeNet", "raw"), ("Airplane", "Chair"),
+                            OBSERVE_SPLITS, seed=OBSERVE_SEED)
+        os.chdir("big")
+        prof_dir = os.path.abspath("trace")
+        t = time.perf_counter()
+        _, got = counted(train.main, flags + ["--profile", prof_dir])
+        profile_run_s = time.perf_counter() - t
+        want = {"knn": 3 * (2 + 1 + 1), "knn_bf16": 0, "knn_wide": 0, "edgeconv": 3 * 2,
+                "edgeconv_bf16": 0}
+        if got != want:
+            fail(f"observe: train --profile launched {got}, expected {want}")
+        files = profiling.trace_files(prof_dir)
+        if len(files) != 1:
+            fail(f"observe: --profile wrote {files}, expected one trace")
+        trace_bytes = os.path.getsize(files[0])
+        events = _trace_events(files[0])
+        names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+        modules = {f"nn_feat.{m}" for m, _ in VNDGCNNPartSeg(EUCL, K, CATEGORIES).named_children()}
+        needed = modules | {"nn_emb", "HypHCNet", "train_step", "eval_step", "test_step", "embed",
+                            "decode", "optimizer.step", "knn", "edgeconv"}
+        if needed - names:
+            fail(f"observe: the trace has no span {sorted(needed - names)}")
+        kernels = _kernel_spans(events)
+        if not kernels:
+            fail("observe: the trace holds no CUDA kernel event")
+        b1 = [around for name, _, around in kernels if "knn_kernel" in name]
+        b2 = [around for name, _, around in kernels
+              if "edge_kernel" in name or "edge_mean_kernel" in name]
+        if len(b1) != want["knn"] or len(b2) != want["edgeconv"]:
+            fail(f"observe: the trace holds {len(b1)} B1 and {len(b2)} B2 kernels, expected "
+                 f"{want['knn']} and {want['edgeconv']}")
+        if not all("knn" in a for a in b1) or not all("edgeconv" in a for a in b2):
+            fail("observe: a B1 or B2 kernel was launched outside its span")
+        steps = 2 + 1 + 1
+        out["profile"] = dict(
+            run_seconds=profile_run_s, trace_bytes=trace_bytes,
+            trace_bytes_per_step=trace_bytes / steps, steps=steps, events=len(events),
+            kernels=len(kernels), spans=len(names), b1_in_knn_span=len(b1),
+            b2_in_edgeconv_span=len(b2),
+            test_request_device_ms_by_module=_by_module(kernels, "embed", "test_step"),
+            train_step_device_ms=sum(us for _, us, a in kernels if "train_step" in a) / 2e3)
+        del events, kernels
+
+        # the observers' cost: flagship steps and requests with and without
+        gen = torch.Generator().manual_seed(OBSERVE_SEED)
+        system = HypHCSystem(_flagship(), generator=gen)
+        batch = _synthetic(TRAIN_B, N, seed=OBSERVE_SEED)
+        request = _synthetic(B, N, seed=OBSERVE_SEED + 1)
+        dv = decode_vector_for_batch(system.cfg, request)
+        step_gen = torch.Generator(device="cuda").manual_seed(OBSERVE_SEED)
+
+        def timed(fn, reps=OBSERVE_TIMED):
+            ms = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(ms))
+
+        def cost():
+            step = lambda: system.train_step(batch, step_gen)  # noqa: E731
+            embed = lambda: system.embed(request["points"], dv)  # noqa: E731
+            step(), embed()
+            r = {"step_ms": timed(step), "forward_ms": timed(embed)}
+            with profiling.trace(os.path.abspath("cost_trace")):
+                r["step_ms_profile"] = timed(step)
+                r["forward_ms_profile"] = timed(embed)
+            with profiling.nan_debugging():
+                step(), embed()
+                r["step_ms_debug_nans"] = timed(step)
+                r["forward_ms_debug_nans"] = timed(embed)
+            r["step_ms_after"] = timed(step)
+            r["forward_ms_after"] = timed(embed)
+            return r
+
+        out["cost"], _ = counted(cost)
+        c = out["cost"]
+        out["cost"].update(
+            profile_ms_per_step=c["step_ms_profile"] - c["step_ms"],
+            debug_nans_step_slowdown=c["step_ms_debug_nans"] / c["step_ms"],
+            debug_nans_forward_slowdown=c["forward_ms_debug_nans"] / c["forward_ms"],
+            cost_trace_bytes=os.path.getsize(profiling.trace_files("cost_trace")[0]))
+        # the flagship request (B=16) by module: the traced requests' kernels
+        cost_kernels = _kernel_spans(_trace_events(profiling.trace_files("cost_trace")[0]))
+        out["forward_device_ms_by_module"] = _by_module(cost_kernels, "embed",
+                                                        calls=OBSERVE_TIMED)
+        out["forward_device_ms_traced"] = sum(out["forward_device_ms_by_module"].values())
+        del cost_kernels
+        os.chdir(tmp.name)
+
+        # (b) --debug_nans: a healthy B=2, N=256 run, then planted NaNs
+        write_mini_shapenet(os.path.join("small", "data", "ShapeNet", "raw"),
+                            ("Airplane", "Chair"), OBSERVE_SMALL_SPLITS, seed=OBSERVE_SEED)
+        os.chdir("small")
+        small = flags[:]
+        small[small.index("--fixed_points") + 1] = "256"
+        small[small.index("--batch") + 1] = "2"
+        t = time.perf_counter()
+        (_, healthy), got = counted(train.main, small + ["--debug_nans"])
+        debug_run_s = time.perf_counter() - t
+        if got["knn"] != 3 * (2 + 1 + 1) or got["edgeconv"] != 3 * 2:
+            fail(f"observe: train --debug_nans launched {got}")
+        off = dict(anomaly=torch.is_anomaly_enabled(),
+                   dispatch_mode=_get_current_dispatch_mode() is not None,
+                   nan_debugging=profiling.nan_debugging_enabled(),
+                   open_spans=profiling.open_spans())
+        if any(off.values()):
+            fail(f"observe: NaN debugging left on after train.main: {off}")
+        planted = HypHCSystem(_flagship(), generator=torch.Generator().manual_seed(OBSERVE_SEED))
+        tiny = _synthetic(2, 256, seed=OBSERVE_SEED)
+        tiny_dv = decode_vector_for_batch(planted.cfg, tiny)
+        net = planted.net.nn_feat
+
+        def with_nan(weight, fn):
+            keep = weight.detach().clone()
+            with torch.no_grad():
+                weight[0, 0] = float("nan")
+            try:
+                with profiling.nan_debugging():
+                    fn()
+            finally:
+                with torch.no_grad():
+                    weight.copy_(keep)
+
+        def embed_tiny():
+            planted.embed(tiny["points"], tiny_dv)
+
+        def step_tiny():
+            planted.train_step(tiny, torch.Generator(device="cuda").manual_seed(0))
+
+        def errors():
+            return dict(
+                stage2_eval=_expect_raise(lambda: with_nan(net.conv3.map_to_feat.weight,
+                                                           embed_tiny),
+                                          ["edgeconv (kernel B2)"]),
+                conv6_eval=_expect_raise(lambda: with_nan(net.conv6.map_to_feat.weight,
+                                                          embed_tiny), ["conv6"]),
+                conv6_train=_expect_raise(lambda: with_nan(net.conv6.map_to_feat.weight,
+                                                           step_tiny), ["conv6"]))
+
+        out["debug_nans"], _ = counted(errors)
+        out["debug_nans"].update(healthy_run_seconds=debug_run_s, healthy_results=healthy,
+                                 state_after=off)
+        if _get_current_dispatch_mode() is not None or torch.is_anomaly_enabled():
+            fail("observe: NaN debugging left on after the planted cases")
+
+        # (c) --plot_inference: figures where matplotlib imports, else the
+        # early ImportError before any step
+        try:
+            import matplotlib  # noqa: F401
+            have_mpl = True
+        except ImportError:
+            have_mpl = False
+        plot_flags = small + ["--plot_inference", "--log", "plot_logs"]
+        if have_mpl:
+            _, got = counted(train.main, plot_flags)
+            plots = sorted(os.listdir(os.path.join("plot_logs", "shapenet_vn_dgcnn_partseg",
+                                                   "plots")))
+            if plots != ["0.png", "1.png"]:
+                fail(f"observe: --plot_inference saved {plots}")
+            out["plot_inference"] = dict(matplotlib=True, pngs=plots, launches=got)
+        else:
+            try:
+                counted(train.main, plot_flags)
+                fail("observe: --plot_inference without matplotlib did not raise")
+            except ImportError as e:
+                if "matplotlib" not in str(e):
+                    fail(f"observe: --plot_inference's ImportError names {e}")
+                err = str(e)
+            got = _launch_counts()
+            if any(got.values()) or os.path.exists("plot_logs"):
+                fail(f"observe: --plot_inference raised after work began: {got}")
+            out["plot_inference"] = dict(matplotlib=False, import_error=err,
+                                         launches_before_the_error=got)
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+
+    # (d) the SO(3) probe at B=16, N=1024, fp32 and bf16
+    invariance = {}
+    for name, extra in (("fp32", []), ("bf16", ["--bf16"])):
+        argv = ["--batch", str(B), "--fixed_points", str(N), "--k", str(K), "--rotations",
+                str(OBSERVE_ROTATIONS), "--seed", str(OBSERVE_SEED)] + extra
+        t = time.perf_counter()
+        with recorded_knn() as pairs:
+            r, got = counted(check_invariance.run, argv)
+        embeds = OBSERVE_ROTATIONS + 1
+        # each stage's graph under each rotation against the unrotated one's:
+        # [rotation][stage] share of rows whose neighbour set is unchanged,
+        # and the clouds whose rows all kept theirs in all three stages
+        graphs = [torch.sort(g, dim=-1).values for _, g in pairs]
+        kept = torch.stack([torch.stack([(graphs[3 * (i + 1) + s] == graphs[s]).all(-1)
+                                         for s in range(3)]) for i in range(OBSERVE_ROTATIONS)])
+        stage_agreement = kept.float().mean(dim=(2, 3)).tolist()
+        clean = kept.all(dim=1).all(dim=-1).tolist()  # [rotation][cloud]
+        del pairs, graphs
+        want = {"knn": 3 * embeds + embeds if name == "fp32" else embeds,
+                "knn_bf16": 0 if name == "fp32" else 3 * embeds, "knn_wide": 0,
+                "edgeconv": 3 * embeds if name == "fp32" else 0,
+                "edgeconv_bf16": 0 if name == "fp32" else 3 * embeds}
+        if got != want:
+            fail(f"observe: check_invariance {name} launched {got}, expected {want}")
+        if r["verdict"] != "PASS":
+            fail(f"observe: check_invariance {name}: {r}")
+        # per cloud: clouds whose stage-1 graph is unchanged by the rotation
+        # apart from those where some row's neighbour set changed
+        pairs = [(d, s) for ds, ss in zip(r["cloud_deviations"], r["cloud_graph_same"])
+                 for d, s in zip(ds, ss)]
+        same = [d for d, s in pairs if s == 1.0]
+        moved = [d for d, s in pairs if s < 1.0]
+        still = [d for ds, cs in zip(r["cloud_deviations"], clean) for d, c in zip(ds, cs) if c]
+        invariance[name] = dict(
+            stage_graph_agreement=stage_agreement, clouds_all_graphs_unchanged=len(still),
+            max_relative_all_graphs_unchanged=max(still) / r["scale"] if still else None,
+            clouds_graph_unchanged=len(same), clouds_graph_changed=len(moved),
+            max_relative_graph_unchanged=max(same) / r["scale"] if same else None,
+            max_relative_graph_changed=max(moved) / r["scale"] if moved else None,
+            scale=r["scale"], max_deviation=r["max_deviation"],
+            median_deviation=r["median_deviation"],
+            max_relative=r["max_deviation"] / r["scale"],
+            median_relative=r["median_deviation"] / r["scale"],
+            graph_agreement_min=r["graph_stability"], graph_agreement=r["graph_same"],
+            rel_tol=r["rel_tol"], seconds=time.perf_counter() - t, launches=got)
+    out.update(invariance=invariance, launches=launches,
+               launches_fp32={"knn": launches["knn"], "edgeconv": launches["edgeconv"]},
+               seconds=time.time() - t0, card=card)
+    emit("observe", **out)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every phase's results to this file")
@@ -2483,8 +2866,9 @@ def main():
     imp = import_phase(system, cfg, batches, card)
     trained = trained_phase(card)
     par = parallel_phase(card)
+    obs = observe_phase(card)
 
-    # 10. summary lines
+    # 15. summary lines
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
     knn_plain_total = plain_ms["d3"] + 2 * plain_ms["d63"]
     knn_ops = w3[0] + 2 * w63[0]
@@ -2499,7 +2883,8 @@ def main():
              launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
              + train["fit_launches"]["knn"] + entry_launches["knn"]
              + backbones["launches"]["knn"] + imp["launches"]["knn"]
-             + trained["launches_fp32"]["knn"] + par["launches"]["knn"],
+             + trained["launches_fp32"]["knn"] + par["launches"]["knn"]
+             + obs["launches"]["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
@@ -2509,7 +2894,7 @@ def main():
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
              + imp["launches"]["knn_wide"] + trained["launches"]["knn_wide"]
-             + par["launches"]["knn_wide"],
+             + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"],
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
@@ -2518,7 +2903,7 @@ def main():
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
              + imp["launches"]["edgeconv"] + trained["launches_fp32"]["edgeconv"]
-             + par["launches"]["edgeconv"],
+             + par["launches"]["edgeconv"] + obs["launches"]["edgeconv"],
              max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),
@@ -2526,14 +2911,15 @@ def main():
              library_ms=None),
         dict(name="knn_bf16", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
-             launches=bf16["launches_main_path"]["knn_bf16"] + trained["launches"]["knn_bf16"],
+             launches=bf16["launches_main_path"]["knn_bf16"] + trained["launches"]["knn_bf16"]
+             + obs["launches"]["knn_bf16"],
              max_abs_err=bf16["knn_max_score_gap"], ms=bf16["knn_ms_per_forward"],
              plain_ms=bf16["knn_plain_ms_per_forward"], bound_ms=bf16["knn_bound_ms_per_forward"],
              bound_by=bf16["knn_bound_by"], library_ms=None),
         dict(name="edgeconv_bf16", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
              launches=bf16["launches_main_path"]["edgeconv_bf16"]
-             + trained["launches"]["edgeconv_bf16"],
+             + trained["launches"]["edgeconv_bf16"] + obs["launches"]["edgeconv_bf16"],
              max_abs_err=bf16["edgeconv_max_abs_err"], ms=bf16["edgeconv_ms_per_forward"],
              plain_ms=bf16["edgeconv_plain_ms_per_forward"],
              bound_ms=bf16["edgeconv_bound_ms_per_forward"], bound_by=bf16["edgeconv_bound_by"],

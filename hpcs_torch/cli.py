@@ -6,11 +6,14 @@ defaults and store_false traps: --miner and --hierarchical are on by
 default and the flag turns them off, and CosFace is the metric loss unless
 --triplet-sim.  --hierarchy_list takes JSON.  One flag differs:
 --accelerator names the port's device, `cuda` (or `gpu`) by default, or
-`cpu`.  The flags whose path is not ported yet raise NotImplementedError
-naming their ROADMAP item: `refuse_unported` for the flags that are not
-ModelConfig fields, HypHCSystem for --layout vc.  --model takes each of
-the JAX package's four backbones; --bf16 computes VN-DGCNN in bf16;
---data_parallel N trains on N ranks (`data_parallel_size`).
+`cpu`.  --layout vc, the one path not ported, raises NotImplementedError
+in HypHCSystem.  --model takes each of the JAX package's four backbones;
+--bf16 computes VN-DGCNN in bf16; --data_parallel N trains on N ranks
+(`data_parallel_size`); --profile DIR writes a profiler trace,
+--debug_nans stops at the first NaN and --plot_inference saves the test
+figures (hpcs_torch.train; hpcs_torch.utils.profiling and .viz).
+--plot_inference needs matplotlib: `configure` raises ImportError before
+any work where it is missing.
 
 Data roots are relative to the working directory, as in the JAX package:
 data/ShapeNet/raw, data/PartNet/sem_seg_h5 and
@@ -25,6 +28,7 @@ from .data import DataLoader, PartNetDataset, ShapeNetDataset, SyntheticPartData
 from .data.hierarchy import get_hierarchy_list
 from .device import resolve_device
 from .models import HypHCSystem, ModelConfig
+from .utils.viz import require_matplotlib
 
 
 def add_train_args(parser):
@@ -61,7 +65,7 @@ def add_train_args(parser):
     parser.add_argument('--class_vector', action='store_true', help='class vector to decode')
     parser.add_argument('--hierarchical', action='store_false', help='hierarchical loss (default ON for partnet)')
     parser.add_argument('--hierarchy_list', '-hierarchy_list', default='[]', type=str, help='precomputed hierarchy list as JSON')
-    parser.add_argument('--plot_inference', action='store_true', help='plot visualizations during testing (not ported: ROADMAP A12b)')
+    parser.add_argument('--plot_inference', action='store_true', help='plot visualizations during testing (needs matplotlib)')
     parser.add_argument('--pretrained', action='store_true', help='load pretrained model')
     parser.add_argument('--pretrained_path', type=str, default='',
                         help='explicit path to a raw backbone checkpoint (.t7/.pth), with --pretrained')
@@ -75,9 +79,9 @@ def add_train_args(parser):
                         help='devices to shard the batch over (0 = all visible GPUs; with '
                              '--accelerator cpu, N gloo processes)')
     parser.add_argument('--profile', type=str, default='',
-                        help='write a profiler trace to this directory (not ported: ROADMAP A12b)')
+                        help='write a profiler trace to this directory')
     parser.add_argument('--debug_nans', action='store_true',
-                        help='stop at the first NaN (not ported: ROADMAP A12b)')
+                        help='stop at the first NaN')
     parser.add_argument('--bf16', action='store_true',
                         help='bf16 compute in the VN-DGCNN backbone (the other backbones stay fp32)')
     parser.add_argument('--layout', default='cv', choices=['cv', 'vc'],
@@ -94,19 +98,6 @@ def select_device(accelerator):
         return resolve_device("cpu")
     raise ValueError(f"--accelerator {accelerator!r}: the port runs on 'cuda' (or 'gpu') or "
                      "'cpu'; the JAX package (train.py) runs on the TPU")
-
-
-def refuse_unported(args):
-    """Raise NotImplementedError, naming the ROADMAP item, for a flag whose
-    path the port does not have yet (train's flags or infer's)."""
-    unported = [
-        (getattr(args, 'profile', ''), '--profile: ROADMAP A12b'),
-        (getattr(args, 'debug_nans', False), '--debug_nans: ROADMAP A12b'),
-        (args.plot_inference, '--plot_inference (plots): ROADMAP A12b'),
-    ]
-    for given, what in unported:
-        if given:
-            raise NotImplementedError(f"not ported yet: {what}")
 
 
 def data_parallel_size(args):
@@ -180,8 +171,10 @@ def freeze_hierarchy(h):
 
 def configure(args):
     """(system, train_loader, valid_loader, test_loader) from parsed args;
-    the system on `select_device(args.accelerator)`."""
-    refuse_unported(args)
+    the system on `select_device(args.accelerator)`.  --plot_inference
+    without matplotlib raises ImportError here, before any work."""
+    if args.plot_inference:
+        require_matplotlib("--plot_inference's figures")
     device = select_device(args.accelerator)
     train_ds, valid_ds, test_ds, num_class, num_categories, hierarchy_list = configure_data(args)
     if args.hierarchy_list and args.hierarchy_list != '[]':

@@ -7,8 +7,6 @@ The decode's norm (`l2_normalize_rn`) rounds its sum of squares and its
 square root exactly, so the card and the CPU give the same bits; the losses
 take the plain `l2_normalize`.
 """
-import math
-
 import torch
 
 ARTANH_EPS = 1e-5
@@ -84,7 +82,10 @@ class _FMA(torch.autograd.Function):
         bb = s - c
         err = (c - (s - bb)) + (p - bb)  # TwoSum: s + err == c + p exactly
         even = (s.view(torch.int64) & 1) == 0
-        s = torch.where((err != 0) & even, torch.nextafter(s, err * math.inf), s)
+        # toward err's side: a nonzero err of fp32 operands is a multiple of
+        # 2^-298, so err * 1e308 lies beyond |s| < 1e78 on err's side; where
+        # err == 0 (the branch not taken) it is 0, not err * inf's NaN
+        s = torch.where((err != 0) & even, torch.nextafter(s, err * 1e308), s)
         return s.float()  # rounded to odd in float64, then to nearest in float32
 
     @staticmethod

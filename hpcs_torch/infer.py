@@ -9,16 +9,20 @@ wrote, one the JAX package wrote (its msgpack model.ckpt), or one
 checkpoint.  Its config is taken with --test_rotation and --fixed_points
 from the flags.  The test split (data/ShapeNet/raw, data/PartNet/sem_seg_h5/
 <category>-<level>, or 16 synthetic clouds) is shuffled with --seed and
-`trainer.test` runs on at most --test_batches batches.
+`trainer.test` runs on at most --test_batches batches.  --plot_inference
+saves each object's figure as <N>.png in plots/ beside the checkpoint
+(the JAX package's place: the parent of the directory given), and needs
+matplotlib.
 """
 import argparse
 import os
 
-from .cli import freeze_hierarchy, refuse_unported, select_device
+from .cli import freeze_hierarchy, select_device
 from .data import DataLoader, PartNetDataset, ShapeNetDataset, SyntheticPartDataset
 from .models import HypHCSystem, ModelConfig
 from .trainer import test
 from .utils.checkpoint import load_config, restore_checkpoint
+from .utils.viz import require_matplotlib
 
 
 def check_model_path(model_path):
@@ -43,7 +47,8 @@ def build_args(sub, dataset):
     sub.add_argument('--fixed_points', '-fixed_points', default=512, type=int)
     sub.add_argument('--test_rotation', '-test_rotation', default='so3', type=str)
     sub.add_argument('--plot_inference', action='store_true',
-                     help='plot visualizations (not ported: ROADMAP A12b)')
+                     help='save each object\'s figure under plots/ beside the checkpoint '
+                          '(needs matplotlib)')
     sub.add_argument('--accelerator', '-accelerator', default='cuda', type=str,
                      help='cuda | gpu | cpu')
     sub.add_argument('--seed', type=int, default=0)
@@ -62,7 +67,8 @@ def main(argv=None):
     for name in ('shapenet', 'partnet', 'synthetic'):
         build_args(subparsers.add_parser(name), name)
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    if args.plot_inference:
+        require_matplotlib("--plot_inference's figures")
     device = select_device(args.accelerator)
 
     path = check_model_path(args.model_path)
@@ -83,7 +89,9 @@ def main(argv=None):
     loader = DataLoader(ds, args.batch, shuffle=True, drop_last=False, seed=args.seed)
     restore_checkpoint(path, system)
 
-    results = test(system, loader, seed=args.seed, limit_batches=args.test_batches)
+    plot_dir = os.path.join(os.path.dirname(path) or ".", "plots") if args.plot_inference else None
+    results = test(system, loader, seed=args.seed, limit_batches=args.test_batches,
+                   plot_dir=plot_dir)
     print({k: round(v, 4) for k, v in results.items()}, flush=True)
     return system, results
 

@@ -22,6 +22,7 @@ from ..nn.embed import make_embedder
 from ..optim import FusedRiemannianAdam, plateau_init, plateau_update
 from ..utils.jax_params import ball_dim
 from ..utils.metrics import accuracy_top1, multiclass_jaccard
+from ..utils.profiling import spanned
 from ..utils.rotations import augment
 from .config import ModelConfig
 
@@ -98,6 +99,7 @@ def decode_vector_for_batch(cfg: ModelConfig, batch):
     return nn.functional.one_hot(category, cfg.num_categories).to(torch.float32)
 
 
+@spanned("decode")
 def decode_batch(x_poincare, labels, scale, num_class):
     """Decode each object of a batch: its points on the sphere of radius
     `scale` in the ball, their cosine distances, complete linkage by MNN
@@ -189,6 +191,7 @@ class HypHCSystem:
         return out, metrics
 
     @torch.no_grad()
+    @spanned("embed")
     def embed(self, points, decode_vector, idx_override=None):
         """Per-point embeddings of a batch of clouds, by the eval forward.
 
@@ -226,6 +229,7 @@ class HypHCSystem:
         self.optimizer.step()
         self.step += 1
 
+    @spanned("train_step")
     def train_step(self, batch, generator):
         """One training step on `batch` (a dict with "points" [B, N, 3],
         "labels" [B, N] and, for ShapeNet, "category" [B]): the gradients
@@ -237,6 +241,7 @@ class HypHCSystem:
         return logs
 
     @torch.no_grad()
+    @spanned("eval_step")
     def eval_step(self, batch, generator):
         """Validation: the eval forward on the batch rotated by
         `cfg.train_rotation` (as the reference's validation does), then the
@@ -247,6 +252,7 @@ class HypHCSystem:
         return {"val_loss": losses["loss_metric"] + losses["loss_hyp"], **metrics}
 
     @torch.no_grad()
+    @spanned("test_step")
     def test_step(self, batch, generator):
         """The test pass over one batch: rotate by `cfg.test_rotation`
         (drawn from `generator`, a torch.Generator), embed, the losses, and

@@ -49,20 +49,25 @@ EDGE_CHANNELS = 64 // 3
 GLOBAL_CHANNELS = 1024 // 3
 
 
+class _HeadBlock(nn.Sequential):
+    """Conv1d -> BatchNorm [-> LeakyReLU] on h [B, C, N]: the Conv1d in
+    `dtype` (the weight cast to it), the BatchNorm and activation in at
+    least fp32, the output in `dtype` (the JAX package's _ScalarConvBNRelu
+    with dtype)."""
+
+    def forward(self, h, dtype):
+        y = upcast(F.conv1d(h.to(dtype), self[0].weight.to(dtype)))
+        for layer in list(self)[1:]:
+            y = layer(y)
+        return y.to(dtype)
+
+
 def _head_block(in_features, out_features, relu=True):
     layers = [nn.Conv1d(in_features, out_features, kernel_size=1, bias=False),
               BatchNorm(out_features, channel_dim=1)]
     if relu:
         layers.append(nn.LeakyReLU(0.2))
-    return nn.Sequential(*layers)
-
-
-def _head(block, h, dtype):
-    """A head block on h [B, C, N]: its Conv1d in `dtype` (the weight cast
-    to it), its BatchNorm and activation in at least fp32, the output in
-    `dtype` (the JAX package's _ScalarConvBNRelu with dtype)."""
-    y = F.conv1d(h.to(dtype), block[0].weight.to(dtype))
-    return block[1:](upcast(y)).to(dtype)
+    return _HeadBlock(*layers)
 
 
 def stage_weights(*convs):
@@ -170,7 +175,7 @@ class VNDGCNNPartSeg(nn.Module):
         x123_inv = invariant_project(x123, z0).reshape(B, N, -1)  # [B, N, 189]
         x_global = x_std.max(dim=1).values if shard is None else shard.max_over_points(x_std)
         with contextlib.nullcontext() if shard is None else point_shard.use(shard.objects()):
-            l = _head(self.conv7, label[:, :, None], dtype)[:, :, 0]  # [B, 64]
+            l = self.conv7(label[:, :, None], dtype)[:, :, 0]  # [B, 64]
 
         fused = torch.cat([x_global, l], dim=-1)[:, None, :].expand(B, N, -1)
         h = torch.cat([fused, x123_inv], dim=-1).transpose(1, 2)  # [B, 2299, N]
@@ -178,7 +183,7 @@ class VNDGCNNPartSeg(nn.Module):
         if p and generator is None:
             raise ValueError("the training forward draws dropout masks: pass a generator")
         drop = dropout if shard is None else shard.dropout
-        h = drop(_head(self.conv8, h, dtype), p, generator)
-        h = drop(_head(self.conv9, h, dtype), p, generator)
-        h = _head(self.conv11, _head(self.conv10, h, dtype), out_dtype)
+        h = drop(self.conv8(h, dtype), p, generator)
+        h = drop(self.conv9(h, dtype), p, generator)
+        h = self.conv11(self.conv10(h, dtype), out_dtype)
         return h.transpose(1, 2)

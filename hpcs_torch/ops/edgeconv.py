@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import check_kernel, span
 from . import _build
 from .knn import gather_neighbors, knn
 from .vn_math import BN_EPS, EPS, channel_mix, vn_leaky_relu
@@ -162,10 +163,15 @@ def edgeconv_infer(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2)
     """Eval-mode VN EdgeConv stage (see edgeconv_infer_plain) on any device.
 
     Every launch of the kernel counts in `edgeconv_infer.launches`, those on
-    bf16 features also in `edgeconv_infer.bf16_launches`."""
-    if x.is_cuda:
-        return _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs)
-    return edgeconv_infer_plain(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs)
+    bf16 features also in `edgeconv_infer.bf16_launches`.  The call is the
+    span `edgeconv` (utils.profiling); under NaN debugging the kernel's
+    output is checked."""
+    with span("edgeconv"):
+        if x.is_cuda:
+            out = _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs)
+            check_kernel("edgeconv (kernel B2)", out)
+            return out
+        return edgeconv_infer_plain(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs)
 
 
 edgeconv_infer.launches = 0

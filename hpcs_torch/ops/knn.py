@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import check_kernel, nan_debugging_enabled, span, unchecked
 from . import _build
 
 MAX_D = 64
@@ -97,14 +98,22 @@ def knn(x, k):
 
     A CUDA tensor goes to kernel B1 where it takes the shape, else to the
     wide kernel; both count in `knn.launches`, the wide one also in
-    `knn.wide_launches`, B1 on bf16 also in `knn.bf16_launches`.
+    `knn.wide_launches`, B1 on bf16 also in `knn.bf16_launches`.  The call
+    is the span `knn` (utils.profiling).  Under NaN debugging a CUDA call
+    first checks its input's scores: a NaN score leaves the selection
+    undefined, and the kernel's indices cannot show it.
     """
-    if not x.is_cuda:
-        return knn_plain(x, k)
-    _, N, D = x.shape
-    if D <= MAX_D and k <= MAX_K and N <= MAX_N:
-        return _knn_cuda(x, k)
-    return _knn_wide_cuda(x, k)
+    with span("knn"):
+        if not x.is_cuda:
+            return knn_plain(x, k)
+        if nan_debugging_enabled():
+            with unchecked():
+                for b in range(x.shape[0]):
+                    check_kernel("knn (kernel B1), its input's scores", knn_scores(x[b:b + 1]))
+        _, N, D = x.shape
+        if D <= MAX_D and k <= MAX_K and N <= MAX_N:
+            return _knn_cuda(x, k)
+        return _knn_wide_cuda(x, k)
 
 
 knn.launches = 0

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import egrad2rgrad, expmap, inner, project, ptransp
+from ..utils.profiling import spanned
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8
@@ -109,6 +110,7 @@ class RiemannianAdam(torch.optim.Optimizer):
             group.setdefault("amsgrad", False)
 
     @torch.no_grad()
+    @spanned("optimizer.step")
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("RiemannianAdam takes no closure")
@@ -162,6 +164,7 @@ class FusedRiemannianAdam(torch.optim.Optimizer):
         return packs
 
     @torch.no_grad()
+    @spanned("optimizer.step")
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("FusedRiemannianAdam takes no closure")

@@ -23,6 +23,7 @@ import torch
 from torch.distributed.device_mesh import init_device_mesh
 from torch.utils._pytree import tree_leaves
 
+from ..utils.profiling import spanned
 from . import collectives as C
 
 SEED_STRIDE = 1 << 32  # shard r's generator seed: seed + r * SEED_STRIDE
@@ -128,6 +129,7 @@ class DataParallelTrainStep:
         """This rank's generator seed in a run seeded `seed` (shard_seed)."""
         return shard_seed(seed, self.shard)
 
+    @spanned("train_step")
     def __call__(self, batch, generator):
         B = len(batch["points"])
         if self.local or B % self.n_shards == 0:
@@ -164,6 +166,7 @@ class DataParallelTestStep:
         self.system, self.mesh = system, mesh
         self.group = mesh.get_group() if mesh.ndim == 1 else None
 
+    @spanned("test_step")
     def __call__(self, batch, generator):
         logs, extras = self.system.test_step(shard_batch(self.mesh, batch), generator)
         logs = C.mean_all_reduce_tree(logs, self.group)

@@ -11,6 +11,14 @@ untrained system or the one --resume restores.  --pretrained grafts a raw
 VN-DGCNN backbone checkpoint (--pretrained_path, or the reference's default
 paths) onto the fresh system first.
 
+--profile DIR writes one profiler trace of the training and the test
+(utils.profiling.trace: a span per module call, step and kernel call) to
+DIR; --debug_nans raises FloatingPointError at the first operation that
+makes a NaN, naming it and the module it ran in (utils.profiling.
+nan_debugging), and turns the checks off again however the run ends;
+--plot_inference saves each tested object's figure under
+<log>/<dataset>_<model>/plots (needs matplotlib, checked before any work).
+
 --data_parallel N (0: every visible GPU; cli.data_parallel_size) trains on
 N ranks, one process each (torch.multiprocessing, spawn): NCCL on cuda:r,
 or gloo on the CPU with --accelerator cpu (the ranks share this process's
@@ -28,6 +36,7 @@ Example, the flagship (ShapeNet-Part under data/ShapeNet/raw):
         --lr 0.05 --trade_off 0.1
 """
 import argparse
+import contextlib
 import os
 import sys
 
@@ -38,6 +47,7 @@ from .trainer import fit, test
 from .utils.checkpoint import restore_checkpoint, save_checkpoint
 from .utils.logging import MetricLogger
 from .utils.pretrained import graft_pretrained_backbone, load_raw_backbone_state_dict
+from .utils.profiling import nan_debugging, trace
 
 
 def graft_pretrained(system, path=""):
@@ -66,33 +76,38 @@ def _parse(argv):
 def _run(args, make_step=None, lead=True):
     """Configure, train (unless --infer) and test; the data-parallel ranks
     run this with make_step(system) their step, rank 0 as `lead`, which
-    alone logs, writes and tests.  Returns (system, the test results or
-    None)."""
-    system, train_loader, valid_loader, test_loader = configure(args)
-    if args.pretrained:
-        graft_pretrained(system, args.pretrained_path)
-    run_name = f"{args.dataset}_{args.model}"
-    ckpt_dir = os.path.join(args.log, run_name, "checkpoints")
-    logger = MetricLogger(args.log, run_name, use_wandb=args.wandb == "online",
-                          wandb_mode=args.wandb, config=vars(args)) if lead else None
-    try:
-        step = make_step(system) if make_step is not None else None
-        if args.infer:
-            if args.resume:
-                restore_checkpoint(args.resume, system)
-        else:
-            fit(system, train_loader, valid_loader, epochs=args.epochs, patience=args.patience,
-                seed=args.seed, logger=logger, ckpt_dir=ckpt_dir, resume=args.resume or None,
-                train_step_fn=step)
-            if not lead:
-                return system, None
-            print("End Training", flush=True)
-            save_checkpoint(os.path.join(ckpt_dir, "final"), system, system.cfg)
-        results = test(system, test_loader, seed=args.seed,
-                       limit_batches=None if args.infer else 10, logger=logger)
-    finally:
-        if logger is not None:
-            logger.close()
+    alone logs, writes, tests and traces.  Returns (system, the test
+    results or None)."""
+    with nan_debugging(args.debug_nans):
+        system, train_loader, valid_loader, test_loader = configure(args)
+        if args.pretrained:
+            graft_pretrained(system, args.pretrained_path)
+        run_name = f"{args.dataset}_{args.model}"
+        ckpt_dir = os.path.join(args.log, run_name, "checkpoints")
+        logger = MetricLogger(args.log, run_name, use_wandb=args.wandb == "online",
+                              wandb_mode=args.wandb, config=vars(args)) if lead else None
+        profiled = trace(args.profile) if args.profile and lead else contextlib.nullcontext()
+        try:
+            step = make_step(system) if make_step is not None else None
+            with profiled:
+                if args.infer:
+                    if args.resume:
+                        restore_checkpoint(args.resume, system)
+                else:
+                    fit(system, train_loader, valid_loader, epochs=args.epochs,
+                        patience=args.patience, seed=args.seed, logger=logger, ckpt_dir=ckpt_dir,
+                        resume=args.resume or None, train_step_fn=step)
+                    if not lead:
+                        return system, None
+                    print("End Training", flush=True)
+                    save_checkpoint(os.path.join(ckpt_dir, "final"), system, system.cfg)
+                plot_dir = os.path.join(args.log, run_name, "plots") if args.plot_inference else None
+                results = test(system, test_loader, seed=args.seed,
+                               limit_batches=None if args.infer else 10, logger=logger,
+                               plot_dir=plot_dir)
+        finally:
+            if logger is not None:
+                logger.close()
     return system, results
 
 

@@ -117,10 +117,12 @@ def fit(system, train_loader, valid_loader, *, epochs, patience=50, seed=0, log_
     return best_state, best_val
 
 
-def test(system, batches, seed=0, limit_batches=None, logger=None):
+def test(system, batches, seed=0, limit_batches=None, logger=None, plot_dir=None):
     """Run `system.test_step` on each batch (at most `limit_batches`) and
     return each log's mean over the batches, as floats (test_loss, score,
     test_acc, test_iou); with `logger`, also append them as one record.
+    With `plot_dir`, save each object's 5-panel evaluation figure there
+    (`_plot_batch`; needs matplotlib).
 
     Rotations and triplets come from one torch.Generator on the system's
     device, seeded with seed + 777.
@@ -130,9 +132,34 @@ def test(system, batches, seed=0, limit_batches=None, logger=None):
     for i, batch in enumerate(batches):
         if limit_batches is not None and i >= limit_batches:
             break
-        logs, _ = system.test_step(batch, generator)
+        logs, extras = system.test_step(batch, generator)
         logs_list.append({k: float(v) for k, v in logs.items()})
+        if plot_dir:
+            _plot_batch(system, batch, extras, plot_dir, batch_index=i)
     out = _mean_logs(logs_list)
     if logger is not None and out:
         logger.log(out)
     return out
+
+
+def _plot_batch(system, batch, extras, plot_dir, batch_index):
+    """Save `plot_hyperbolic_eval` of each object of a tested batch as
+    plot_dir/{batch_index * B + b}.png: the batch's points and labels, the
+    test_step's prediction, best k and score, its Euclidean embedding, its
+    ball embedding on the sphere of radius `scale` (normalize_to_radius)
+    and its linkage.  The extras come to the host once per batch."""
+    from .loss import normalize_to_radius
+    from .utils.viz import plot_hyperbolic_eval
+
+    os.makedirs(plot_dir, exist_ok=True)
+    with torch.no_grad():
+        emb = normalize_to_radius(extras["x_poincare"], system.net.scale[0])
+    host = {k: v.detach().cpu().numpy() for k, v in dict(extras, emb=emb).items()}
+    B = host["pred"].shape[0]
+    for b in range(B):
+        plot_hyperbolic_eval(
+            x=np.asarray(batch["points"][b]), y=np.asarray(batch["labels"][b]),
+            y_pred=host["pred"][b], emb_hidden=host["x_euclidean"][b],
+            emb_poincare=host["emb"][b], linkage_matrix=host["linkage"][b],
+            k=host["best_k"][b], score=host["best_score"][b],
+            screenshot=os.path.join(plot_dir, f"{batch_index * B + b}.png"))

@@ -2,8 +2,9 @@
 
 The parsers must agree on every flag but --accelerator; `configure` must
 give a ModelConfig equal field by field to hpcs_tpu's, and loaders with
-equal batches, for shapenet, partnet (hierarchical) and synthetic; every
-flag whose path is not ported must raise.  --bf16 trains and serves.
+equal batches, for shapenet, partnet (hierarchical) and synthetic; --layout
+vc, whose path is not ported, must raise, and --profile, --debug_nans and
+--plot_inference configure and run.  --bf16 trains and serves.
 """
 import argparse
 import dataclasses
@@ -123,18 +124,35 @@ def test_configure_equals_jax_package(data_dir, monkeypatch, argv):
 @pytest.mark.parametrize("flags,item", [
     # --data_parallel (ROADMAP A11) is ported: the case now configures and asks for 2 ranks
     pytest.param(["--data_parallel", "2"], None, id="flags0-A11"),
-    (["--profile", "trace"], "A12b"),
-    (["--debug_nans"], "A12b"),
+    # --profile, --debug_nans and --plot_inference (ROADMAP A12b) are ported: each case
+    # now configures and trains an epoch with its flag, under the ids it had
+    pytest.param(["--profile", "trace"], None, id="flags1-A12b"),
+    pytest.param(["--debug_nans"], None, id="flags2-A12b"),
     # the ids the cases had beside the --bf16 case (flags3), which went with its refusal
     pytest.param(["--layout", "vc"], "vc", id="flags4-vc"),
-    pytest.param(["--plot_inference"], "A12b", id="flags5-A12b"),
+    pytest.param(["--plot_inference"], None, id="flags5-A12b"),
 ])
-def test_unported_flags_raise_naming_their_item(flags, item):
-    args = _parse(cli.add_train_args, ["--dataset", "synthetic", "--fixed_points", "32",
-                                       "--accelerator", "cpu"] + flags)
+def test_unported_flags_raise_naming_their_item(flags, item, tmp_path, monkeypatch):
+    argv = ["--dataset", "synthetic", "--fixed_points", "32", "--accelerator", "cpu"] + flags
+    args = _parse(cli.add_train_args, argv)
     if item is None:
         cli.configure(args)
-        assert cli.data_parallel_size(args) == 2
+        if flags[0] == "--data_parallel":
+            assert cli.data_parallel_size(args) == 2
+            return
+        monkeypatch.chdir(tmp_path)
+        _, results = train.main(argv + ["--batch", "16", "--epochs", "1", "--k", "4",
+                                        "--t_per_anchor", "4", "--log", "logs"])
+        assert np.isfinite(results["test_loss"])
+        run = tmp_path / "logs" / "synthetic_vn_dgcnn_partseg"
+        if flags[0] == "--profile":
+            assert [p.name.endswith(".pt.trace.json") for p in (tmp_path / "trace").iterdir()] == [
+                True]
+        elif flags[0] == "--plot_inference":
+            assert sorted(p.name for p in (run / "plots").iterdir()) == sorted(
+                f"{i}.png" for i in range(16))
+        else:
+            assert not torch.is_anomaly_enabled()
         return
     with pytest.raises(NotImplementedError, match=item):
         cli.configure(args)
@@ -254,7 +272,8 @@ def test_accelerator_names_the_device(monkeypatch):
 
 
 def test_infer_refuses_what_it_cannot_serve(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12b"):
+    # --plot_inference is ported (ROADMAP A12b): infer gets to the checkpoint, which is missing
+    with pytest.raises(FileNotFoundError, match="config.json"):
         infer.main(["synthetic", "--model_path", str(tmp_path), "--plot_inference",
                     "--accelerator", "cpu"])
     with pytest.raises(NotImplementedError, match="wandb"):

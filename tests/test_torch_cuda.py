@@ -651,3 +651,75 @@ def test_data_parallel_beyond_the_visible_gpus_raises_on_the_card():
         ["--data_parallel", str(n), "--batch", str(4 * n)])
     with pytest.raises(ValueError, match=f"--data_parallel {n}: {n - 1} GPUs are visible"):
         cli.data_parallel_size(args)
+
+
+def _small_card_system():
+    from _torch_port import synthetic_batch
+
+    cfg = ModelConfig(num_class=6, num_categories=2, eucl_dim=8, hyp_dim=8, k=6, t_per_anchor=5)
+    system = HypHCSystem(cfg, generator=torch.Generator().manual_seed(0))
+    batch = synthetic_batch(2, 128, seed=2)
+    return system, batch, decode_vector_for_batch(cfg, batch)
+
+
+@pytest.mark.cuda
+def test_trace_spans_enclose_the_kernels_on_the_card(tmp_path):
+    """A trace on the card holds CUDA kernels, a span for every module of
+    VN-DGCNN and for the steps, and each B1 / B2 kernel's launch inside
+    its wrapper's span (chip_smoke's trace readers)."""
+    require_cuda()
+    import json
+
+    import chip_smoke as cs
+    from hpcs_torch.nn.backbones.vn_dgcnn import VNDGCNNPartSeg
+    from hpcs_torch.utils import profiling
+
+    system, batch, dv = _small_card_system()
+    with profiling.trace(str(tmp_path)):
+        system.train_step(batch, torch.Generator(device="cuda").manual_seed(0))
+        system.embed(batch["points"], dv)
+    assert profiling.open_spans() == []
+    (path,) = profiling.trace_files(str(tmp_path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    modules = {f"nn_feat.{m}" for m, _ in VNDGCNNPartSeg(8, 6, 2).named_children()}
+    assert modules | {"train_step", "embed", "optimizer.step", "knn", "edgeconv"} <= names
+    kernels = cs._kernel_spans(events)
+    b1 = [a for n, _, a in kernels if "knn_kernel" in n]
+    b2 = [a for n, _, a in kernels if "edge_kernel" in n or "edge_mean_kernel" in n]
+    assert len(b1) == 6 and len(b2) == 3
+    assert all("knn" in a for a in b1) and all("edgeconv" in a for a in b2)
+
+
+@pytest.mark.cuda
+def test_nan_checks_name_the_kernels_on_the_card():
+    """Under NaN debugging a NaN from B2 is named by its wrapper, a NaN
+    feature by B1's score check, a NaN from an aten operation by its
+    module; everything is off again afterwards."""
+    require_cuda()
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from hpcs_torch.utils import profiling
+
+    system, batch, dv = _small_card_system()
+    with profiling.nan_debugging():
+        system.embed(batch["points"], dv)  # healthy: no raise
+    net = system.net.nn_feat
+    with torch.no_grad():
+        net.conv3.map_to_feat.weight[0, 0] = float("nan")
+    with pytest.raises(FloatingPointError, match=r"edgeconv \(kernel B2\)"):
+        with profiling.nan_debugging():
+            system.embed(batch["points"], dv)
+    nan_cloud = torch.full((1, 64, 3), float("nan"), device="cuda")  # made before the checks
+    with pytest.raises(FloatingPointError, match=r"knn \(kernel B1\)"):
+        with profiling.nan_debugging():
+            K.knn(nan_cloud, 4)
+    with torch.no_grad():
+        net.conv3.map_to_feat.weight[0, 0] = 0.0
+        net.conv6.map_to_feat.weight[0, 0] = float("nan")
+    with pytest.raises(FloatingPointError, match="nn_feat.conv6"):
+        with profiling.nan_debugging():
+            system.embed(batch["points"], dv)
+    assert _get_current_dispatch_mode() is None and not torch.is_anomaly_enabled()
+    assert not profiling.nan_debugging_enabled()
