@@ -12,7 +12,10 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    adjacent; D = 3, 63 and 64), a line of points whose rows' scores rise
    (the selection's worst case) and equal points; and times it on clouds
    whose selection work differs, beside the warp queue's insertions per
-   row;
+   row; and launches B1 over each half of the points' and stage inputs'
+   rows (a 2-way point-sharded rank's launch), in fp32 and on bf16
+   features, each index for index the whole launch's rows, the second
+   half timed beside the whole launch and its bound;
 3. holds kernel B2 (EdgeConv stage) against edgeconv_infer_plain at the
    three stage shapes of the model: atol 1e-5 / rtol 1e-4 wherever fp32
    can fix the result, and a bound scaled by the conditioning elsewhere
@@ -20,7 +23,10 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    twin in float64 on planted inputs whose pre-BatchNorm vectors are near
    the gate's EPS yet exact in fp32 (testing.check_planted_eps); times each
    stage whole and, by kernel under torch.profiler, its projection and its
-   edge kernel apart, beside ptxas's registers and spills of each;
+   edge kernel apart, beside ptxas's registers and spills of each; and
+   launches B2 over each half of each stage's centres (its projection over
+   the whole table), fp32 and bf16, each the whole launch's rows bit for
+   bit, the second half timed beside the whole launch and its bound;
 4. answers requests of 16 synthetic clouds of 1024 points with the flagship
    model (eucl = hyp = 32, k = 20, 16 categories, random weights and random
    BatchNorm statistics from a seed), counts the kernels' launches, compares
@@ -32,7 +38,8 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    k = 33 and 40, N = 4097 and 8192, D = 128) against knn_plain, index for
    index on the exact-score clouds and up to near-ties on a random one,
    times it beside its bound, and checks that the forward's requests made
-   no wide launch;
+   no wide launch; over half of the rows of two shapes it equals the whole
+   launch's rows, timed beside it;
 6. answers the same requests with HypHCSystem.test_step (so3 rotation from
    a seeded generator, labels from the synthetic parts): counts the
    kernels' launches, checks the card's distance matrices against the CPU
@@ -146,16 +153,27 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    flagship objects, whose per-object linkage, prediction, best k and best
    score equal the single-process decode of its embeddings; (d) the
    point-sharded eval forward at B=2, N=4096 over the 2 ranks against the
-   unsharded forward (atol 1e-4 / rtol 1e-3), timed beside it, and the
+   unsharded forward (atol 1e-4 / rtol 1e-3), timed beside it, B1 and B2
+   over each rank's rows of the gathered cloud only, and the
    point-sharded training step at B=2, N=256 against the unsharded step:
    in fp32 the loss within rtol 2e-5 and the ranks equal, in float64
    (knn_plain's graphs) logs and gradients within testing.FLOAT64_WITNESS
    (the fp32 step is ill-conditioned: another order of its sums moves a
-   weight by 1.4e-4 where two runs of one order agree); --data_parallel beyond
-   the visible GPUs must raise.  Prints the step ms at world sizes 1 and 2,
+   weight by 1.4e-4 where two runs of one order agree); (e) the same for
+   DGCNN, PointNet, VN-PointNet with max pooling, VN-DGCNN with max
+   pooling, in bf16 and with class_vector, at full width (POINT_CONFIGS):
+   the sharded forward at B=2, N=4096 against the unsharded one (bf16
+   within 3 % of the output's largest entry), both timed, the sharded step
+   at B=2, N=256 (its loss within rtol 2e-5 of the unsharded step's, 2^-8
+   for PointNet and bf16, whose steps are noise at B = 2; the ranks equal
+   bit for bit) and in float64 at B=4; every sharded run launches B1 and
+   B2 over its rank's rows only (B1 4 / 0 / 1 / 3 / 3 / 3 a forward and a
+   step, B2 0 / 0 / 0 / 0 / 3 / 3 a forward); --data_parallel beyond the
+   visible GPUs must raise.  Prints the step ms at world sizes 1 and 2,
    the world-size-1 step's parts beside the single-device step's, the
-   all-reduce ms per step, each backend and the phase's B1 and B2
-   launches, which the kernels line counts;
+   all-reduce ms per step, each backend, each configuration's readings and
+   the phase's B1 and B2 launches and row-range launches, which the
+   kernels line counts;
 14. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
    with --profile at the flagship (B=8, N=1024, a ShapeNet-Part tree of 2
    categories: 2 training steps, 1 validation and 1 test batch): one
@@ -173,8 +191,9 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    ImportError before any launch; (d) `python -m
    hpcs_torch.check_invariance` at B=16, N=1024, 8 rotations, fp32 and
    bf16 (its verdict must be PASS), with each stage's graph agreement;
-15. prints one JSON line per kernel summary, the card's name and power
-   limit, and last {"ok": true, "device": {...}}.
+15. prints one JSON line per kernel summary (with its row-range
+   launches), the card's name and power limit, and last {"ok": true,
+   "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
 without the last line.  --json also writes every phase's results to PATH.
@@ -297,34 +316,40 @@ def bound_ms(ops, nbytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def knn_work(b, n, d, k, feature_bytes=4):
-    """The least fp32 operations and the bytes of one kNN launch.
+def knn_work(b, n, d, k, feature_bytes=4, rows=None):
+    """The least fp32 operations and the bytes of one kNN launch over
+    `rows` query rows of each cloud (None: all n).
 
     Per score, D FMAs: the chain starts from -|x_j|^2 and takes 2 x_i, both
     made once per point (3 D operations each).  Selecting the k best takes
     one compare per score against the row's running k-th best.  Bytes: the
-    cloud in (feature_bytes a value: 2 for bf16), the indices out.
+    cloud in (feature_bytes a value: 2 for bf16), the rows' indices out.
     """
-    return (2 * b * n * n * d + b * n * n + 3 * b * n * d,
-            feature_bytes * b * n * d + 4 * b * n * k)
+    r = n if rows is None else rows
+    return (2 * b * r * n * d + b * r * n + 3 * b * n * d,
+            feature_bytes * b * n * d + 4 * b * r * k)
 
 
-def edgeconv_work(b, n, c, k, n_convs, cout=21, feature_bytes=4):
-    """The least fp32 operations and the bytes of one EdgeConv launch.
+def edgeconv_work(b, n, c, k, n_convs, cout=21, feature_bytes=4, rows=None):
+    """The least fp32 operations and the bytes of one EdgeConv launch over
+    `rows` centres of each cloud (None: all n).
 
     conv1 is linear in the edge feature [x_j - x_i || x_i], so W1 e =
     Wa x_j + (Wb - Wa) x_i: both products (and those of Wd1) are made once
-    per point, and each edge adds two of them for p and two for d.  Per
-    edge then: those adds, the gates, conv2 and its gates, the mean's adds.
-    Bytes: the features, indices and weights in, the output out; features
-    and output at feature_bytes a value (2 for bf16), the rest 4.
+    per point that an edge reads (every point of the table at most; the
+    range's centres at least: counted so), and each edge adds two of them
+    for p and two for d.  Per edge then: those adds, the gates, conv2 and
+    its gates, the mean's adds.  Bytes: the table's features, the rows'
+    indices and the weights in, the rows' output out; features and output
+    at feature_bytes a value (2 for bf16), the rest 4.
     """
+    r = n if rows is None else rows
     per_edge = 2 * cout * 3 + cout * GATE_OPS + cout * 3
     if n_convs == 2:
         per_edge += 2 * cout * cout * 3 * 2 + cout * GATE_OPS
-    ops = b * n * (k * per_edge + 4 * c * cout * 3 * 2 + cout * 3)
+    ops = b * r * (k * per_edge + 4 * c * cout * 3 * 2 + cout * 3)
     weights = 2 * cout * 2 * c + 2 * cout + (2 * cout * cout + 2 * cout) * (n_convs == 2)
-    nbytes = feature_bytes * (b * n * c * 3 + b * n * cout * 3) + 4 * (b * n * k + weights)
+    nbytes = feature_bytes * (b * n * c * 3 + b * r * cout * 3) + 4 * (b * r * k + weights)
     return ops, nbytes
 
 
@@ -471,6 +496,31 @@ class recorded_knn:
         self.module.knn = self.real
 
 
+def half_cloud_knn(KN, clouds, k=K):
+    """B1 over each half of each cloud's rows (what a rank of a 2-way
+    point-sharded forward launches), in fp32 and on bf16 features: each
+    half index for index the whole launch's rows; the second half's device
+    time (CUDA events, 20 launches) beside the whole launch's and the
+    half's bound."""
+    out = {}
+    for case, x32 in clouds.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype).contiguous()
+            b, n, d = x.shape
+            whole = KN.knn(x, k)
+            halves = ((0, n // 2), (n // 2, n))
+            for half in halves:
+                if not torch.equal(KN.knn(x, k, rows=half), whole[:, half[0]:half[1]]):
+                    fail(f"knn: rows {half} of {case} ({dtype}) differ from the whole launch's")
+            ms = cuda_ms(lambda x=x: KN.knn(x, k, rows=halves[1]), 20)
+            bound, by = bound_ms(*knn_work(b, n, d, k, x.element_size(), rows=n - n // 2))
+            out[f"{case}_{str(dtype)[6:]}"] = dict(
+                B=b, N=n, D=d, k=k, rows=list(halves[1]), equal_to_whole=True, ms=ms,
+                whole_ms=cuda_ms(lambda x=x: KN.knn(x, k), 20), bound_ms=bound, bound_by=by,
+                roofline_share=bound / ms)
+    return out
+
+
 def knn_wide_phase(KN, rng, card):
     """B1's wide route at the shapes knn_kernel refuses, against knn_plain.
 
@@ -514,7 +564,21 @@ def knn_wide_phase(KN, rng, card):
         bound, by = bound_ms(*knn_work(b, n, d, k))
         rows.append(dict(B=b, N=n, D=d, k=k, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                          roofline_share=bound / ms, cases=cases))
-    out = dict(shapes=rows, max_score_gap=gap, ms=sum(r["ms"] for r in rows),
+    # the wide route over half of each cloud's rows, index for index the
+    # whole launch's, timed beside it
+    halves = {}
+    for b, n, d, k in ((4, 8192, 63, 20), (B, 1024, 128, 20)):
+        x = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32)).cuda()
+        whole = KN._knn_wide_cuda(x, k)
+        for half in ((0, n // 2), (n // 2, n)):
+            if not torch.equal(KN._knn_wide_cuda(x, k, rows=half), whole[:, half[0]:half[1]]):
+                fail(f"knn_wide: rows {half} of {(b, n, d, k)} differ from the whole launch's")
+        ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k, rows=(n // 2, n)), 5)
+        bound, by = bound_ms(*knn_work(b, n, d, k, rows=n - n // 2))
+        halves[f"{b}x{n}x{d}_k{k}"] = dict(rows=[n // 2, n], equal_to_whole=True, ms=ms,
+                                          whole_ms=cuda_ms(lambda: KN._knn_wide_cuda(x, k), 5),
+                                          bound_ms=bound, bound_by=by)
+    out = dict(shapes=rows, half_cloud=halves, max_score_gap=gap, ms=sum(r["ms"] for r in rows),
                plain_ms=sum(r["plain_ms"] for r in rows),
                bound_ms=sum(r["bound_ms"] for r in rows), card=card)
     out["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in rows)
@@ -1925,16 +1989,62 @@ def _synthetic(b, n, categories=8, seed=5):
     return {"points": p, "category": c, "labels": seg}
 
 
+COUNTERS = {"knn": ("knn", "launches"), "knn_wide": ("knn", "wide_launches"),
+            "knn_bf16": ("knn", "bf16_launches"), "knn_rows": ("knn", "row_launches"),
+            "edgeconv": ("edgeconv_infer", "launches"),
+            "edgeconv_bf16": ("edgeconv_infer", "bf16_launches"),
+            "edgeconv_rows": ("edgeconv_infer", "row_launches")}
+
+
 def _counts(reset=False):
-    """The kernels' launch counts in this process (zeroed with reset)."""
+    """The kernels' launch counts in this process (COUNTERS: every launch,
+    the wide route's, those on bf16 features and those over a row range;
+    zeroed with reset)."""
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
 
-    out = {"knn": KN.knn.launches, "knn_wide": KN.knn.wide_launches,
-           "edgeconv": E.edgeconv_infer.launches}
+    fns = {"knn": KN.knn, "edgeconv_infer": E.edgeconv_infer}
+    out = {k: getattr(fns[fn], attr) for k, (fn, attr) in COUNTERS.items()}
     if reset:
-        KN.knn.launches = KN.knn.wide_launches = E.edgeconv_infer.launches = 0
+        for fn, attr in COUNTERS.values():
+            setattr(fns[fn], attr, 0)
     return out
+
+
+def _launches(knn=0, edgeconv=0, knn_rows=0, edgeconv_rows=0, bf16=False):
+    """A _counts dict: B1 and B2 launches, of which knn_rows and
+    edgeconv_rows over a row range, all on bf16 features with bf16."""
+    return {"knn": knn, "knn_wide": 0, "knn_bf16": knn if bf16 else 0, "knn_rows": knn_rows,
+            "edgeconv": edgeconv, "edgeconv_bf16": edgeconv if bf16 else 0,
+            "edgeconv_rows": edgeconv_rows}
+
+
+# the configurations the parallel phase also shards over the points, at
+# full width (backbone_system): ModelConfig fields, B1 and B2 row-range
+# launches per forward (B1's also per training step; B2 none in training),
+# and the rtol of the sharded step's loss against the unsharded step's:
+# 2e-5 (the flagship's), except where the step is noise at B = 2 (ROADMAP
+# §C): PointNet's STN BatchNorms over [B, C] cancel in fp32 (two nearly
+# equal global features), and bf16 rounds; both are held to one bf16
+# rounding of the loss, 2^-8 (PointNet 9.3e-4 and bf16 7.6e-4 apart on an
+# H100; their float64 steps agree within FLOAT64_WITNESS)
+LOSS_NOISY = 2.0 ** -8
+POINT_CONFIGS = {
+    "dgcnn_partseg": (dict(model_name="dgcnn_partseg", eucl_dim=50), 4, 0, 2e-5),
+    "pointnet_partseg": (dict(model_name="pointnet_partseg", eucl_dim=50), 0, 0, LOSS_NOISY),
+    "vn_pointnet_partseg_max": (dict(model_name="vn_pointnet_partseg", eucl_dim=50,
+                                     pooling="max"), 1, 0, 2e-5),
+    "vn_dgcnn_partseg_max": (dict(pooling="max", eucl_dim=EUCL), 3, 0, 2e-5),
+    "vn_dgcnn_partseg_bf16": (dict(bf16=True, eucl_dim=EUCL), 3, 3, LOSS_NOISY),
+    "vn_dgcnn_partseg_class_vector": (dict(class_vector=True, eucl_dim=EUCL), 3, 3, 2e-5),
+}
+POINT_TIMED = 3  # sharded and unsharded forwards timed per configuration
+# clouds of the float64 witness step: at B = 2 PointNet's STN BatchNorms over
+# [B, C] cancel even in float64 (two nearly equal global features; the
+# sharded and unsharded float64 steps 1.5e-7 of conv1's gradient apart on
+# the CPU), at B = 4 they do not (4.2e-9)
+FLOAT64_B = 4
+BF16_FORWARD_SHARE = 0.03  # the bf16 phase's rule: of the output's largest entry
 
 
 def _timed_steps(step, batch, gen, system, warmup=PAR_WARMUP):
@@ -2067,6 +2177,98 @@ def _parallel_nccl():
                 worst_vs_single_device=worst, single_device_spread=spread)
 
 
+def _point_sharded_configuration(fields, knn_rows, ec_rows, loss_rtol, mesh):
+    """(e) One configuration of POINT_CONFIGS sharded over the points of
+    `mesh` (1, 2), at full width: the sharded eval forward at B=2, N=4096
+    against the unsharded forward (fp32: atol 1e-4 / rtol 1e-3; bf16:
+    within BF16_FORWARD_SHARE of the output's largest entry, the bf16
+    phase's rule, since a sum over the points in another order may flip a
+    bf16 rounding), both timed; the sharded fp32 training step at B=2,
+    N=256 against the unsharded step (the loss within loss_rtol) and its
+    ranks' parameters equal bit for bit; its float64 step (dropout 0, no
+    rotation, knn_plain's graphs, B=FLOAT64_B) against the unsharded
+    float64 step's logs and gradients; each run's kernel launches, which
+    must be row-range launches only."""
+    import copy
+
+    from hpcs_torch.models import decode_vector_for_batch
+    from hpcs_torch.nn.backbones import vn_dgcnn
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.parallel import (collectives, make_point_sharded_forward,
+                                     make_point_sharded_train_step, shard_points_batch)
+    from hpcs_torch.parallel.point_parallel import PointShard, decode_vector
+    from hpcs_torch.testing import FLOAT64_WITNESS, GRAD_FLOOR, float64_train_step
+
+    out, launches = {}, {}
+    bf16 = bool(fields.get("bf16"))
+    system = backbone_system(fields)
+    long = _synthetic(2, PAR_LONG_N, seed=7)
+    part = shard_points_batch(mesh, long)
+    forward = make_point_sharded_forward(system, mesh)
+    dv = decode_vector(mesh, system.cfg, part)
+    _counts(reset=True)
+    got = forward(part["points"], dv)
+    launches["forward"] = _counts()
+    want_dv = decode_vector_for_batch(system.cfg, long)
+    want = system.embed(long["points"], want_dv)
+    errs = []
+    for g, w in zip(got, want):
+        g = collectives.gather_slots(g, 1)
+        err = (g - w).abs()
+        errs.append(float(err.max()))
+        limit = (BF16_FORWARD_SHARE * w.abs().max() if bf16 else 1e-4 + 1e-3 * w.abs())
+        if not bool((err <= limit).all()) or not bool(torch.isfinite(g).all()):
+            fail(f"parallel: the point-sharded forward of {fields} is {errs[-1]:.3e} from the "
+                 "unsharded")
+    out.update(forward_max_abs_err=max(errs), forward_max_abs_err_share=max(errs) / max(
+        float(w.abs().max()) for w in want),
+        forward_ms=host_ms(lambda: forward(part["points"], dv), POINT_TIMED),
+        unsharded_forward_ms=host_ms(lambda: system.embed(long["points"], want_dv), POINT_TIMED))
+
+    train = dict(t_per_anchor=50, temperature=0.05, lr=0.005)
+    plain = backbone_system(fields, **train)
+    small = _synthetic(2, 256)
+    ref_logs = copy.deepcopy(plain).train_step(
+        small, torch.Generator(device=plain.device).manual_seed(SEED))
+    step = make_point_sharded_train_step(plain, mesh)
+    _counts(reset=True)
+    logs = step(shard_points_batch(mesh, small),
+                torch.Generator(device=plain.device).manual_seed(SEED))
+    launches["train"] = _counts()
+    flat = torch.cat([p.detach().reshape(-1) for p in plain.net.parameters()])
+    if not torch.equal(*collectives.gather_slots(flat).reshape(2, -1)):
+        fail(f"parallel: the point-sharded step of {fields} left the ranks' parameters apart")
+    loss_gap = abs(float(logs["total_loss"]) / float(ref_logs["total_loss"]) - 1)
+    if not loss_gap <= loss_rtol:  # a NaN fails too
+        fail(f"parallel: the point-sharded step of {fields}: its loss is {loss_gap:.3e} from "
+             f"the unsharded step's, beyond {loss_rtol:.3e}")
+
+    sys64 = backbone_system(fields, dropout=0.0, train_rotation="none", **train)
+    wider = _synthetic(FLOAT64_B, 256)
+    real_knn, vn_dgcnn.knn = vn_dgcnn.knn, KN.knn_plain
+    try:
+        logs64, grads64, _ = float64_train_step(sys64, wider, None, sys64.device)
+        got_logs, got_grads, _ = float64_train_step(sys64, shard_points_batch(mesh, wider), None,
+                                                    sys64.device, shard=PointShard(mesh))
+    finally:
+        vn_dgcnn.knn = real_knn
+    top = max(float(np.abs(g).max()) for g in grads64.values())
+    worst = max(abs(got_logs[k] / v - 1) for k, v in logs64.items())
+    worst_grad, leaf = max((float(np.abs(got_grads[k] - g).max()) / max(
+        float(np.abs(g).max()), GRAD_FLOOR * top), k) for k, g in grads64.items())
+    if max(worst, worst_grad) > FLOAT64_WITNESS:
+        fail(f"parallel: the point-sharded float64 step of {fields}: logs {worst:.3e} and "
+             f"gradients {worst_grad:.3e} ({leaf}) from the unsharded float64 step's")
+    expect = {"forward": _launches(knn_rows, ec_rows, knn_rows, ec_rows, bf16),
+              "train": _launches(knn_rows, 0, knn_rows, 0, bf16)}
+    if launches != expect:
+        fail(f"parallel: the point-sharded {fields} launched {launches}, expected {expect}")
+    out.update(train_loss_rel_err=loss_gap, train_loss=float(logs["total_loss"]),
+               unsharded_train_loss=float(ref_logs["total_loss"]),
+               float64_logs_rel_err=worst, float64_grad_share=worst_grad, launches=launches)
+    return out
+
+
 def _parallel_gloo():
     """(b) 2 ranks sharing the card over gloo: the small step against the
     CPU port's 2-rank step, the flagship step timed and replicated; (c) the
@@ -2197,6 +2399,10 @@ def _parallel_gloo():
              f"{worst_grad:.3e} from the unsharded float64 step's")
     out.update(point_train_loss_rel_err=gap, point_train_float64_logs_rel_err=worst,
                point_train_float64_grad_share=worst_grad, launches=launches)
+
+    # (e) every other configuration, point-sharded at full width
+    out["configurations"] = {name: _point_sharded_configuration(*config, points_mesh)
+                             for name, config in POINT_CONFIGS.items()}
     return out
 
 
@@ -2218,18 +2424,31 @@ def parallel_phase(card):
         refused = str(e)
     one = run_ranks(_parallel_nccl, 1, backend="nccl", device_ids=[0])[0]
     two = run_ranks(_parallel_gloo, 2, backend="gloo", device_ids=[0, 0])
-    launches = {k: one["launches"][k] + sum(sum(part[k] for part in r["launches"].values())
-                                            for r in two)
-                for k in ("knn", "knn_wide", "edgeconv")}
-    want = {"train": {"knn": 3 * (PAR_WARMUP + PAR_TIMED), "knn_wide": 0, "edgeconv": 0},
-            "test_step": {"knn": 3, "knn_wide": 0, "edgeconv": 3},
-            "point_forward": {"knn": 3, "knn_wide": 0, "edgeconv": 3},
-            "point_train": {"knn": 3, "knn_wide": 0, "edgeconv": 0}}
+    runs = [one["launches"]] + [part for r in two for part in (
+        list(r["launches"].values())
+        + [c for cfg in r["configurations"].values() for c in cfg["launches"].values()])]
+    launches = {k: sum(run[k] for run in runs) for k in COUNTERS}
+    # row-range launches by route (a run is all bf16 or all fp32)
+    rows = {f"{kernel}{route}": sum(run[f"{kernel}_rows"] for run in runs
+                                    if bool(run[f"{kernel}_bf16"]) == (route == "_bf16"))
+            for kernel in ("knn", "edgeconv") for route in ("", "_bf16")}
+    want = {"train": _launches(knn=3 * (PAR_WARMUP + PAR_TIMED)),
+            "test_step": _launches(knn=3, edgeconv=3),
+            "point_forward": _launches(3, 3, 3, 3), "point_train": _launches(3, 0, 3, 0)}
     if any(r["launches"] != want for r in two) or one["launches"] != want["train"]:
         fail(f"parallel: launch counts {[r['launches'] for r in two]} (ranks), "
              f"{one['launches']} (world size 1), expected {want} a rank")
     r0 = two[0]
-    out = dict(B=TRAIN_B, N=N, k=K, eucl=EUCL, hyp=HYP, launches=launches,
+    configurations = {name: dict(
+        forward_ms={"sharded_2_ranks": c["forward_ms"], "unsharded": c["unsharded_forward_ms"]},
+        forward_max_abs_err=max(r["configurations"][name]["forward_max_abs_err"] for r in two),
+        forward_max_abs_err_share=max(r["configurations"][name]["forward_max_abs_err_share"]
+                                      for r in two),
+        train_loss_rel_err=c["train_loss_rel_err"], train_loss_rtol=POINT_CONFIGS[name][3],
+        float64_logs_rel_err=max(r["configurations"][name]["float64_logs_rel_err"] for r in two),
+        float64_grad_share=max(r["configurations"][name]["float64_grad_share"] for r in two),
+        launches_a_rank=c["launches"]) for name, c in r0["configurations"].items()}
+    out = dict(B=TRAIN_B, N=N, k=K, eucl=EUCL, hyp=HYP, launches=launches, row_launches=rows,
                backends={"world_size_1": one["backend"], "world_size_2": r0["backend"]},
                step_ms={"world_size_1": one["step_ms_median"], "world_size_2": r0["step_ms_median"],
                         "single_device": one["single_device_step_ms_median"]},
@@ -2239,12 +2458,15 @@ def parallel_phase(card):
                point_forward_ms={"sharded_2_ranks": r0["point_forward_ms"],
                                  "unsharded": r0["unsharded_forward_ms"], "B": 2,
                                  "N": PAR_LONG_N},
+               point_configurations=configurations,
                world_size_1=one, ranks=two, refused_beyond_visible=refused,
                rule=f"world size 1: every entry within {FACTOR} S, S the largest entry by "
                     "which two single-device runs differ, the all-reduce the identity on the "
                     "first step; "
-                    "point-sharded step: loss rtol 2e-5, in float64 logs and gradients within "
-                    "FLOAT64_WITNESS; point-sharded forward atol 1e-4 / rtol 1e-3",
+                    "point-sharded step: loss rtol 2e-5 (PointNet and bf16: 2^-8), in float64 "
+                    "logs and gradients within FLOAT64_WITNESS; point-sharded forward atol 1e-4 "
+                    f"/ rtol 1e-3 (bf16: {BF16_FORWARD_SHARE} of the largest entry); only "
+                    "row-range launches",
                seconds=time.time() - t0, card=card)
     emit("parallel", **out)
     return out
@@ -2724,8 +2946,10 @@ def main():
         w3, w63 = knn_work(B, N, 3, K), knn_work(B, N, 63, K)
         knn_b = {d: bound_ms(*w) for d, w in (("d3", w3), ("d63", w63),
                                                ("d64", knn_work(B, N, 64, K)))}
+        knn_halves = half_cloud_knn(KN, {"points_d3": pts, "stage2_d63": f1, "stage3_d63": f2})
         emit("knn", cases=knn_rows, B=B, N=N, k=K, ms=knn_ms, plain_ms=plain_ms,
-             bound_ms={d: v[0] for d, v in knn_b.items()}, selection=selection, card=card)
+             bound_ms={d: v[0] for d, v in knn_b.items()}, selection=selection,
+             half_cloud=knn_halves, card=card)
 
         # 3. kernel B2 against edgeconv_infer_plain at the three stage shapes
         stages = {"stage1_c1": (x0, idx1, w12, 2), "stage2_c21": (x1, idx2, w34, 2),
@@ -2760,9 +2984,35 @@ def main():
                                plain_ms=cuda_ms(lambda: E.edgeconv_infer_plain(
                                    x, idx, *w, n_convs=nc), 5),
                                bound_ms=bound, bound_by=by, roofline_share=bound / ms)
+        # B2 over each half of the centres (a 2-way point-sharded rank's
+        # launch, the projection over the whole table), fp32 and bf16: the
+        # whole launch's rows bit for bit, the second half timed
+        ec_halves = {}
+        for st, (x32, idx, w, nc) in stages.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                whole = E.edgeconv_infer(x, idx, *w, n_convs=nc)
+                halves = ((0, N // 2), (N // 2, N))
+                for half in halves:
+                    part = idx[:, half[0]:half[1]].contiguous()
+                    if not torch.equal(E.edgeconv_infer(x, part, *w, n_convs=nc, rows=half),
+                                       whole[:, half[0]:half[1]]):
+                        fail(f"edgeconv: rows {half} of {st} ({dtype}) differ from the whole "
+                             "launch's")
+                part = idx[:, N // 2:].contiguous()
+                ms = cuda_ms(lambda x=x, part=part, w=w, nc=nc: E.edgeconv_infer(
+                    x, part, *w, n_convs=nc, rows=halves[1]), 20)
+                bound, by = bound_ms(*edgeconv_work(B, N, x.shape[2], K, nc, rows=N - N // 2,
+                                                    feature_bytes=x.element_size()))
+                ec_halves[f"{st}_{str(dtype)[6:]}"] = dict(
+                    rows=list(halves[1]), equal_to_whole=True, ms=ms,
+                    whole_ms=cuda_ms(lambda x=x, idx=idx, w=w, nc=nc: E.edgeconv_infer(
+                        x, idx, *w, n_convs=nc), 20), bound_ms=bound, bound_by=by,
+                    roofline_share=bound / ms)
         ec_ms = sum(r["ms"] for r in ec_rows.values())
         ec_bound = sum(r["bound_ms"] for r in ec_rows.values())
-        emit("edgeconv", stages=ec_rows, ms_per_forward=ec_ms, bound_ms_per_forward=ec_bound,
+        emit("edgeconv", stages=ec_rows, half_cloud=ec_halves, ms_per_forward=ec_ms,
+             bound_ms_per_forward=ec_bound,
              roofline_share=ec_bound / ec_ms, ptxas=ptxas["edgeconv"], atol=1e-5, rtol=1e-4,
              ill_conditioned_below=1e-4, ill_conditioned_limit="1e-5 + 2^-23 max|b| / |p|",
              card=card)
@@ -2868,7 +3118,9 @@ def main():
     par = parallel_phase(card)
     obs = observe_phase(card)
 
-    # 15. summary lines
+    # 15. summary lines (row_launches: the launches over a row range, all
+    # in the parallel phase's point-sharded runs)
+    par_rows = par["row_launches"]
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
     knn_plain_total = plain_ms["d3"] + 2 * plain_ms["d63"]
     knn_ops = w3[0] + 2 * w63[0]
@@ -2884,7 +3136,7 @@ def main():
              + train["fit_launches"]["knn"] + entry_launches["knn"]
              + backbones["launches"]["knn"] + imp["launches"]["knn"]
              + trained["launches_fp32"]["knn"] + par["launches"]["knn"]
-             + obs["launches"]["knn"],
+             - par["launches"]["knn_bf16"] + obs["launches"]["knn"], row_launches=par_rows["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
@@ -2894,7 +3146,7 @@ def main():
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
              + imp["launches"]["knn_wide"] + trained["launches"]["knn_wide"]
-             + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"],
+             + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"], row_launches=0,
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
@@ -2903,7 +3155,8 @@ def main():
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
              + imp["launches"]["edgeconv"] + trained["launches_fp32"]["edgeconv"]
-             + par["launches"]["edgeconv"] + obs["launches"]["edgeconv"],
+             + par["launches"]["edgeconv"] - par["launches"]["edgeconv_bf16"]
+             + obs["launches"]["edgeconv"], row_launches=par_rows["edgeconv"],
              max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
              plain_ms=sum(s["plain_ms"] for s in ec_rows.values()),
@@ -2912,14 +3165,16 @@ def main():
         dict(name="knn_bf16", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
              launches=bf16["launches_main_path"]["knn_bf16"] + trained["launches"]["knn_bf16"]
-             + obs["launches"]["knn_bf16"],
+             + obs["launches"]["knn_bf16"] + par["launches"]["knn_bf16"],
+             row_launches=par_rows["knn_bf16"],
              max_abs_err=bf16["knn_max_score_gap"], ms=bf16["knn_ms_per_forward"],
              plain_ms=bf16["knn_plain_ms_per_forward"], bound_ms=bf16["knn_bound_ms_per_forward"],
              bound_by=bf16["knn_bound_by"], library_ms=None),
         dict(name="edgeconv_bf16", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
              launches=bf16["launches_main_path"]["edgeconv_bf16"]
-             + trained["launches"]["edgeconv_bf16"] + obs["launches"]["edgeconv_bf16"],
+             + trained["launches"]["edgeconv_bf16"] + obs["launches"]["edgeconv_bf16"]
+             + par["launches"]["edgeconv_bf16"], row_launches=par_rows["edgeconv_bf16"],
              max_abs_err=bf16["edgeconv_max_abs_err"], ms=bf16["edgeconv_ms_per_forward"],
              plain_ms=bf16["edgeconv_plain_ms_per_forward"],
              bound_ms=bf16["edgeconv_bound_ms_per_forward"], bound_by=bf16["edgeconv_bound_by"],

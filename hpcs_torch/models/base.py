@@ -134,8 +134,9 @@ class HypHCSystem:
 
     In a point-sharded call (hpcs_torch.nn.point_shard.current(), a
     hpcs_torch.parallel.point_parallel.PointShard) a batch holds this
-    rank's points only, the rotations are drawn for the whole batch, and the
-    losses see every rank's embeddings.
+    rank's points only, the rotations are drawn for the whole batch, the
+    class_vector decode vector covers every rank's labels, and the losses
+    see every rank's embeddings.
     """
 
     def __init__(self, cfg: ModelConfig, device=None, generator=None):
@@ -168,8 +169,9 @@ class HypHCSystem:
         shard = point_shard.current()
         rotate = augment if shard is None else shard.augment
         points = rotate(generator, points, rotation).contiguous()
-        dv = torch.as_tensor(decode_vector_for_batch(self.cfg, batch), dtype=torch.float32,
-                             device=self.device)
+        dv = (torch.as_tensor(decode_vector_for_batch(self.cfg, batch), dtype=torch.float32,
+                              device=self.device) if shard is None
+              else shard.decode_vector(self.cfg, batch, self.device))
         labels = torch.as_tensor(batch["labels"], dtype=torch.int64, device=self.device)
         return points, dv, labels
 

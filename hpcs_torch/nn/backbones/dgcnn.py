@@ -9,16 +9,23 @@ follow the JAX package's (conv1..conv11, transform_net); each block is
 Sequential(Linear, BatchNorm, LeakyReLU) (`nn.vn.layers.dense_block`).
 
 The four kNN graphs (on the points, on the aligned points and on the
-64-channel features of stages 1 and 2) come from `vn_dgcnn.knn_graph`:
+64-channel features of stages 1 and 2) come from `vn_dgcnn.neighbours`:
 kernel B1 on the GPU, on the detached features.  The stages are plain
 PyTorch in training and in eval, as in the JAX package.
+
+In a point-sharded call (hpcs_torch.nn.point_shard) the graphs cover this
+rank's rows of the gathered features, the two maxima over the points
+(TransformNet's and conv6's) are the whole cloud's, the blocks on
+per-cloud tensors (TransformNet's after its pool, conv7) run under
+`point_shard.per_cloud`, and the dropout masks are drawn whole.
 """
 import torch
 from torch import nn
 
 from ...ops.edgeconv import graph_feature_scalar
+from .. import point_shard
 from ..vn.layers import dense_block
-from .vn_dgcnn import dropout, knn_graph
+from .vn_dgcnn import dropout, neighbours
 
 
 def _block(in_features, out_features):
@@ -44,8 +51,9 @@ class TransformNet(nn.Module):
 
     def forward(self, edge_feat):
         x = self.conv2(self.conv1(edge_feat)).amax(dim=2)  # over K -> [B, N, 128]
-        x = self.conv3(x).amax(dim=1)  # over N -> [B, 1024]
-        return self.transform(self.linear2(self.linear1(x))).reshape(-1, 3, 3)
+        x = point_shard.max_over_points(self.conv3(x))  # over N -> [B, 1024]
+        with point_shard.per_cloud():
+            return self.transform(self.linear2(self.linear1(x))).reshape(-1, 3, 3)
 
 
 class DGCNNPartSeg(nn.Module):
@@ -75,10 +83,12 @@ class DGCNNPartSeg(nn.Module):
         aligned points, stage-1 and stage-2 features).  generator: draws
         the dropout masks after conv8 and conv9 (training with dropout > 0).
         """
+        shard = point_shard.current()
         B, N, _ = points.shape
 
         def edges(i, x):
-            return graph_feature_scalar(x, self.k, knn_graph(x, self.k, idx_override, i))[0]
+            idx, table, _ = neighbours(x, self.k, idx_override, i)
+            return graph_feature_scalar(x, self.k, idx, table=table)[0]
 
         t = self.transform_net(edges(0, points))
         x = torch.bmm(points, t)
@@ -86,13 +96,15 @@ class DGCNNPartSeg(nn.Module):
         x2 = self.conv4(self.conv3(edges(2, x1))).amax(dim=2)
         x3 = self.conv5(edges(3, x2)).amax(dim=2)
         x123 = torch.cat([x1, x2, x3], dim=-1)  # [B, N, 192]
-        x_global = self.conv6(x123).amax(dim=1)  # [B, 1024]
-        l = self.conv7(label)  # [B, 64]
+        x_global = point_shard.max_over_points(self.conv6(x123))  # [B, 1024]
+        with point_shard.per_cloud():
+            l = self.conv7(label)  # [B, 64]
         fused = torch.cat([x_global, l], dim=-1)[:, None, :].expand(B, N, -1)
         h = torch.cat([fused, x123], dim=-1)  # [B, N, 1280]
         p = self.dropout if self.training else 0.0
         if p and generator is None:
             raise ValueError("the training forward draws dropout masks: pass a generator")
-        h = dropout(self.conv8(h), p, generator)
-        h = dropout(self.conv9(h), p, generator)
+        drop = dropout if shard is None else lambda x, p, g: shard.dropout(x, p, g, point_dim=1)
+        h = drop(self.conv8(h), p, generator)
+        h = drop(self.conv9(h), p, generator)
         return self.conv11(self.conv10(h))

@@ -8,10 +8,16 @@ log_softmax over the parts, as in the reference: this backbone's
 [B, N, C]; no kNN graph.  Module names follow the JAX package's (stn,
 conv1..conv5, fstn, bn5, convs1..convs4; an STNkd's blocks are `blocks.i`
 for its `_ConvBNRelu_i` and `transform` for its `Dense_0`).
+
+In a point-sharded call (hpcs_torch.nn.point_shard) the maxima over the
+points (each STN's and the global feature's) are the whole cloud's, and
+each STN's blocks after its pool run under `point_shard.per_cloud`.
 """
 import torch
 from torch import nn
 
+from .. import point_shard
+from ..point_shard import max_over_points
 from ..vn.layers import BatchNorm, dense_block, zero_bias_linear
 
 
@@ -31,10 +37,12 @@ class STNkd(nn.Module):
 
     def forward(self, x):
         h = x
-        for i, block in enumerate(self.blocks):
+        for block in self.blocks[:3]:
             h = block(h)
-            if i == 2:
-                h = h.amax(dim=1)  # over N -> [B, 1024]
+        h = max_over_points(h)  # over N -> [B, 1024]
+        with point_shard.per_cloud():
+            for block in self.blocks[3:]:
+                h = block(h)
         t = self.transform(h) + torch.eye(self.k, dtype=h.dtype, device=h.device).reshape(1, -1)
         return t.reshape(-1, self.k, self.k)
 
@@ -68,7 +76,7 @@ class PointNetPartSeg(nn.Module):
         out3 = self.conv3(out2)
         out4 = self.conv4(torch.bmm(out3, self.fstn(out3)))
         out5 = self.bn5(self.conv5(out4))
-        out_max = torch.cat([out5.amax(dim=1), label], dim=-1)  # [B, 2048 + categories]
+        out_max = torch.cat([max_over_points(out5), label], dim=-1)  # [B, 2048 + categories]
         expand = out_max[:, None, :].expand(B, N, -1)
         concat = torch.cat([expand, out1, out2, out3, out4, out5], dim=-1)  # [B, N, 4944]
         net = self.convs4(self.convs3(self.convs2(self.convs1(concat))))

@@ -28,12 +28,13 @@ input's dtype).  The parameters stay fp32.
 
 In a point-sharded call (hpcs_torch.nn.point_shard.current(), a
 hpcs_torch.parallel.point_parallel.PointShard) this rank holds some of the
-points of some of the clouds, and the EdgeConv stages, the mean and max
-over the points, the batch statistics and the dropout masks go through the
-shard.  Without one the forward is the single-device one.
+points of some of the clouds: each stage's graph covers this rank's rows
+of the gathered features (`neighbours`; B1 over those rows) and its edges
+read their neighbours from that table (B2 over those rows in eval with
+mean pooling); the mean and max over the points, the batch statistics,
+conv7's per-cloud statistics and the dropout masks go through the shard.
+Without one the forward is the single-device one.
 """
-import contextlib
-
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -80,14 +81,31 @@ def stage_weights(*convs):
     return out
 
 
-def knn_graph(metric, k, idx_override=None, i=0):
+def knn_graph(metric, k, idx_override=None, i=0, rows=None):
     """Stage i's kNN graph [B, N, k] int32: idx_override[i] when given, else
     `knn` (kernel B1 on the GPU) on the detached metric [B, N, ...]
-    flattened to [B, N, D].  Every backbone builds its graphs here."""
+    flattened to [B, N, D], for query rows `rows` = (r0, r1) only when
+    given ([B, r1 - r0, k]).  Every backbone builds its graphs here."""
     if idx_override is not None:
         return idx_override[i]
     B, N = metric.shape[:2]
-    return knn(metric.detach().reshape(B, N, -1).contiguous(), k)
+    flat = metric.detach().reshape(B, N, -1).contiguous()
+    return knn(flat, k) if rows is None else knn(flat, k, rows=rows)
+
+
+def neighbours(x, k, idx_override=None, i=0):
+    """(graph, table, rows) of stage i on the features x [B, n, ...].
+
+    Unsharded: (knn_graph(x, k, idx_override, i), None, None).  In a
+    point-sharded call: x gathered over the points group (the table
+    [B, N, ...], every rank's points), this rank's rows (r0, r1) of it, and
+    their graph [B, n, k] over the whole table (B1 over those rows)."""
+    shard = point_shard.current()
+    if shard is None:
+        return knn_graph(x, k, idx_override, i), None, None
+    table = shard.gather_points(x)
+    rows = shard.row_range(table.shape[1])
+    return knn_graph(table, k, rows=rows), table, rows
 
 
 def dropout(x, p, generator):
@@ -127,10 +145,11 @@ class VNDGCNNPartSeg(nn.Module):
         self.conv10 = _head_block(256, 128)
         self.conv11 = _head_block(128, out_features, relu=False)
 
-    def _edge_stage(self, x, idx, *convs, pool=None):
-        """The plain EdgeConv stage: graph features, the convs, then `pool`
-        (VNMaxPool) or the mean over the neighbours."""
-        e, _ = graph_feature_vn(x, self.k, idx)
+    def _edge_stage(self, x, idx, *convs, pool=None, table=None):
+        """The plain EdgeConv stage: graph features (the neighbours from
+        `table` when given), the convs, then `pool` (VNMaxPool) or the mean
+        over the neighbours."""
+        e, _ = graph_feature_vn(x, self.k, idx, table=table)
         for conv in convs:
             e = conv(e)
         return mean_pool(e) if pool is None else pool(e)
@@ -149,22 +168,21 @@ class VNDGCNNPartSeg(nn.Module):
         dtype = self.compute_dtype or out_dtype
         points = points.to(dtype)
 
-        def graph(i, metric):
-            return knn_graph(metric, self.k, idx_override, i)
-
         x = points[:, :, None, :].contiguous()
-        if shard is not None:
-            x1, x2, x3 = shard.edge_stages(self, x)
-        elif self.training or self.pooling == "max":
-            pools = (self.pool1, self.pool2, self.pool3) if self.pooling == "max" else (None,) * 3
-            x1 = self._edge_stage(x, graph(0, points), self.conv1, self.conv2, pool=pools[0])
-            x2 = self._edge_stage(x1, graph(1, x1), self.conv3, self.conv4, pool=pools[1])
-            x3 = self._edge_stage(x2, graph(2, x2), self.conv5, pool=pools[2])
-        else:
-            x1 = edgeconv_infer(x, graph(0, points), *stage_weights(self.conv1, self.conv2))
-            x2 = edgeconv_infer(x1, graph(1, x1), *stage_weights(self.conv3, self.conv4))
-            x3 = edgeconv_infer(x2, graph(2, x2), *stage_weights(self.conv5), n_convs=1)
-        x123 = torch.cat([x1, x2, x3], dim=-2)  # [B, N, 63, 3]
+        stages = ((self.conv1, self.conv2), (self.conv3, self.conv4), (self.conv5,))
+        pools = (self.pool1, self.pool2, self.pool3) if self.pooling == "max" else (None,) * 3
+        outs = []
+        for i, (convs, pool) in enumerate(zip(stages, pools)):
+            idx, table, rows = neighbours(x, self.k, idx_override, i)
+            if self.training or pool is not None:
+                x = self._edge_stage(x, idx, *convs, pool=pool, table=table)
+            elif table is None:  # kernel B2 on the GPU
+                x = edgeconv_infer(x, idx, *stage_weights(*convs), n_convs=len(convs))
+            else:  # B2 over this rank's rows of the table
+                x = edgeconv_infer(table, idx, *stage_weights(*convs), n_convs=len(convs),
+                                   rows=rows)
+            outs.append(x)
+        x123 = torch.cat(outs, dim=-2)  # [B, N, 63, 3]
 
         x = self.conv6(x123)  # [B, N, 341, 3]
         x_mean = mean_pool(x, dim=1) if shard is None else shard.mean_over_points(x)
@@ -174,7 +192,7 @@ class VNDGCNNPartSeg(nn.Module):
         x_std = x_std.reshape(B, N, -1)  # [B, N, 2046], channel-major
         x123_inv = invariant_project(x123, z0).reshape(B, N, -1)  # [B, N, 189]
         x_global = x_std.max(dim=1).values if shard is None else shard.max_over_points(x_std)
-        with contextlib.nullcontext() if shard is None else point_shard.use(shard.objects()):
+        with point_shard.per_cloud():
             l = self.conv7(label[:, :, None], dtype)[:, :, 0]  # [B, 64]
 
         fused = torch.cat([x_global, l], dim=-1)[:, None, :].expand(B, N, -1)

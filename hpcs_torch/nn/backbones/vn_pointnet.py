@@ -7,15 +7,23 @@ points), VNStdFeature, and the 9025-channel invariant head with
 log_softmax over the parts.  Features are [B, N, C, 3].  Module names
 follow the JAX package's.  Plain PyTorch in training and in eval, as in
 the JAX package.
+
+In a point-sharded call (hpcs_torch.nn.point_shard) the graph covers this
+rank's rows of the gathered points (`vn_dgcnn.neighbours`), the pools
+over the points (VNSTNkd's mean or VNMaxPool, the global mean and max)
+are the whole cloud's, and VNSTNkd's fully connected blocks run under
+`point_shard.per_cloud`.
 """
 import torch
 from torch import nn
 
 from ...ops.edgeconv import graph_feature_cross_vn
+from .. import point_shard
+from ..point_shard import max_over_points
 from ..vn.layers import (VNBatchNorm, VNLinear, VNLinearLeakyReLU, VNMaxPool, VNStdFeature,
                          invariant_project, mean_pool, zero_bias_linear)
 from .pointnet import conv_bn_relu
-from .vn_dgcnn import knn_graph
+from .vn_dgcnn import neighbours
 
 
 def _vn_relu(in_channels, out_channels):
@@ -36,9 +44,16 @@ class VNSTNkd(nn.Module):
         self.fc3 = VNLinear(256 // 3, d)
 
     def forward(self, x):
+        shard = point_shard.current()
         h = self.conv3(self.conv2(self.conv1(x)))
-        h = mean_pool(h) if self.pool is None else self.pool(h)  # over N -> [B, C, 3]
-        return self.fc3(self.fc2(self.fc1(h)))
+        if shard is None:
+            h = mean_pool(h) if self.pool is None else self.pool(h)  # over N -> [B, C, 3]
+        elif self.pool is None:
+            h = shard.mean_over_points(h)
+        else:
+            h = shard.max_pool_over_points(self.pool, h)
+        with point_shard.per_cloud():
+            return self.fc3(self.fc2(self.fc1(h)))
 
 
 class VNPointNetPartSeg(nn.Module):
@@ -68,9 +83,11 @@ class VNPointNetPartSeg(nn.Module):
         """points [B, N, 3], label [B, num_categories] -> [B, N, num_part].
         idx_override: optional one kNN graph [B, N, k] int32, of the points.
         generator is unused: no dropout."""
+        shard = point_shard.current()
         B, N, _ = points.shape
         x = points[:, :, None, :]
-        feat, _ = graph_feature_cross_vn(x, self.k, knn_graph(points, self.k, idx_override))
+        idx, table, _ = neighbours(x, self.k, idx_override)
+        feat, _ = graph_feature_cross_vn(x, self.k, idx, table=table)
         x = self.conv_pos(feat)  # [B, N, K, 21, 3]
         x = mean_pool(x) if self.pool is None else self.pool(x)
         out1 = self.conv1(x)
@@ -79,10 +96,11 @@ class VNPointNetPartSeg(nn.Module):
         net_global = self.fstn(out3)[:, None].expand(B, N, -1, 3)  # [B, N, 42, 3]
         out4 = self.conv4(torch.cat([out3, net_global], dim=-2))  # [B, N, 170, 3]
         out5 = self.bn5(self.conv5(out4))  # [B, N, 682, 3]
-        out5 = torch.cat([out5, out5.mean(dim=1, keepdim=True).expand_as(out5)], dim=-2)
+        mean = out5.mean(dim=1) if shard is None else shard.mean_over_points(out5)
+        out5 = torch.cat([out5, mean[:, None].expand_as(out5)], dim=-2)
         out5, trans = self.std_feature(out5)
         out5 = out5.reshape(B, N, -1)  # [B, N, 4092]
-        out_max = torch.cat([out5.amax(dim=1), label], dim=-1)
+        out_max = torch.cat([max_over_points(out5), label], dim=-1)
         expand = out_max[:, None, :].expand(B, N, -1)
         out1234 = torch.cat([out1, out2, out3, out4], dim=-2)  # [B, N, 275, 3]
         out1234 = invariant_project(out1234, trans).reshape(B, N, -1)  # [B, N, 825]

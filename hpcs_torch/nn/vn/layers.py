@@ -156,8 +156,12 @@ class VNMaxPool(nn.Module):
         super().__init__()
         self.map_to_dir = nn.Linear(in_channels, in_channels, bias=False)
 
+    def scores(self, x):
+        """Each vector's dot product with its learned direction: [..., K, C]."""
+        return torch.sum(x * channel_mix(x, self.map_to_dir.weight), dim=-1)
+
     def forward(self, x):
-        dot = torch.sum(x * channel_mix(x, self.map_to_dir.weight), dim=-1)  # [..., K, C]
+        dot = self.scores(x)  # [..., K, C]
         idx = first_argmax(dot, dim=-2)  # [..., C]
         return torch.gather(x, -3, idx[..., None, :, None].expand(*idx.shape[:-1], 1,
                                                                    *x.shape[-2:]))[..., 0, :, :]

@@ -44,6 +44,12 @@
 // - The mean over K is a sum in edge order: through shared memory after
 //   conv2, in the (point, channel) thread's registers in the one-conv stage.
 //
+// A range of centre rows (the point-sharded forward's rows): the edges and
+// the output cover the range's centres only, the projection the whole
+// table, whose rows the neighbours are; each point's arithmetic is the
+// whole launch's, so the range's output is the whole launch's rows bit for
+// bit.
+//
 // bf16 features (VN-DGCNN's bf16 configuration): the kernels are templates
 // on the element type T of x and of the output.  They convert x to fp32 as
 // they load it, compute in fp32 as the TPU kernel does (it upcasts bf16 at
@@ -209,6 +215,18 @@ __device__ __forceinline__ void load6(const float* src, float a[3], float b[3]) 
   a[0] = s0.x, a[1] = s0.y, a[2] = s1.x, b[0] = s1.y, b[1] = s3.x, b[2] = s3.y;
 }
 
+// A launch over a range of centre rows, [row_begin, row_begin + rows) of
+// each n-point cloud of the table: its local point lp (the index of idx's
+// and out's rows) is row row_begin + lp % rows of cloud lp / rows, whose
+// first point in the table is cloud_of(lp).  rows = n and row_begin = 0
+// make lp the table's point.
+__device__ __forceinline__ size_t cloud_of(int lp, int n, int rows) {
+  return (size_t)(lp / rows) * n;
+}
+__device__ __forceinline__ size_t centre_of(int lp, int n, int rows, int row_begin) {
+  return cloud_of(lp, n, rows) + row_begin + lp % rows;
+}
+
 // conv1 for C = 21, one thread per (point, channel o): the centre terms
 // (U_i, Ud_i from the point's gath row, Pc_i, Dc_i from its cen row) are
 // loaded once; each edge gathers (U_j, Ud_j), 24 bytes, forms
@@ -243,16 +261,16 @@ template <typename T>
 __global__ void __launch_bounds__(MEAN_THREADS)
 edge_mean_kernel(const int* __restrict__ idx, const float* __restrict__ gath,
                  const float* __restrict__ cen, const float* __restrict__ ab1,
-                 T* __restrict__ out, int points, int n, int k) {
+                 T* __restrict__ out, int points, int n, int k, int rows, int row_begin) {
   __shared__ float par[2 * COUT];
   for (int f = threadIdx.x; f < 2 * COUT; f += MEAN_THREADS) par[PAR_AB1 + f] = ab1[f];
   __syncthreads();
   const long long t = (long long)blockIdx.x * MEAN_THREADS + threadIdx.x;
   if (t >= (long long)points * COUT) return;
   const int point = (int)(t / COUT), o = (int)(t % COUT);
-  const Conv1Channel ch(gath, cen, point, o, par);
+  const Conv1Channel ch(gath, cen, centre_of(point, n, rows, row_begin), o, par);
   const int* nbr = idx + (size_t)point * k;
-  const size_t cloud = (size_t)(point / n) * n;
+  const size_t cloud = cloud_of(point, n, rows);
   float acc[3] = {0.f, 0.f, 0.f};
   bool valid = true;
   // an index outside the cloud is read as 0 and makes the point's output
@@ -317,7 +335,8 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ idx,
             const float* __restrict__ gath, const float* __restrict__ cen,
             const float* __restrict__ w1, const float* __restrict__ wd1,
             const float* __restrict__ ab1, const float* __restrict__ ab2,
-            T* __restrict__ out, int points, int n, int k, int kc, int per_block) {
+            T* __restrict__ out, int points, int n, int k, int kc, int per_block, int rows,
+            int row_begin) {
   constexpr int SLOT = slot_of(C);
   extern __shared__ float4 smem4[];
   float* par = reinterpret_cast<float*>(smem4);
@@ -345,9 +364,9 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     if constexpr (C == 21) {
       const int pp = tid / COUT, o = tid - pp * COUT, pt = first + pp;
       if (pp < per_block && pt < points) {
-        const Conv1Channel ch(gath, cen, pt, o, par);
+        const Conv1Channel ch(gath, cen, centre_of(pt, n, rows, row_begin), o, par);
         const int* nbr = idx + (size_t)pt * k + r * kc;
-        const size_t cloud = (size_t)(pt / n) * n;
+        const size_t cloud = cloud_of(pt, n, rows);
 #pragma unroll 4
         for (int q = 0; q < nk; ++q) {
           const int j = nbr[q];
@@ -368,8 +387,8 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ idx,
           for (int f = 0; f < CV; ++f) hs[f] = NAN;
       } else {
         if constexpr (C == 1) {
-          const T* xc = x + (size_t)point * 3;
-          const T* xj = x + ((size_t)(point / n) * n + j) * 3;
+          const T* xc = x + centre_of(point, n, rows, row_begin) * 3;
+          const T* xj = x + (cloud_of(point, n, rows) + j) * 3;
           float xi[3], diff[3];
 #pragma unroll
           for (int v = 0; v < 3; ++v) {
@@ -436,7 +455,8 @@ cudaEvent_t g_done[64] = {};
 template <typename T, int C, int NCONV>
 cudaError_t launch(const T* x, const int* idx, const float* w1, const float* wd1,
                    const float* ab1, const float* w2, const float* wd2, const float* ab2,
-                   T* out, float* workspace, int points, int n, int k, cudaStream_t s) {
+                   T* out, float* workspace, int b, int n, int k, int row_begin, int rows,
+                   cudaStream_t s) {
   cudaError_t err;
   if (NCONV == 2) {
     constexpr size_t base = slot_of(C) * sizeof(Conv2Weights);
@@ -448,17 +468,20 @@ cudaError_t launch(const T* x, const int* idx, const float* w1, const float* wd1
                                        cudaMemcpyDeviceToDevice, s)))
       return err;
   }
+  // the projection covers every point of the table (an edge reads its
+  // neighbour's products); the edges only the range's centres
+  const int table = b * n, points = b * rows;
   float* gath = workspace;
-  float* cen = workspace + (size_t)points * ROW;
+  float* cen = workspace + (size_t)table * ROW;
   if (C == 21) {
-    project_kernel<T><<<(points + PROJECT_POINTS - 1) / PROJECT_POINTS, PROJECT_POINTS * COUT,
-                        0, s>>>(x, w1, wd1, gath, cen, points);
+    project_kernel<T><<<(table + PROJECT_POINTS - 1) / PROJECT_POINTS, PROJECT_POINTS * COUT,
+                        0, s>>>(x, w1, wd1, gath, cen, table);
     if ((err = cudaGetLastError())) return err;
   }
   if constexpr (C == 21 && NCONV == 1) {
     const long long t = (long long)points * COUT;
     edge_mean_kernel<T><<<(unsigned)((t + MEAN_THREADS - 1) / MEAN_THREADS), MEAN_THREADS, 0,
-                          s>>>(idx, gath, cen, ab1, out, points, n, k);
+                          s>>>(idx, gath, cen, ab1, out, points, n, k, rows, row_begin);
   } else {
     const int kc = k < MAX_EDGES ? k : MAX_EDGES;
     const int rounds = (k + kc - 1) / kc;
@@ -467,7 +490,7 @@ cudaError_t launch(const T* x, const int* idx, const float* w1, const float* wd1
     const int per_block = points_per_block(C, kc, rounds, &threads, &smem);
     const int blocks = (points + per_block - 1) / per_block;
     edge_kernel<T, C, NCONV><<<blocks, threads, smem, s>>>(
-        x, idx, gath, cen, w1, wd1, ab1, ab2, out, points, n, k, kc, per_block);
+        x, idx, gath, cen, w1, wd1, ab1, ab2, out, points, n, k, kc, per_block, rows, row_begin);
   }
   return cudaGetLastError();
 }
@@ -476,17 +499,18 @@ cudaError_t launch(const T* x, const int* idx, const float* w1, const float* wd1
 template <typename T>
 int edgeconv_entry(const T* x, const int* idx, const float* w1, const float* wd1,
                    const float* ab1, const float* w2, const float* wd2, const float* ab2, T* out,
-                   float* workspace, int b, int n, int c, int k, int n_convs, void* stream) {
+                   float* workspace, int b, int n, int c, int k, int n_convs, int row_begin,
+                   int rows, void* stream) {
   if (b < 1 || n < 1 || k < 1 || (long long)b * n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (!((c == 1 || c == 21) && (n_convs == 1 || n_convs == 2))) return (int)cudaErrorInvalidValue;
   if (c == 21 && workspace == nullptr) return (int)cudaErrorInvalidValue;
-  const int points = b * n;
+  if (row_begin < 0 || rows < 1 || row_begin > n - rows) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_convs == 1)
     return (int)(c == 1 ? launch<T, 1, 1>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace,
-                                          points, n, k, s)
+                                          b, n, k, row_begin, rows, s)
                         : launch<T, 21, 1>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace,
-                                           points, n, k, s));
+                                           b, n, k, row_begin, rows, s));
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err) return (int)err;
@@ -497,27 +521,30 @@ int edgeconv_entry(const T* x, const int* idx, const float* w1, const float* wd1
   } else if ((err = cudaStreamWaitEvent(s, g_done[dev], 0))) {
     return (int)err;
   }
-  err = c == 1 ? launch<T, 1, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, points, n,
-                                 k, s)
-               : launch<T, 21, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, points, n,
-                                  k, s);
+  err = c == 1 ? launch<T, 1, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, k,
+                                 row_begin, rows, s)
+               : launch<T, 21, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, k,
+                                  row_begin, rows, s);
   if (err) return (int)err;
   return (int)cudaEventRecord(g_done[dev], s);
 }
 
 }  // namespace
 
-// x [b, n, c, 3], idx [b, n, k] int32, w1/wd1 [21, 2c], ab1 [2, 21] (folded
-// BatchNorm scale and shift), w2/wd2 [21, 21] and ab2 [2, 21] (unused when
-// n_convs == 1), out [b, n, 21, 3]; workspace 2 b n 128 floats when c == 21
-// (conv1's per-point products; unused when c == 1); all contiguous fp32 on
-// the device.  Returns the cudaError_t of the launches.
+// x [b, n, c, 3] (the table), idx [b, rows, k] int32 (indices into each
+// cloud's n points), w1/wd1 [21, 2c], ab1 [2, 21] (folded BatchNorm scale
+// and shift), w2/wd2 [21, 21] and ab2 [2, 21] (unused when n_convs == 1),
+// out [b, rows, 21, 3] for the centres row_begin .. row_begin + rows - 1
+// (rows = n, row_begin = 0: every point); workspace 2 b n 128 floats when
+// c == 21 (conv1's per-point products of the whole table; unused when
+// c == 1); all contiguous fp32 on the device.  Returns the cudaError_t of
+// the launches.
 extern "C" int hpcs_edgeconv(const float* x, const int* idx, const float* w1, const float* wd1,
                              const float* ab1, const float* w2, const float* wd2,
                              const float* ab2, float* out, float* workspace, int b, int n, int c,
-                             int k, int n_convs, void* stream) {
+                             int k, int n_convs, int row_begin, int rows, void* stream) {
   return edgeconv_entry(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, c, k, n_convs,
-                        stream);
+                        row_begin, rows, stream);
 }
 
 // The same with x and out bf16 (the weights, folded BatchNorm and workspace
@@ -526,7 +553,7 @@ extern "C" int hpcs_edgeconv_bf16(const __nv_bfloat16* x, const int* idx, const 
                                   const float* wd1, const float* ab1, const float* w2,
                                   const float* wd2, const float* ab2, __nv_bfloat16* out,
                                   float* workspace, int b, int n, int c, int k, int n_convs,
-                                  void* stream) {
+                                  int row_begin, int rows, void* stream) {
   return edgeconv_entry(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, c, k, n_convs,
-                        stream);
+                        row_begin, rows, stream);
 }

@@ -11,6 +11,11 @@
 // GFLOP at B=16, N=1024, D=63) against 67 TFLOP/s of fp32, plus one compare
 // per score for a running top-k; it reads only B N D floats.
 //
+// A launch may cover a range of query rows, ranked against all N points
+// (the point-sharded forward's rows of the gathered cloud): the row tiles
+// then start at the range's first row, and each score and selection is the
+// whole launch's, bit for bit.
+//
 // Design: one block of 256 threads per (cloud, tile of TR rows).  The row
 // tile is staged transposed in shared memory; the cloud streams through in
 // tiles of TC=128 columns, also transposed, so each thread computes a
@@ -58,17 +63,19 @@ __host__ inline size_t smem_bytes(int tr, int n, int d) {
 
 template <int TR, typename T>
 __global__ void __launch_bounds__(THREADS)
-knn_kernel(const T* __restrict__ x, int* __restrict__ idx, int n, int d, int k) {
+knn_kernel(const T* __restrict__ x, int* __restrict__ idx, int n, int d, int k, int row_begin,
+           int rows) {
   constexpr int RT = TR / WARPS;  // rows per thread
   extern __shared__ float4 smem4[];
   const int np = padded_n(n);
   float* scores = reinterpret_cast<float*>(smem4);  // [TR][np]
-  float* rows = scores + TR * np;                   // [d][TR]
-  float* cols = rows + d * TR;                      // [d][TC_STRIDE]
+  float* tile = scores + TR * np;                   // [d][TR]
+  float* cols = tile + d * TR;                      // [d][TC_STRIDE]
   float* colsq = cols + d * TC_STRIDE;              // [TC]
 
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * TR;
+  const int row0 = row_begin + blockIdx.x * TR;
+  const int row_end = row_begin + rows;
   const T* xb = x + (size_t)b * n * d;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -76,7 +83,7 @@ knn_kernel(const T* __restrict__ x, int* __restrict__ idx, int n, int d, int k) 
 
   for (int e = tid; e < TR * d; e += THREADS) {
     const int r = e / d, dd = e % d;
-    rows[dd * TR + r] = row0 + r < n ? to_float(xb[(size_t)(row0 + r) * d + dd]) : 0.f;
+    tile[dd * TR + r] = row0 + r < row_end ? to_float(xb[(size_t)(row0 + r) * d + dd]) : 0.f;
   }
 
   for (int c0 = 0; c0 < n; c0 += TC) {
@@ -103,7 +110,7 @@ knn_kernel(const T* __restrict__ x, int* __restrict__ idx, int n, int d, int k) 
       const float4 cv = *reinterpret_cast<const float4*>(&cols[dd * TC_STRIDE + lane * 4]);
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
-        const float rv = rows[dd * TR + warp * RT + r];
+        const float rv = tile[dd * TR + warp * RT + r];
         acc[r][0] = fmaf(rv, cv.x, acc[r][0]);
         acc[r][1] = fmaf(rv, cv.y, acc[r][1]);
         acc[r][2] = fmaf(rv, cv.z, acc[r][2]);
@@ -129,7 +136,7 @@ knn_kernel(const T* __restrict__ x, int* __restrict__ idx, int n, int d, int k) 
   for (int r = 0; r < RT; ++r) {
     const int lr = warp * RT + r;
     const int row = row0 + lr;
-    if (row >= n) break;
+    if (row >= row_end) break;
     const float* srow = scores + lr * np;
     float qs = -INFINITY;  // this lane's queue entry
     int qi = INT_MAX;
@@ -161,33 +168,43 @@ knn_kernel(const T* __restrict__ x, int* __restrict__ idx, int n, int d, int k) 
       }
     }
     // only NaN scores were left for a slot still at INT_MAX: report -1
-    if (lane < k) idx[((size_t)b * n + row) * k + lane] = qi < n ? qi : -1;
+    if (lane < k) idx[((size_t)b * rows + row - row_begin) * k + lane] = qi < n ? qi : -1;
   }
 }
 
 template <int TR, typename T>
-cudaError_t launch(const T* x, int* idx, int b, int n, int d, int k, cudaStream_t stream) {
+cudaError_t launch(const T* x, int* idx, int b, int n, int d, int k, int row_begin, int rows,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(TR, n, d);
   cudaError_t err = cudaFuncSetAttribute(knn_kernel<TR, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + TR - 1) / TR, b);
-  knn_kernel<TR, T><<<grid, THREADS, smem, stream>>>(x, idx, n, d, k);
+  const dim3 grid((rows + TR - 1) / TR, b);
+  knn_kernel<TR, T><<<grid, THREADS, smem, stream>>>(x, idx, n, d, k, row_begin, rows);
   return cudaGetLastError();
 }
 
-// B1 on x [b, n, d] of element type T: the row tile as knn_kernel's entry
-// points choose it.
+// A row range [row_begin, row_begin + rows) of an n-point cloud.
+__host__ inline bool valid_rows(int n, int row_begin, int rows) {
+  return row_begin >= 0 && rows >= 1 && row_begin <= n - rows;
+}
+
+// B1 on x [b, n, d] of element type T, for rows row_begin .. row_begin +
+// rows - 1: the row tile as knn_kernel's entry points choose it.  The tile
+// is sized by n, the candidates, whatever the number of rows.
 template <typename T>
-int knn_entry(const T* x, int* idx, int b, int n, int d, int k, void* stream) {
+int knn_entry(const T* x, int* idx, int b, int n, int d, int k, int row_begin, int rows,
+              void* stream) {
   if (b < 1 || b > 65535 || n < 1 || n > MAX_N || d < 1 || d > MAX_D || k < 1 ||
-      k > MAX_K || k > n)
+      k > MAX_K || k > n || !valid_rows(n, row_begin, rows))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the largest row tile that leaves room for two blocks on an SM
-  if (smem_bytes(32, n, d) <= 113 * 1024) return (int)launch<32>(x, idx, b, n, d, k, s);
-  if (smem_bytes(16, n, d) <= 113 * 1024) return (int)launch<16>(x, idx, b, n, d, k, s);
-  return (int)launch<8>(x, idx, b, n, d, k, s);
+  if (smem_bytes(32, n, d) <= 113 * 1024)
+    return (int)launch<32>(x, idx, b, n, d, k, row_begin, rows, s);
+  if (smem_bytes(16, n, d) <= 113 * 1024)
+    return (int)launch<16>(x, idx, b, n, d, k, row_begin, rows, s);
+  return (int)launch<8>(x, idx, b, n, d, k, row_begin, rows, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -215,14 +232,15 @@ __host__ inline size_t wide_smem_bytes(int n, int d) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d, int k) {
+knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d, int k,
+                int row_begin, int rows) {
   extern __shared__ float4 smem4[];
   float* scores = reinterpret_cast<float*>(smem4);  // [n]
   float* xi = scores + n;                           // [d]
   float* red_s = xi + d;                            // [WARPS]
   int* red_i = reinterpret_cast<int*>(red_s + WARPS);  // [WARPS]
 
-  const int row = blockIdx.x;
+  const int row = row_begin + blockIdx.x;
   const int b = blockIdx.y;
   const float* xb = x + (size_t)b * n * d;
   const int tid = threadIdx.x;
@@ -243,7 +261,7 @@ knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d
   }
   __syncthreads();
 
-  int* out = idx + ((size_t)b * n + row) * k;
+  int* out = idx + ((size_t)b * rows + blockIdx.x) * k;
   for (int q = 0; q < k; ++q) {
     float bs = -INFINITY;
     int bi = INT_MAX;
@@ -283,31 +301,34 @@ knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d
 
 }  // namespace
 
-// x [b, n, d] fp32 and idx [b, n, k] int32, both contiguous on the device.
+// x [b, n, d] fp32 and idx [b, rows, k] int32, both contiguous on the
+// device: the k nearest of all n points for each of rows row_begin ..
+// row_begin + rows - 1 (rows = n, row_begin = 0: the whole cloud).
 // Returns the cudaError_t of the launch.
-extern "C" int hpcs_knn(const float* x, int* idx, int b, int n, int d, int k, void* stream) {
-  return knn_entry(x, idx, b, n, d, k, stream);
+extern "C" int hpcs_knn(const float* x, int* idx, int b, int n, int d, int k, int row_begin,
+                        int rows, void* stream) {
+  return knn_entry(x, idx, b, n, d, k, row_begin, rows, stream);
 }
 
 // The same for x [b, n, d] bf16.
 extern "C" int hpcs_knn_bf16(const __nv_bfloat16* x, int* idx, int b, int n, int d, int k,
-                             void* stream) {
-  return knn_entry(x, idx, b, n, d, k, stream);
+                             int row_begin, int rows, void* stream) {
+  return knn_entry(x, idx, b, n, d, k, row_begin, rows, stream);
 }
 
-// The wide route: x [b, n, d] fp32 and idx [b, n, k] int32, both contiguous
-// on the device; any d, any k <= n, n + d floats within WIDE_SMEM_BYTES.
-// Returns the cudaError_t of the launch.
+// The wide route: x [b, n, d] fp32 and idx [b, rows, k] int32, both
+// contiguous on the device, rows as hpcs_knn's; any d, any k <= n, n + d
+// floats within WIDE_SMEM_BYTES.  Returns the cudaError_t of the launch.
 extern "C" int hpcs_knn_wide(const float* x, int* idx, int b, int n, int d, int k,
-                             void* stream) {
+                             int row_begin, int rows, void* stream) {
   if (b < 1 || b > 65535 || n < 1 || d < 1 || k < 1 || k > n ||
-      wide_smem_bytes(n, d) > (size_t)WIDE_SMEM_BYTES)
+      !valid_rows(n, row_begin, rows) || wide_smem_bytes(n, d) > (size_t)WIDE_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
   const size_t smem = wide_smem_bytes(n, d);
   cudaError_t err = cudaFuncSetAttribute(knn_wide_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  knn_wide_kernel<<<dim3(n, b), THREADS, smem, s>>>(x, idx, n, d, k);
+  knn_wide_kernel<<<dim3(rows, b), THREADS, smem, s>>>(x, idx, n, d, k, row_begin, rows);
   return (int)cudaGetLastError();
 }

@@ -44,25 +44,26 @@ def graph_feature_vn(x, k, idx=None, table=None):
     return torch.cat([neighbors - center, center], dim=-2), idx
 
 
-def graph_feature_cross_vn(x, k, idx=None):
+def graph_feature_cross_vn(x, k, idx=None, table=None):
     """Vector-neuron edge features with cross products [B, N, K, 3C, 3] of
-    x [B, N, C, 3]: [x_j - x_i || x_i || x_j x x_i].  The graph as in
-    graph_feature_vn.  Returns (edge features, idx)."""
+    x [B, N, C, 3]: [x_j - x_i || x_i || x_j x x_i].  The graph and `table`
+    as in graph_feature_vn.  Returns (edge features, idx)."""
     B, N, C, _ = x.shape
     if idx is None:
         idx = knn(x.reshape(B, N, C * 3).contiguous(), k)
-    neighbors = gather_neighbors(x, idx)
+    neighbors = gather_neighbors(x if table is None else table, idx)
     center = x[:, :, None].expand_as(neighbors)
     cross = torch.linalg.cross(neighbors, center, dim=-1)
     return torch.cat([neighbors - center, center, cross], dim=-2), idx
 
 
-def graph_feature_scalar(x, k, idx=None):
+def graph_feature_scalar(x, k, idx=None, table=None):
     """Scalar edge features [B, N, K, 2C] of x [B, N, C]: [x_j - x_i || x_i].
-    Without `idx` the kNN graph is built on x.  Returns (edge features, idx)."""
+    Without `idx` the kNN graph is built on x; `table` as in
+    graph_feature_vn.  Returns (edge features, idx)."""
     if idx is None:
         idx = knn(x.contiguous(), k)
-    neighbors = gather_neighbors(x, idx)
+    neighbors = gather_neighbors(x if table is None else table, idx)
     center = x[:, :, None].expand_as(neighbors)
     return torch.cat([neighbors - center, center], dim=-1), idx
 
@@ -86,20 +87,35 @@ def _bf16_rounded(*weights):
     return [None if w is None else w.to(torch.bfloat16).float().contiguous() for w in weights]
 
 
-def edgeconv_infer_plain(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2):
+def _centre_rows(x, idx, rows):
+    """(r0, r1) of the centres, checked against the table x [B, N, ...] and
+    idx [B, r1 - r0, K] (rows None: every point)."""
+    N = x.shape[1]
+    r0, r1 = (0, N) if rows is None else (int(rows[0]), int(rows[1]))
+    if (rows is not None and not 0 <= r0 < r1 <= N) or idx.shape[1] != r1 - r0:
+        raise ValueError(f"edgeconv: rows {rows} is not a range of the table's {N} points "
+                         f"with one idx row each (idx {tuple(idx.shape)})")
+    return r0, r1
+
+
+def edgeconv_infer_plain(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2,
+                         rows=None):
     """One eval-mode VN EdgeConv stage, mean-pooled over the K neighbours.
 
     x [B, N, C, 3], idx [B, N, K]; W1, Wd1 [C_mid, 2C]; W2, Wd2 [C_out, C_mid];
     ab* [2, C] folded BatchNorm.  Returns [B, N, C_out, 3] in x's dtype; bf16
     x is computed as x.float() with bf16-rounded W1, Wd1, W2, Wd2 and the
-    output rounded to bf16.
+    output rounded to bf16.  With rows = (r0, r1) the centres are points
+    r0 .. r1 - 1 of the table x, idx [B, r1 - r0, K] indexes all N, and
+    the result is [B, r1 - r0, C_out, 3]: the whole stage's rows.
     """
     if x.dtype == torch.bfloat16:
         W1, Wd1, W2, Wd2 = _bf16_rounded(W1, Wd1, W2, Wd2)
         return edgeconv_infer_plain(x.float(), idx, W1, Wd1, ab1, W2, Wd2, ab2,
-                                    n_convs).to(torch.bfloat16)
+                                    n_convs, rows).to(torch.bfloat16)
+    r0, r1 = _centre_rows(x, idx, rows)
     B, N, K = idx.shape
-    e, _ = graph_feature_vn(x, K, idx)
+    e, _ = graph_feature_vn(x[:, r0:r1], K, idx, table=x)
     e = e.reshape(B * N * K, e.shape[-2], 3)
     h = _vn_llr_folded(e, W1, Wd1, ab1)
     if n_convs == 2:
@@ -113,16 +129,17 @@ def _check(t, name, shape, dtype=torch.float32):
                          f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
 
 
-def _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs):
+def _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs, rows=None):
     B, N, C, _ = x.shape
     K = idx.shape[-1]
+    r0, r1 = _centre_rows(x, idx, rows)
     if C not in KERNEL_C_IN or n_convs not in (1, 2):
         raise ValueError(f"edgeconv kernel takes C_in in {KERNEL_C_IN} and n_convs in "
                          f"(1, 2), got C_in={C}, n_convs={n_convs}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"edgeconv kernel takes float32 or bfloat16 features, got {x.dtype}")
     _check(x, "x", (B, N, C, 3), x.dtype)
-    _check(idx, "idx", (B, N, K), torch.int32)
+    _check(idx, "idx", (B, r1 - r0, K), torch.int32)
     bf16 = x.dtype == torch.bfloat16
     if bf16:
         W1, Wd1, W2, Wd2 = _bf16_rounded(W1, Wd1, W2, Wd2)
@@ -137,8 +154,8 @@ def _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs):
     tensors = (x, idx, W1, Wd1, ab1) + (second if n_convs == 2 else ())
     if any(t.device != x.device for t in tensors):
         raise ValueError("edgeconv kernel: all tensors must be on one device")
-    out = torch.empty((B, N, KERNEL_C_OUT, 3), dtype=x.dtype, device=x.device)
-    if B * N == 0:
+    out = torch.empty((B, r1 - r0, KERNEL_C_OUT, 3), dtype=x.dtype, device=x.device)
+    if B * (r1 - r0) == 0:
         return out
     # conv1's per-point products for C=21 (the kernel's projection): two
     # rows of WORKSPACE_ROW floats per point, read back from L2
@@ -146,33 +163,38 @@ def _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs):
                  if C == 21 else None)
     ptr = ctypes.c_void_p
     symbol = "hpcs_edgeconv_bf16" if bf16 else "hpcs_edgeconv"
-    fn = _build.function("edgeconv", symbol, [ptr] * 10 + [ctypes.c_int] * 5 + [ptr])
+    fn = _build.function("edgeconv", symbol, [ptr] * 10 + [ctypes.c_int] * 7 + [ptr])
     w2_ptrs = [t.data_ptr() for t in second] if n_convs == 2 else [None] * 3
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), idx.data_ptr(), W1.data_ptr(), Wd1.data_ptr(), ab1.data_ptr(),
                  *w2_ptrs, out.data_ptr(), None if workspace is None else workspace.data_ptr(),
-                 B, N, C, K, n_convs, _build.stream_of(x))
+                 B, N, C, K, n_convs, r0, r1 - r0, _build.stream_of(x))
     _build.check(err, symbol)
     edgeconv_infer.launches += 1
     if bf16:
         edgeconv_infer.bf16_launches += 1
+    if rows is not None:
+        edgeconv_infer.row_launches += 1
     return out
 
 
-def edgeconv_infer(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2):
-    """Eval-mode VN EdgeConv stage (see edgeconv_infer_plain) on any device.
+def edgeconv_infer(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2, rows=None):
+    """Eval-mode VN EdgeConv stage (see edgeconv_infer_plain) on any device;
+    with rows = (r0, r1) for the centres r0 .. r1 - 1 of the table x only.
 
     Every launch of the kernel counts in `edgeconv_infer.launches`, those on
-    bf16 features also in `edgeconv_infer.bf16_launches`.  The call is the
-    span `edgeconv` (utils.profiling); under NaN debugging the kernel's
-    output is checked."""
+    bf16 features also in `edgeconv_infer.bf16_launches`, those over a row
+    range also in `edgeconv_infer.row_launches`.  The call is the span
+    `edgeconv` (utils.profiling); under NaN debugging the kernel's output
+    is checked."""
     with span("edgeconv"):
         if x.is_cuda:
-            out = _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs)
+            out = _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs, rows)
             check_kernel("edgeconv (kernel B2)", out)
             return out
-        return edgeconv_infer_plain(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs)
+        return edgeconv_infer_plain(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs, rows)
 
 
 edgeconv_infer.launches = 0
 edgeconv_infer.bf16_launches = 0
+edgeconv_infer.row_launches = 0

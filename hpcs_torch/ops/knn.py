@@ -3,10 +3,12 @@
 `knn` is the dispatching wrapper: a CPU tensor goes to `knn_plain`, a CUDA
 tensor to one of two hand-written kernels in `csrc/knn.cu`, chosen by shape:
 `knn_kernel` (kernel B1) for D <= 64, k <= 32 and N <= 4096, and
-`knn_wide_kernel` for every other shape, up to N + D = WIDE_MAX_FLOATS.  All
-rank by the exact fp32 score 2 x_i.x_j - |x_j|^2 (the row's own -|x_i|^2
-cannot change the order), include the point itself, return nearest first,
-and break ties toward the smallest index.
+`knn_wide_kernel` for every other shape, up to N + D = WIDE_MAX_FLOATS.
+Each takes a range of query rows (`rows`), ranked against every point: the
+point-sharded forward's rows of the gathered cloud.  All rank by the exact
+fp32 score 2 x_i.x_j - |x_j|^2 (the row's own -|x_i|^2 cannot change the
+order), include the point itself, return nearest first, and break ties
+toward the smallest index.
 
 x may be float32 or bfloat16.  bf16 features are ranked by their fp32
 values (bf16 to fp32 is exact), as the TPU kernel upcasts them: B1 reads
@@ -26,23 +28,38 @@ MAX_K = 32
 MAX_N = 4096
 # the wide kernel keeps a row's N scores and the row's D values in shared memory
 WIDE_MAX_FLOATS = 192 * 1024 // 4 - 16
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def knn_scores(x):
-    """Ranking scores [B, N, N] fp32, 2 x_i.x_j - |x_j|^2, of x [B, N, D]."""
+def _row_range(rows, n):
+    """(r0, r1) of `rows` (None: every row), checked against n points."""
+    if rows is None:
+        return 0, n
+    r0, r1 = int(rows[0]), int(rows[1])
+    if not 0 <= r0 < r1 <= n:
+        raise ValueError(f"knn: rows {rows} is not a non-empty range of the {n} points")
+    return r0, r1
+
+
+def knn_scores(x, rows=None):
+    """Ranking scores [B, r1 - r0, N] fp32, 2 x_i.x_j - |x_j|^2, of x
+    [B, N, D] for query rows i in rows = (r0, r1) (None: all N)."""
     x = x.float()
-    return 2.0 * torch.bmm(x, x.transpose(1, 2)) - torch.sum(x * x, dim=-1)[:, None, :]
+    r0, r1 = _row_range(rows, x.shape[1])
+    q = x[:, r0:r1]
+    return 2.0 * torch.bmm(q, x.transpose(1, 2)) - torch.sum(x * x, dim=-1)[:, None, :]
 
 
-def knn_plain(x, k):
-    """Indices [B, N, k] (int32) of the k nearest neighbours of each point.
+def knn_plain(x, k, rows=None):
+    """Indices [B, r1 - r0, k] (int32) of the k nearest of the N points of
+    x [B, N, D] to each point of rows = (r0, r1) (None: all N); global
+    indices, the point itself included.
 
-    x: [B, N, D], ranked by the scores of its fp32 values (knn_scores).  A stable descending sort keeps tied scores in index order,
-    so ties go to the smallest index (torch.topk does not promise that).
+    Ranked by the scores of x's fp32 values (knn_scores).  A stable
+    descending sort keeps tied scores in index order, so ties go to the
+    smallest index (torch.topk does not promise that).
     """
-    order = torch.sort(knn_scores(x), dim=-1, descending=True, stable=True).indices
+    order = torch.sort(knn_scores(x, rows), dim=-1, descending=True, stable=True).indices
     return order[..., :k].to(torch.int32).contiguous()
 
 
@@ -52,34 +69,37 @@ def _check_input(x, what):
                          f"got {x.dtype} {tuple(x.shape)}")
 
 
-def _launch(symbol, x, k):
+def _launch(symbol, x, k, rows):
     B, N, D = x.shape
-    idx = torch.empty((B, N, k), dtype=torch.int32, device=x.device)
+    r0, r1 = _row_range(rows, N)
+    idx = torch.empty((B, r1 - r0, k), dtype=torch.int32, device=x.device)
     if B == 0:
         return idx
     fn = _build.function("knn", symbol, _ARGTYPES)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), idx.data_ptr(), B, N, D, k, _build.stream_of(x))
+        err = fn(x.data_ptr(), idx.data_ptr(), B, N, D, k, r0, r1 - r0, _build.stream_of(x))
     _build.check(err, symbol)
     knn.launches += 1
+    if rows is not None:
+        knn.row_launches += 1
     return idx
 
 
-def _knn_cuda(x, k):
+def _knn_cuda(x, k, rows=None):
     _check_input(x, "knn kernel")
     B, N, D = x.shape
     if not (1 <= D <= MAX_D and 1 <= k <= min(MAX_K, N) and N <= MAX_N):
         raise ValueError(f"knn kernel takes D <= {MAX_D}, k <= {MAX_K}, k <= N <= "
                          f"{MAX_N}; got D={D}, k={k}, N={N}")
     if x.dtype == torch.bfloat16:
-        idx = _launch("hpcs_knn_bf16", x, k)
+        idx = _launch("hpcs_knn_bf16", x, k, rows)
         if B:
             knn.bf16_launches += 1
         return idx
-    return _launch("hpcs_knn", x, k)
+    return _launch("hpcs_knn", x, k, rows)
 
 
-def _knn_wide_cuda(x, k):
+def _knn_wide_cuda(x, k, rows=None):
     _check_input(x, "wide knn kernel")
     x = x.float()  # the wide route reads fp32: bf16 features are upcast here
     B, N, D = x.shape
@@ -87,38 +107,43 @@ def _knn_wide_cuda(x, k):
         raise ValueError(f"wide knn kernel keeps a row's N scores and D values in 192 KiB of "
                          f"shared memory: it takes k <= N and N + D <= {WIDE_MAX_FLOATS}; "
                          f"got D={D}, k={k}, N={N}")
-    idx = _launch("hpcs_knn_wide", x, k)
+    idx = _launch("hpcs_knn_wide", x, k, rows)
     if B:
         knn.wide_launches += 1
     return idx
 
 
-def knn(x, k):
-    """k nearest neighbours [B, N, k] int32 of x [B, N, D], self included.
+def knn(x, k, rows=None):
+    """k nearest neighbours [B, r1 - r0, k] int32 among the N points of
+    x [B, N, D] for query rows = (r0, r1) (None: all N, [B, N, k]), self
+    included; global indices, equal to knn(x, k)[:, r0:r1].
 
     A CUDA tensor goes to kernel B1 where it takes the shape, else to the
     wide kernel; both count in `knn.launches`, the wide one also in
-    `knn.wide_launches`, B1 on bf16 also in `knn.bf16_launches`.  The call
-    is the span `knn` (utils.profiling).  Under NaN debugging a CUDA call
-    first checks its input's scores: a NaN score leaves the selection
-    undefined, and the kernel's indices cannot show it.
+    `knn.wide_launches`, B1 on bf16 also in `knn.bf16_launches`, a launch
+    over a row range also in `knn.row_launches`.  The call is the span
+    `knn` (utils.profiling).  Under NaN debugging a CUDA call first checks
+    its rows' scores: a NaN score leaves the selection undefined, and the
+    kernel's indices cannot show it.
     """
     with span("knn"):
         if not x.is_cuda:
-            return knn_plain(x, k)
+            return knn_plain(x, k, rows)
         if nan_debugging_enabled():
             with unchecked():
                 for b in range(x.shape[0]):
-                    check_kernel("knn (kernel B1), its input's scores", knn_scores(x[b:b + 1]))
+                    check_kernel("knn (kernel B1), its input's scores",
+                                 knn_scores(x[b:b + 1], rows))
         _, N, D = x.shape
         if D <= MAX_D and k <= MAX_K and N <= MAX_N:
-            return _knn_cuda(x, k)
-        return _knn_wide_cuda(x, k)
+            return _knn_cuda(x, k, rows)
+        return _knn_wide_cuda(x, k, rows)
 
 
 knn.launches = 0
 knn.wide_launches = 0
 knn.bf16_launches = 0
+knn.row_launches = 0
 
 
 def gather_neighbors(x, idx):

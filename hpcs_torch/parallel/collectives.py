@@ -75,7 +75,10 @@ def broadcast_(tensors, src=0, group=None):
 def gather_slots(x, dim=0, group=None):
     """Every rank's x concatenated along `dim` in rank order (all ranks'
     x of one shape), without gradient: rank r writes x into slot r of a
-    zero buffer and the buffers are summed."""
+    zero buffer and the buffers are summed (bf16 as its fp32 upcast,
+    rounded back: exact)."""
+    if x.dtype == torch.bfloat16:
+        return gather_slots(x.float(), dim, group).to(x.dtype)
     n, r = world_size(group), rank(group)
     shape = list(x.shape)
     shape.insert(0, n)
@@ -102,7 +105,10 @@ class _AllGather(torch.autograd.Function):
 def all_gather(x, dim=0, group=None):
     """Every rank's x concatenated along `dim` in rank order, with
     gradient: the backward sums the gradient over the group, then keeps
-    this rank's slice."""
+    this rank's slice.  bf16 goes as its fp32 upcast (the gather exact,
+    the gradient summed in fp32)."""
+    if x.dtype == torch.bfloat16:
+        return _AllGather.apply(x.float(), dim, group).to(x.dtype)
     return _AllGather.apply(x, dim, group)
 
 

@@ -305,7 +305,9 @@ def float64_train_step(system, batch, graphs, device="cpu", shard=None, group=No
     for st in sys64.optimizer.state.values():
         st.update({k: v.to(device).double() for k, v in st.items() if torch.is_tensor(v)})
     pts = torch.as_tensor(batch["points"]).to(device).double()
-    dv = torch.as_tensor(decode_vector_for_batch(system.cfg, batch)).to(device).double()
+    dv = (decode_vector_for_batch(system.cfg, batch) if shard is None
+          else shard.decode_vector(system.cfg, batch, device))
+    dv = torch.as_tensor(dv).to(device).double()
     labels = torch.as_tensor(batch["labels"]).long().to(device)
     with point_shard.use(shard):
         _, x_p = net(pts, dv, idx_override=None if graphs is None else

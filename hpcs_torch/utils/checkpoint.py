@@ -11,7 +11,7 @@ checkpoint: the same two files, its `model.ckpt` the flax msgpack of
 {"state": TrainState, "epoch", "extra"}.  The first bytes tell the two
 apart: a `torch.save` file is a zip (b"PK"), a flax file a msgpack map
 (0x80-0x8f, 0xde or 0xdf).  The JAX package's multi-process format, a
-directory with orbax/, is not read (ROADMAP A11b).
+directory with orbax/, is not read (ROADMAP A11c).
 """
 import dataclasses
 import json
@@ -67,7 +67,7 @@ def restore_checkpoint(path, system):
     if os.path.isdir(os.path.join(path, "orbax")):
         raise NotImplementedError(
             f"{path} is the JAX package's multi-process (orbax) checkpoint, which the port "
-            "does not read yet (ROADMAP A11b)")
+            "does not read yet (ROADMAP A11c)")
     ckpt_file = path if os.path.isfile(path) else os.path.join(path, "model.ckpt")
     if checkpoint_format(ckpt_file) == "flax":
         payload = flax_msgpack.read(ckpt_file)

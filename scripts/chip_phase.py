@@ -1,0 +1,33 @@
+"""Run one phase of chip_smoke.py alone on one GPU, after building the
+kernels: `observe` (--profile, --debug_nans, --plot_inference and the
+SO(3) probe) or `parallel` (hpcs_torch.parallel: data-parallel steps, the
+sharded test_step, every configuration point-sharded); see each phase's
+docstring.  Prints the card, then the phase's JSON line; with a path,
+also writes that line there.
+
+    python3 scripts/chip_phase.py observe|parallel [out.json]
+"""
+import json
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+from hpcs_torch.ops import _build  # noqa: E402
+
+PHASES = {"observe": cs.observe_phase, "parallel": cs.parallel_phase}
+
+if __name__ == "__main__":
+    if len(sys.argv) < 2 or sys.argv[1] not in PHASES:
+        sys.exit(f"usage: python3 scripts/chip_phase.py {'|'.join(PHASES)} [out.json]")
+    _build.build()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    out = PHASES[sys.argv[1]](card)
+    if len(sys.argv) > 2:
+        os.makedirs(os.path.dirname(os.path.abspath(sys.argv[2])), exist_ok=True)
+        with open(sys.argv[2], "w") as f:
+            json.dump(out, f, indent=1)

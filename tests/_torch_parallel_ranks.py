@@ -221,6 +221,50 @@ def point_parallel_job(shape, cfg, state_dict, batch, plain_cfg, given):
 
 
 
+def _same_as_rank_0(system):
+    """Whether this rank's parameters equal rank 0's bit for bit."""
+    flat = torch.cat([p.detach().reshape(-1) for p in system.net.parameters()])
+    return torch.equal(C.broadcast_([flat.clone()])[0], flat)
+
+
+def point_parallel_backbones_job(shape, cases):
+    """On a (D, P) mesh, for each case {name: (cfg, plain_cfg, state_dict,
+    batch, given)}: the point-sharded eval forward (this rank's x_e, x_p,
+    its decode vector from `point_parallel.decode_vector`); one
+    point-sharded fp32 training step of cfg from generator seed 3 (its logs,
+    and whether the ranks' parameters are then equal); the step of
+    plain_cfg (dropout 0, no rotation) in float64; and, with `given` (the
+    JAX package's triplets and mask, or None), one fp32 step of plain_cfg
+    on them: its logs, new state and the gradients it applied.  The
+    gradients and states come from rank 0 only (the steps leave the ranks
+    equal, which each rank reports)."""
+    from hpcs_torch.parallel.point_parallel import decode_vector
+
+    mesh = make_mesh_2d(*shape, device_type="cpu")
+    first = dist.get_rank() == 0
+    out = {}
+    for name, (cfg, plain_cfg, state_dict, batch, given) in cases.items():
+        part = shard_points_batch(mesh, batch)
+        r = out[name] = {}
+        system = system_from(cfg, state_dict)
+        x_e, x_p = make_point_sharded_forward(system, mesh)(
+            part["points"], decode_vector(mesh, cfg, part))
+        r["forward"] = x_e.numpy(), x_p.numpy()
+        r["logs"] = floats(make_point_sharded_train_step(system, mesh)(
+            part, torch.Generator().manual_seed(3)))
+        r["replicated"] = _same_as_rank_0(system)
+        plain = system_from(plain_cfg, state_dict)
+        logs64, grads64, state64 = float64_train_step(plain, part, None, shard=PointShard(mesh))
+        r["float64"] = (logs64, grads64, state64) if first else (logs64, None, None)
+        if given is not None:
+            step = make_point_sharded_train_step(plain, mesh)
+            r["given_logs"] = floats(_with_given(given, lambda: step(part, torch.Generator())))
+            r["given_replicated"] = _same_as_rank_0(plain)
+            if first:
+                r["given_state"], r["given_grads"] = numpy_state(plain), numpy_grads(plain)
+    return out
+
+
 def collectives_check(device_type):
     """hpcs_torch.parallel.collectives on this rank's device ("cpu", or
     "cuda": the current CUDA device): {check: passed} of the values and the

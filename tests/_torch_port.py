@@ -290,3 +290,27 @@ class InjectedTriplets(GivenTriplets):
 
     def add(self, k_loss, labels, x_p, cfg):
         self.set(*jax_triplets(k_loss, labels, x_p, cfg))
+
+
+def jax_params_like(named, like):
+    """The port's parameters or gradients {state-dict name: numpy array} as
+    hpcs_tpu's params tree shaped like `like`, for any backbone: each
+    entry's place is found by passing a tree of distinct codes through
+    hpcs_torch.utils.jax_params._params_sd, the map the port's weights
+    come through (exact: every code is an integer below 2^24)."""
+    import jax
+    import jax.numpy as jnp
+
+    from hpcs_torch.utils.jax_params import _params_sd
+
+    leaves, treedef = jax.tree_util.tree_flatten(like)
+    offsets = np.cumsum([0] + [np.size(leaf) for leaf in leaves])
+    assert offsets[-1] < 2 ** 24
+    codes = [np.arange(o, o + np.size(leaf), dtype=np.float32).reshape(np.shape(leaf))
+             for o, leaf in zip(offsets, leaves)]
+    flat = np.zeros(offsets[-1], np.float32)
+    for name, code in _params_sd(jax.tree_util.tree_unflatten(treedef, codes)).items():
+        flat[np.asarray(code).astype(np.int64).reshape(-1)] = np.asarray(named[name]).reshape(-1)
+    return jax.tree_util.tree_unflatten(treedef, [
+        jnp.asarray(flat[o:o + np.size(leaf)].reshape(np.shape(leaf)), dtype=leaf.dtype)
+        for o, leaf in zip(offsets, leaves)])

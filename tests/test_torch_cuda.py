@@ -224,6 +224,82 @@ def test_edgeconv_launches_count_one_per_stage_call():
     assert E.edgeconv_infer.launches == before + 3
 
 
+def test_row_ranges_outside_the_cloud_are_refused_before_the_device():
+    for fn in (K._knn_cuda, K._knn_wide_cuda):
+        for rows in ((0, 0), (9, 4), (-1, 3), (10, 17)):
+            with pytest.raises(ValueError, match="rows"):
+                fn(torch.zeros(1, 16, 3), 4, rows=rows)
+    x, idx = torch.zeros(1, 16, 1, 3), torch.zeros(1, 8, 4, dtype=torch.int32)
+    w1, ab = torch.zeros(21, 2), torch.zeros(2, 21)
+    for rows in ((0, 0), (12, 20), (0, 9)):  # empty, past the table, 9 rows for idx's 8
+        with pytest.raises(ValueError, match="rows"):
+            E._edgeconv_cuda(x, idx, w1, w1, ab, None, None, None, 1, rows=rows)
+
+
+# row ranges of a 1024-point cloud: the first row tile, one that starts and
+# ends inside tiles and divides no tile size, the last rows, half the cloud
+KNN_ROWS = [(0, 16), (500, 537), (1000, 1024), (512, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", KNN_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,D,k", [("b1", 3, 20), ("b1", 63, 20), ("b1", 64, 32),
+                                       ("wide", 128, 20), ("wide", 3, 40)])
+def test_knn_row_ranges_equal_the_whole_launch(route, D, k, dtype, rows):
+    """B1 (and its wide route) over query rows r0..r1-1 of the cloud: the
+    whole launch's rows index for index, and knn_plain's rows up to
+    near-ties (random clouds) or exactly (a tie cloud, D = 3 and 63)."""
+    require_cuda()
+    rng = np.random.default_rng(D + k + rows[0])
+    x = torch.from_numpy(rng.standard_normal((3, 1024, D)).astype(np.float32)).cuda().to(dtype)
+    r0, r1 = rows
+    counts = K.knn.launches, K.knn.row_launches, K.knn.wide_launches
+    got = K.knn(x, k, rows=rows)
+    torch.cuda.synchronize()
+    wide = int(route == "wide")
+    assert (K.knn.launches, K.knn.row_launches, K.knn.wide_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + wide)
+    assert got.shape == (3, r1 - r0, k)
+    torch.testing.assert_close(got, K.knn(x, k)[:, r0:r1], rtol=0, atol=0)
+    assert (got == K.knn_plain(x, k, rows=rows)).float().mean() > 0.999
+    if D in (3, 63):
+        ties = torch.from_numpy(np.round(tie_cloud(rng, 3, 1024, D) * 2)).cuda().to(dtype)
+        torch.testing.assert_close(K.knn(ties, k, rows=rows), K.knn_plain(ties, k, rows=rows),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(0, 500), (500, 1001), (333, 334), (17, 990)])
+@pytest.mark.parametrize("C,n_convs,dtype", [(1, 2, torch.float32), (1, 1, torch.float32),
+                                             (21, 2, torch.float32), (21, 1, torch.float32),
+                                             (1, 2, torch.bfloat16), (21, 1, torch.bfloat16)])
+def test_edgeconv_row_ranges_equal_the_whole_launch(C, n_convs, dtype, rows):
+    """B2 over the centres r0..r1-1 of a table of 3 x 1001 points (its
+    projection over the whole table): the whole launch's rows bit for bit,
+    and the whole launch the plain version's by check_edgeconv (one bf16
+    ulp wider on bf16)."""
+    require_cuda()
+    x, idx, w = _edgeconv_case(np.random.default_rng(300 + C + rows[0]), 3, 1001, 20, C)
+    x = x.to(dtype)
+    r0, r1 = rows
+    counts = E.edgeconv_infer.launches, E.edgeconv_infer.row_launches
+    got = E.edgeconv_infer(x, idx[:, r0:r1].contiguous(), *w, n_convs=n_convs, rows=rows)
+    torch.cuda.synchronize()
+    assert (E.edgeconv_infer.launches, E.edgeconv_infer.row_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert got.shape == (3, r1 - r0, 21, 3) and got.dtype == dtype
+    whole = E.edgeconv_infer(x, idx, *w, n_convs=n_convs)
+    assert torch.equal(got, whole[:, r0:r1])
+    # the whole launch against the plain version (so the rows too), and the
+    # plain version's rows against its whole stage's
+    check_edgeconv(whole, E.edgeconv_infer_plain(x, idx, *w, n_convs=n_convs), x, idx, w,
+                   n_convs, **({"rounding": 2.0 ** -7} if dtype == torch.bfloat16 else {}))
+    want = E.edgeconv_infer_plain(x, idx[:, r0:r1], *w, n_convs=n_convs, rows=rows)
+    torch.testing.assert_close(want, E.edgeconv_infer_plain(x, idx, *w, n_convs=n_convs)[
+        :, r0:r1], rtol=1e-4, atol=1e-5)
+
+
 def _exact_cloud(kind, B, N, D):
     """Clouds whose scores are exact in fp32 (integer coordinates, small
     enough): index-for-index equality with knn_plain holds."""

@@ -54,7 +54,8 @@ import _torch_parallel_ranks as ranks
 from _torch_port import jax_params_tree, jax_port_pair, jax_triplets, rotated_batch, to_numpy_tree
 from hpcs_tpu.models.base import decode_vector_for_batch as j_decode_vector
 from hpcs_torch.models import HypHCSystem, ModelConfig, decode_vector_for_batch
-from hpcs_torch.parallel.point_parallel import make_point_sharded_forward
+from hpcs_torch.parallel.point_parallel import (make_point_sharded_forward,
+                                                make_point_sharded_train_step, shard_points_batch)
 from hpcs_torch.testing import FLOAT64_WITNESS, GRAD_FLOOR, float64_train_step
 from hpcs_torch.utils.jax_params import _params_sd, from_jax_params
 
@@ -215,11 +216,52 @@ def test_point_sharded_step_matches_jax_with_its_triplets(pp):
                                            atol=2e-4, rtol=1e-4, err_msg=name)
 
 
-def test_point_sharding_refuses_what_it_does_not_shard():
-    """Other backbones, max pooling and bf16 name ROADMAP A11b (checked
-    before any collective, so no process group is needed)."""
-    for over in (dict(model_name="dgcnn_partseg", eucl_dim=6), dict(pooling="max"),
-                 dict(bf16=True)):
-        system = HypHCSystem(ModelConfig(**{**KW, **over}), device="cpu")
-        with pytest.raises(NotImplementedError, match="A11b"):
-            make_point_sharded_forward(system, None)
+class _StubMesh:
+    """A ("data", "points") mesh's shape and this rank's coordinate, without
+    a process group: what make_point_sharded_* and shard_points_batch read
+    before any collective."""
+
+    mesh_dim_names = ("data", "points")
+    device_type = "cpu"
+
+    def __init__(self, shape, coordinate=(0, 0)):
+        self.shape, self.coordinate = shape, coordinate
+
+    def get_coordinate(self):
+        return list(self.coordinate)
+
+    def get_group(self, name):
+        return None
+
+
+ACCEPTED = [dict(model_name="dgcnn_partseg", eucl_dim=6),
+            dict(model_name="pointnet_partseg", eucl_dim=6),
+            dict(model_name="vn_pointnet_partseg", eucl_dim=6),
+            dict(model_name="vn_pointnet_partseg", eucl_dim=6, pooling="max"),
+            dict(pooling="max"), dict(bf16=True), dict(class_vector=True),
+            dict(model_name="dgcnn_partseg", eucl_dim=6, class_vector=True)]
+
+
+@pytest.mark.parametrize("over", ACCEPTED, ids=lambda o: "-".join(f"{v}" for v in o.values()))
+def test_point_sharding_accepts_every_configuration(over):
+    """Every backbone, max pooling, bf16 and class_vector: the sharded
+    forward and step are made (on a (1, 1) mesh, before any collective);
+    tests/test_torch_point_parallel_backbones.py runs them on the ranks."""
+    system = HypHCSystem(ModelConfig(**{**KW, **over}), device="cpu")
+    mesh = _StubMesh((1, 1))
+    assert callable(make_point_sharded_forward(system, mesh))
+    assert callable(make_point_sharded_train_step(system, mesh))
+
+
+@pytest.mark.parametrize("shape,coordinate,size", [((1, 2), (0, 1), (4, 63)),
+                                                   ((2, 1), (1, 0), (3, 64)),
+                                                   ((2, 2), (1, 1), (6, 63))])
+def test_a_batch_that_does_not_split_over_the_mesh_raises(shape, coordinate, size):
+    batch = {"points": np.zeros((*size, 3), np.float32), "labels": np.zeros(size, np.int32),
+             "category": np.zeros(size[0], np.int32)}
+    with pytest.raises(ValueError, match="does not split"):
+        shard_points_batch(_StubMesh(shape, coordinate), batch)
+    B, N = size[0] - size[0] % shape[0], size[1] - size[1] % shape[1]
+    part = shard_points_batch(_StubMesh(shape, coordinate),
+                              {k: v[:B, :N] if v.ndim > 1 else v[:B] for k, v in batch.items()})
+    assert part["points"].shape == (B // shape[0], N // shape[1], 3)
