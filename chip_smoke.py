@@ -114,7 +114,12 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    (equal to trainer.test in memory, as the entry phase holds infer) and
    resumed by `python -m hpcs_torch.train --resume` on a ShapeNet-Part tree
    as the entry phase's (it must start at epoch 5 from the written step,
-   moments and rate); a reference Lightning checkpoint of the same weights,
+   moments and rate); the same state as hpcs_tpu's multi-process orbax
+   directory, as 1 and as 2 processes write it (hpcs_torch.testing.
+   write_orbax_checkpoint; the port needs no orbax): restored bit for
+   bit, its MiB, read and restore ms printed beside the msgpack's, served
+   by infer equal to the msgpack's served requests, resumed likewise; a
+   reference Lightning checkpoint of the same weights,
    its backbone class unimportable, through `python -m
    hpcs_torch.import_checkpoint` and infer, equal likewise; and the rest of
    the decode API on 4 flagship objects: linkage in both metrics and
@@ -123,7 +128,14 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    cut_maxclust_many and cut_maxclust_fcluster at k = 2..20 (the last equal
    to scipy's fcluster - 1) and eval_clustering in both modes, each against
    the CPU port exactly and timed per object;
-12. trains the flagship to convergence (phase trained,
+12. runs the port's examples (phase examples): examples/api_tour_torch.py
+   on the card at its own sizes (80 epochs of 4 batches of 4 clouds of
+   128 points, then its decode), its trained system written as hpcs_tpu's
+   2-process orbax directory, and examples/eval_noise_torch.py with --ckpt
+   that directory on the card and on the CPU: the embeddings within atol
+   2e-4 / rtol 1e-3 of each other, every score in [0, 1], B1 3 a training
+   step and test_step and B2 3 a test_step;
+13. trains the flagship to convergence (phase trained,
    hpcs_torch.trained_readings): `python -m hpcs_torch.train`'s main with
    the flags of hpcs_tpu's 60-epoch synthetic run
    (benchmarks/results_round2.json) and seed 0 in a temporary working
@@ -136,7 +148,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    (benchmarks/results_round2.json, benchmarks/bf16_quality.json); B1 and
    B2 counted on every batch, in fp32 and bf16; times the epochs and the
    phase;
-13. runs hpcs_torch.parallel (phase parallel) at the flagship width: (a)
+14. runs hpcs_torch.parallel (phase parallel) at the flagship width: (a)
    the data-parallel step at world size 1 over NCCL (B=8, N=1024, 2
    warm-up + 5 timed steps) against the single-device step from the same
    state and generator: the mean all-reduce the identity bit for bit on
@@ -174,7 +186,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    all-reduce ms per step, each backend, each configuration's readings and
    the phase's B1 and B2 launches and row-range launches, which the
    kernels line counts;
-14. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
+15. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
    with --profile at the flagship (B=8, N=1024, a ShapeNet-Part tree of 2
    categories: 2 training steps, 1 validation and 1 test batch): one
    trace file holding CUDA kernels and a span for every module of
@@ -191,7 +203,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    ImportError before any launch; (d) `python -m
    hpcs_torch.check_invariance` at B=16, N=1024, 8 rotations, fp32 and
    bf16 (its verdict must be PASS), with each stage's graph agreement;
-15. prints one JSON line per kernel summary (with its row-range
+16. prints one JSON line per kernel summary (with its row-range
    launches), the card's name and power limit, and last {"ok": true,
    "device": {...}}.
 
@@ -1599,7 +1611,10 @@ def import_phase(system, cfg, batches, card):
     """What hpcs_tpu's users hold, on the card: an hpcs_tpu-format checkpoint
     (testing.write_flax_checkpoint, flax's msgpack layout) of the forward
     phase's weights after 2 training steps, served by infer and resumed by
-    train --resume; a reference Lightning checkpoint imported by
+    train --resume; the same state as hpcs_tpu's multi-process orbax
+    directory (testing.write_orbax_checkpoint, 1 and 2 processes), restored
+    bit for bit, served as the msgpack and resumed; a reference Lightning
+    checkpoint imported by
     import_checkpoint and served; the rest of the decode API on 4 flagship
     objects against the CPU port and scipy."""
     import contextlib
@@ -1618,9 +1633,11 @@ def import_phase(system, cfg, batches, card):
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
     from hpcs_torch.testing import (check_same_test_outputs, record_test_steps,
-                                    write_flax_checkpoint, write_mini_shapenet)
+                                    write_flax_checkpoint, write_mini_shapenet,
+                                    write_orbax_checkpoint)
     from hpcs_torch.utils import flax_msgpack
     from hpcs_torch.utils.checkpoint import load_config, restore_checkpoint
+    from hpcs_torch.utils.orbax_dir import read_orbax_state
 
     t_phase = time.perf_counter()
     launches = {"knn": 0, "knn_wide": 0, "edgeconv": 0}
@@ -1704,39 +1721,90 @@ def import_phase(system, cfg, batches, card):
         write_mini_shapenet(os.path.join(tmp.name, "data", "ShapeNet", "raw"), ENTRY_CATEGORIES,
                             ENTRY_SPLITS, seed=SEED)
         os.chdir(tmp.name)
-        first = []
-        original = HypHCSystem.train_step
-
-        def recorded(self, batch, generator):
-            if not first:
-                try:
-                    same_state(self, "the first resumed step")
-                    first.append(True)
-                except RuntimeError as e:
-                    first.append(str(e))
-            return original(self, batch, generator)
-
         n_train, n_val, n_test = (len(ENTRY_CATEGORIES) * n for n in ENTRY_SPLITS)
         steps, val_batches = n_train // TRAIN_B, n_val // TRAIN_B
         test_batches = min(10, -(-n_test // TRAIN_B))
-        HypHCSystem.train_step = recorded
-        try:
+
+        def resume(what, ckpt, log):
+            """train --resume from ckpt for one epoch, logs under `log`: the
+            first step must start from the written state, the epoch be the
+            stored one + 1.  Returns (call seconds, epoch seconds)."""
+            first = []
+            original = HypHCSystem.train_step
+
+            def recorded(self, batch, generator):
+                if not first:
+                    try:
+                        same_state(self, f"the first step resumed from {what}")
+                        first.append(True)
+                    except RuntimeError as e:
+                        first.append(str(e))
+                return original(self, batch, generator)
+
+            HypHCSystem.train_step = recorded
+            try:
+                t = time.perf_counter()
+                run(f"train --resume ({what})", train.main,
+                    ENTRY_FLAGS + ["--epochs", str(IMPORT_EPOCH + 2), "--resume", ckpt,
+                                   "--log", log],
+                    want={"knn": 3 * (steps + val_batches + test_batches), "knn_wide": 0,
+                          "edgeconv": 3 * (val_batches + test_batches)})
+                seconds = time.perf_counter() - t
+            finally:
+                HypHCSystem.train_step = original
+            if first != [True]:
+                fail(f"import: the run resumed from {what} did not start from the written "
+                     f"state: {first}")
+            with open(os.path.join(log, "shapenet_vn_dgcnn_partseg", "metrics.jsonl")) as f:
+                epochs = [r for r in map(json.loads, f) if "epoch" in r]
+            if [r["epoch"] for r in epochs] != [IMPORT_EPOCH + 1] or \
+                    epochs[0]["step"] != src.step + steps:
+                fail(f"import: epochs resumed from {what} "
+                     f"{[(r['epoch'], r['step']) for r in epochs]}, expected epoch "
+                     f"{IMPORT_EPOCH + 1} ending at step {src.step + steps}")
+            return seconds, epochs[0]["epoch_time_s"]
+
+        resume_s, resume_epoch_s = resume("the msgpack checkpoint", flax_dir, "logs")
+
+        # 1b. the same state as hpcs_tpu's multi-process checkpoint, an orbax
+        # directory (testing.write_orbax_checkpoint; the port needs no
+        # orbax), written as 1 and as 2 processes save it: read bit for bit,
+        # served as the msgpack, resumed
+        orbax = {}
+        for processes in (1, 2):
+            what = f"the orbax directory of {processes} process(es)"
+            odir = os.path.join(tmp.name, f"hpcs_tpu_orbax_{processes}")
+            write_orbax_checkpoint(odir, src, cfg, epoch=IMPORT_EPOCH, processes=processes)
+            mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, files in
+                     os.walk(os.path.join(odir, "orbax")) for f in files) / 2 ** 20
+            o_read_ms = host_ms(lambda: read_orbax_state(os.path.join(odir, "orbax")), 3)
+            fresh = HypHCSystem(cfg, generator=torch.Generator().manual_seed(7))
+            o_restore_ms = host_ms(lambda: restore_checkpoint(odir, fresh), 3)
+            if restore_checkpoint(odir, fresh)[0] != IMPORT_EPOCH + 1:
+                fail(f"import: {what} must resume at its epoch + 1")
+            same_state(fresh, f"restore_checkpoint of {what}")
             t = time.perf_counter()
-            run("train --resume", train.main,
-                ENTRY_FLAGS + ["--epochs", str(IMPORT_EPOCH + 2), "--resume", flax_dir],
-                want={"knn": 3 * (steps + val_batches + test_batches), "knn_wide": 0,
-                      "edgeconv": 3 * (val_batches + test_batches)})
-            resume_s = time.perf_counter() - t
-        finally:
-            HypHCSystem.train_step = original
-        if first != [True]:
-            fail(f"import: the resumed run did not start from the written state: {first}")
-        with open(os.path.join("logs", "shapenet_vn_dgcnn_partseg", "metrics.jsonl")) as f:
-            epochs = [r for r in map(json.loads, f) if "epoch" in r]
-        if [r["epoch"] for r in epochs] != [IMPORT_EPOCH + 1] or \
-                epochs[0]["step"] != src.step + steps:
-            fail(f"import: resumed epochs {[(r['epoch'], r['step']) for r in epochs]}, expected "
-                 f"epoch {IMPORT_EPOCH + 1} ending at step {src.step + steps}")
+            with record_test_steps() as served_orbax:
+                orbax_sys, orbax_results = run(f"infer ({what})", infer.main,
+                                               infer_argv + ["--model_path", odir],
+                                               want=served(2))
+            infer_s = time.perf_counter() - t
+            same_state(orbax_sys, f"infer of {what}")
+            try:
+                rel = check_same_test_outputs(served_orbax, served_flax)
+            except AssertionError as e:
+                fail(f"import: infer of {what} differs from the msgpack checkpoint's: {e}")
+            o_resume_s, o_epoch_s = resume(what, odir, f"logs_orbax_{processes}")
+            orbax[f"processes_{processes}"] = dict(
+                checkpoint_mb=mb, read_ms=o_read_ms, read_mb_per_s=mb / o_read_ms * 1e3,
+                restore_ms=o_restore_ms, infer_call_seconds=infer_s,
+                infer_seconds_per_request=[c["seconds"] for c in served_orbax],
+                infer_results=orbax_results, infer_vs_msgpack_max_rel_log_diff=rel,
+                resume_call_seconds=o_resume_s, resume_epoch_seconds=o_epoch_s)
+        print(json.dumps({"import_checkpoint_sizes": {
+            "msgpack": dict(mb=size_mb, read_ms=read_ms, restore_ms=restore_ms),
+            **{k: dict(mb=v["checkpoint_mb"], read_ms=v["read_ms"], restore_ms=v["restore_ms"])
+               for k, v in orbax.items()}}, "card": card}), flush=True)
 
         # 2. a reference Lightning checkpoint, its backbone class unimportable
         stub = types.ModuleType(REFERENCE_STUB)
@@ -1886,7 +1954,7 @@ def import_phase(system, cfg, batches, card):
                    c["seconds"] for c in served_flax], infer_call_seconds=infer_flax_s,
                infer_results=flax_results, in_memory_results=in_memory_results,
                infer_vs_in_memory_max_rel_log_diff=[flax_rel, ref_rel],
-               resume_call_seconds=resume_s, resume_epoch_seconds=epochs[0]["epoch_time_s"],
+               resume_call_seconds=resume_s, resume_epoch_seconds=resume_epoch_s, orbax=orbax,
                import_checkpoint_seconds=import_s, imported_lines=printed.getvalue().splitlines(),
                decode_objects=DECODE_OBJECTS, decode_ms_per_object=per_obj,
                sequential_linkage_steps=N - 1, sequential_linkage_kernels=seq_kernels,
@@ -1895,6 +1963,93 @@ def import_phase(system, cfg, batches, card):
                sizes_equal_scipy=scipy_sizes, tied_distance_pairs=tied_pairs,
                eval_clustering=scores, seconds=time.perf_counter() - t_phase, card=card)
     emit("import", **out)
+    return out
+
+
+EXAMPLE_EPOCHS = 80  # examples/api_tour_torch.py's default, as the JAX example's
+EXAMPLE_NOISES = 5  # examples/eval_noise_torch.py's default jitters
+
+
+def examples_phase(card):
+    """The port's examples on the card: examples/api_tour_torch.py at its
+    own sizes (80 epochs of 4 batches of 4 clouds of 128 points), its
+    trained system written as hpcs_tpu's 2-process orbax directory
+    (testing.write_orbax_checkpoint), and examples/eval_noise_torch.py on
+    that directory on the card and on the CPU: the embeddings within atol
+    2e-4 / rtol 1e-3, every score in [0, 1], B1 and B2 counted."""
+    import contextlib
+    import io
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    import api_tour_torch
+    import eval_noise_torch
+
+    from hpcs_torch.testing import write_orbax_checkpoint
+
+    t_phase = time.perf_counter()
+    launches = {}
+    printed = io.StringIO()
+    _counts(reset=True)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        tour = api_tour_torch.main(["--device", "cuda", "--epochs", str(EXAMPLE_EPOCHS)])
+    torch.cuda.synchronize()
+    tour_s = time.perf_counter() - t
+    steps = EXAMPLE_EPOCHS * 4
+    # VN-DGCNN: B1 3 a training step and a test_step, B2 3 a test_step only
+    launches["api_tour"] = _counts(reset=True)
+    if launches["api_tour"] != _launches(knn=3 * steps + 3, edgeconv=3):
+        fail(f"examples: api_tour launched {launches['api_tour']}, expected B1 3 a step over "
+             f"{steps} steps and a test_step, B2 3")
+    system, dec = tour["system"], tour["decode"]
+    if system.step != steps or not all(np.isfinite(v) for v in tour["train_logs"].values()) \
+            or not 0.0 <= dec["score"] <= 1.0 or not 0.0 <= dec["best_score"] <= 1.0:
+        fail(f"examples: api_tour ended at step {system.step}, logs {tour['train_logs']}, "
+             f"scores {dec['score']}, {dec['best_score']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "api_tour_orbax")
+        write_orbax_checkpoint(ckpt, system, system.cfg, epoch=EXAMPLE_EPOCHS - 1, processes=2)
+        flags = ["--ckpt", ckpt, "--out", ""]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            on_card = eval_noise_torch.main(flags + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        launches["eval_noise"] = _counts(reset=True)
+        if launches["eval_noise"] != _launches(knn=3 * EXAMPLE_NOISES,
+                                               edgeconv=3 * EXAMPLE_NOISES):
+            fail(f"examples: eval_noise launched {launches['eval_noise']}, expected B1 and B2 "
+                 f"3 times for each of {EXAMPLE_NOISES} noises")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            on_cpu = eval_noise_torch.main(flags + ["--device", "cpu"])
+        eval_cpu_s = time.perf_counter() - t
+        if _counts(reset=True) != _launches():
+            fail("examples: eval_noise on the CPU launched a kernel")
+    gaps = []
+    for c, h in zip(on_card, on_cpu):
+        for key in ("x_euclidean", "x_poincare"):
+            diff = (c[key] - h[key]).abs()
+            if not bool((diff <= 2e-4 + 1e-3 * h[key].abs()).all()):
+                fail(f"examples: eval_noise's {key} at noise {c['noise']} differs between the "
+                     f"card and the CPU by {float(diff.max()):.3e}")
+            gaps.append(float(diff.max()))
+        if not (0.0 <= c["score"] <= 1.0 and 0.0 <= h["score"] <= 1.0):
+            fail(f"examples: eval_noise scores {c['score']}, {h['score']} outside [0, 1]")
+    out = dict(api_tour_epochs=EXAMPLE_EPOCHS, api_tour_steps=steps, api_tour_seconds=tour_s,
+               api_tour_ms_per_step=tour_s / steps * 1e3, api_tour_train_logs=tour["train_logs"],
+               api_tour_score=dec["score"], api_tour_object0=dict(best_k=dec["best_k"],
+                                                                 score=dec["best_score"]),
+               eval_noise_seconds=dict(card=eval_s, cpu=eval_cpu_s),
+               eval_noise=[dict(noise=c["noise"], best_k_card=c["best_k"], best_k_cpu=h["best_k"],
+                                score_card=c["score"], score_cpu=h["score"])
+                           for c, h in zip(on_card, on_cpu)],
+               max_abs_err_embeddings_card_vs_cpu=max(gaps), launches_by_run=launches,
+               launches={k: sum(run[k] for run in launches.values()) for k in COUNTERS},
+               printed=printed.getvalue().splitlines(), seconds=time.perf_counter() - t_phase,
+               card=card)
+    emit("examples", **out)
     return out
 
 
@@ -3114,11 +3269,12 @@ def main():
         train_step_ms_median=train["train_step_ms_median"],
         train_peak_memory_mb=train["peak_memory_mb"]))
     imp = import_phase(system, cfg, batches, card)
+    examples = examples_phase(card)
     trained = trained_phase(card)
     par = parallel_phase(card)
     obs = observe_phase(card)
 
-    # 15. summary lines (row_launches: the launches over a row range, all
+    # 16. summary lines (row_launches: the launches over a row range, all
     # in the parallel phase's point-sharded runs)
     par_rows = par["row_launches"]
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
@@ -3135,8 +3291,9 @@ def main():
              launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
              + train["fit_launches"]["knn"] + entry_launches["knn"]
              + backbones["launches"]["knn"] + imp["launches"]["knn"]
-             + trained["launches_fp32"]["knn"] + par["launches"]["knn"]
-             - par["launches"]["knn_bf16"] + obs["launches"]["knn"], row_launches=par_rows["knn"],
+             + examples["launches"]["knn"] + trained["launches_fp32"]["knn"]
+             + par["launches"]["knn"] - par["launches"]["knn_bf16"] + obs["launches"]["knn"],
+             row_launches=par_rows["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
              library_ms=None),
@@ -3145,7 +3302,8 @@ def main():
              launches=launches["knn_wide"] + decode["launches"]["knn_wide"]
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
-             + imp["launches"]["knn_wide"] + trained["launches"]["knn_wide"]
+             + imp["launches"]["knn_wide"] + examples["launches"]["knn_wide"]
+             + trained["launches"]["knn_wide"]
              + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"], row_launches=0,
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
@@ -3154,7 +3312,8 @@ def main():
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
-             + imp["launches"]["edgeconv"] + trained["launches_fp32"]["edgeconv"]
+             + imp["launches"]["edgeconv"] + examples["launches"]["edgeconv"]
+             + trained["launches_fp32"]["edgeconv"]
              + par["launches"]["edgeconv"] - par["launches"]["edgeconv_bf16"]
              + obs["launches"]["edgeconv"], row_launches=par_rows["edgeconv"],
              max_abs_err=ec_err,

@@ -6,7 +6,9 @@ on CUDA unless --accelerator cpu.  The checkpoint is a directory with
 model.ckpt + config.json, or its model.ckpt: one the port's save_checkpoint
 wrote, one the JAX package wrote (its msgpack model.ckpt), or one
 `python -m hpcs_torch.import_checkpoint` made from a reference Lightning
-checkpoint.  Its config is taken with --test_rotation and --fixed_points
+checkpoint; or the JAX package's multi-process checkpoint, a directory with
+orbax/ + meta.json + config.json (read through libzstd.so.1, no orbax).
+Its config is taken with --test_rotation and --fixed_points
 from the flags.  The test split (data/ShapeNet/raw, data/PartNet/sem_seg_h5/
 <category>-<level>, or 16 synthetic clouds) is shuffled with --seed and
 `trainer.test` runs on at most --test_batches batches.  --plot_inference
@@ -37,7 +39,8 @@ def check_model_path(model_path):
     raise FileNotFoundError(
         f"checkpoint not found: {model_path} (expected a directory with model.ckpt + "
         "config.json, or its model.ckpt: written by hpcs_torch or hpcs_tpu, or imported from a "
-        "reference Lightning checkpoint by python -m hpcs_torch.import_checkpoint)")
+        "reference Lightning checkpoint by python -m hpcs_torch.import_checkpoint; or hpcs_tpu's "
+        "multi-process checkpoint, a directory with orbax/ + meta.json + config.json)")
 
 
 def build_args(sub, dataset):

@@ -2,7 +2,8 @@
 card's training step and of the packed optimizer against the
 per-parameter one, the test data and probes of the entry points' checks,
 the fp32 / bf16 serving of a trained checkpoint (`fp32_bf16_quality`), and
-a writer of the JAX package's checkpoint format (`write_flax_checkpoint`).
+writers of the JAX package's two checkpoint formats (`write_flax_checkpoint`,
+`write_orbax_checkpoint`).
 
 Used by chip_smoke.py, `trained_readings` and the tests; nothing on the
 forward or training path imports this module.
@@ -21,6 +22,7 @@ import torch
 from .ops.edgeconv import _vn_llr_folded, edgeconv_infer_plain, graph_feature_vn
 from .ops.knn import gather_neighbors, knn_scores
 from .ops.vn_math import EPS, NEGATIVE_SLOPE, channel_mix
+from .utils import ocdbt, zstd
 
 ATOL, RTOL = 1e-5, 1e-4
 ILL_CONDITIONED = 1e-4  # pre-BatchNorm |p| below which fp32 cannot fix the output
@@ -1023,3 +1025,106 @@ def write_flax_checkpoint(path, system, cfg, epoch=0, extra=None):
         f.write(msgpack_pack(payload))
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+
+
+# ------------------------------------ the JAX package's orbax checkpoints
+
+_ZARR_DTYPES = {np.dtype(np.float32): "<f4", np.dtype(np.int32): "<i4",
+                np.dtype(np.uint32): "<u4", np.dtype(np.float64): "<f8",
+                np.dtype(np.int64): "<i8"}
+
+
+def _tree_leaves(tree, path=()):
+    """(key path, leaf) of a state-dict tree, dicts in sorted key order;
+    an empty dict is a leaf."""
+    if isinstance(tree, dict) and tree:
+        for key in sorted(tree):
+            yield from _tree_leaves(tree[key], path + (key,))
+    else:
+        yield path, tree
+
+
+def _zstd_chunk(x):
+    """A zarr chunk of the array x: its C-order little-endian bytes in one
+    zstd frame at level 1, as orbax's zarr arrays hold them."""
+    return zstd.compress(np.ascontiguousarray(x).astype(x.dtype.newbyteorder("<")).tobytes(), 1)
+
+
+def write_orbax_checkpoint(path, system, cfg, epoch=0, extra=None, processes=1):
+    """Write `system`'s state as the JAX package's multi-process checkpoint
+    into the directory `path`: what its save_checkpoint(use_orbax=True)
+    writes for `flax_state_of(system)` in `processes` processes, with no
+    orbax or tensorstore.
+
+    - orbax/_METADATA (the tree), _CHECKPOINT_METADATA and
+      array_metadatas/process_<i>; not _sharding, the arrays' placement on
+      JAX devices, which a restore onto a given TrainState does not read;
+    - the arrays as zarr v2 with zstd chunks (level 1) in an OCDBT database
+      with zstd nodes.  With `processes` > 1 on 2 devices each, as a
+      replicated TrainState is saved, an array whose first dimension
+      divisible by the device count exists is cut along it into one chunk
+      per device, each written by that device's process; any other array
+      is one chunk of process 0;
+    - meta.json ({"epoch", "extra"}: `epoch` as the JAX package stores it,
+      the index of the epoch it finished) and config.json.
+
+    A test helper: it lets a GPU machine without orbax read such a
+    directory at full width."""
+    state = flax_state_of(system)
+    devices = 2 * processes if processes > 1 else 1
+    root = os.path.join(path, "orbax")
+    os.makedirs(os.path.join(root, "array_metadatas"), exist_ok=True)
+    tree, arrays = {}, []
+    per_process = [{} for _ in range(processes)]
+    for top in ("params", "batch_stats", "opt_state", "step"):  # TrainState's fields
+        for keys, leaf in _tree_leaves(state[top], (top,)):
+            key_meta = [{"key": k, "key_type": 2} for k in keys]
+            if isinstance(leaf, dict):
+                tree[str(keys)] = {"key_metadata": key_meta, "value_metadata": {
+                    "value_type": "Dict", "skip_deserialize": True}}
+                continue
+            name = ".".join(keys)
+            x = np.asarray(leaf)  # not ascontiguousarray: it makes a 0-d array 1-d
+            axis = next((a for a, n in enumerate(x.shape) if n % devices == 0), None) \
+                if devices > 1 and x.size else None
+            chunk = list(x.shape)
+            if axis is not None:
+                chunk[axis] //= devices
+            tree[str(keys)] = {"key_metadata": key_meta, "value_metadata": {
+                "value_type": "jax.Array", "skip_deserialize": False, "write_shape": chunk}}
+            arrays.append({"array_metadata": {"param_name": name, "write_shape": chunk,
+                                              "chunk_shape": chunk, "ext_metadata": None}})
+            zarray = {"chunks": chunk, "compressor": {"id": "zstd", "level": 1},
+                      "dimension_separator": ".", "dtype": _ZARR_DTYPES[x.dtype],
+                      "fill_value": None, "filters": None, "order": "C",
+                      "shape": list(x.shape), "zarr_format": 2}
+            per_process[0][f"{name}/.zarray".encode()] = json.dumps(
+                zarray, separators=(",", ":")).encode()
+            for d in range(devices if axis is not None else 1):
+                index = [0] * x.ndim
+                part = x
+                if axis is not None:
+                    index[axis] = d
+                    part = np.take(x, range(d * chunk[axis], (d + 1) * chunk[axis]), axis=axis)
+                key = f"{name}/{'.'.join(map(str, index)) or '0'}".encode()
+                per_process[d * processes // devices][key] = _zstd_chunk(part)
+    ocdbt.write_multi_process(root, per_process)
+    now = time.time_ns()
+    files = {"_METADATA": {"tree_metadata": tree, "use_ocdbt": True, "use_zarr3": False,
+                           "store_array_data_equal_to_fill_value": True,
+                           "custom_metadata": None},
+             "_CHECKPOINT_METADATA": {
+                 "item_handlers": "orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                                  "StandardCheckpointHandler",
+                 "metrics": {}, "performance_metrics": {}, "init_timestamp_nsecs": now,
+                 "commit_timestamp_nsecs": now, "custom_metadata": {}}}
+    files.update({f"array_metadatas/process_{i}": {"array_metadatas": arrays}
+                  for i in range(processes)})
+    for rel, content in files.items():
+        with open(os.path.join(root, rel), "w") as f:
+            json.dump(content, f)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"epoch": int(epoch), "extra": extra or {}}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+

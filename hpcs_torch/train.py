@@ -4,8 +4,9 @@ The flags are the JAX package's train.py's (hpcs_torch/cli.py); the run
 goes on CUDA unless --accelerator cpu.  It trains with `trainer.fit`
 (metrics to <log>/<dataset>_<model>/metrics.jsonl and .csv, checkpoints
 best/ and last/ under its checkpoints/ directory, --resume from one of
-them or from a JAX-package checkpoint, which resumes at its stored
-epoch + 1), saves checkpoints/final from the best state, then tests it on at
+them or from a JAX-package checkpoint, its msgpack model.ckpt or its
+multi-process orbax/ directory, which resumes at its stored epoch + 1),
+saves checkpoints/final from the best state, then tests it on at
 most 10 test batches.  With --infer it only tests, every test batch, the
 untrained system or the one --resume restores.  --pretrained grafts a raw
 VN-DGCNN backbone checkpoint (--pretrained_path, or the reference's default

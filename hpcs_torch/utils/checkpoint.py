@@ -6,12 +6,16 @@
 - `config.json`: the ModelConfig as `dataclasses.asdict` gives it, the keys
   of the JAX package's config.json.
 
-`restore_checkpoint` also reads the JAX package's own single-file
-checkpoint: the same two files, its `model.ckpt` the flax msgpack of
-{"state": TrainState, "epoch", "extra"}.  The first bytes tell the two
-apart: a `torch.save` file is a zip (b"PK"), a flax file a msgpack map
-(0x80-0x8f, 0xde or 0xdf).  The JAX package's multi-process format, a
-directory with orbax/, is not read (ROADMAP A11c).
+`restore_checkpoint` also reads the JAX package's two formats:
+
+- its single-file checkpoint: the same two files, its `model.ckpt` the
+  flax msgpack of {"state": TrainState, "epoch", "extra"}.  The first
+  bytes tell the two apart: a `torch.save` file is a zip (b"PK"), a flax
+  file a msgpack map (0x80-0x8f, 0xde or 0xdf);
+- its multi-process checkpoint: a directory with `orbax/` (the TrainState
+  as orbax writes it, `utils/orbax_dir.py`, read through libzstd with no
+  orbax or tensorstore), `meta.json` ({"epoch", "extra"}) and
+  `config.json`.
 """
 import dataclasses
 import json
@@ -21,6 +25,7 @@ import torch
 
 from . import flax_msgpack
 from .jax_params import from_jax_hyperparams, from_jax_opt_state, from_jax_params
+from .orbax_dir import read_orbax_state
 
 
 def save_checkpoint(path, system, cfg, epoch=0, extra=None):
@@ -40,9 +45,13 @@ def load_config(path):
         return json.load(f)
 
 
-def checkpoint_format(ckpt_file):
-    """"torch" for a `torch.save` file, "flax" for the JAX package's msgpack
-    file; raises ValueError for anything else."""
+def checkpoint_format(path):
+    """"orbax" for the JAX package's directory with orbax/; for a file (or
+    a directory's model.ckpt) "torch" for a `torch.save` file, "flax" for
+    the JAX package's msgpack file; raises ValueError for anything else."""
+    if os.path.isdir(os.path.join(path, "orbax")):
+        return "orbax"
+    ckpt_file = os.path.join(path, "model.ckpt") if os.path.isdir(path) else path
     with open(ckpt_file, "rb") as f:
         head = f.read(2)
     if head == b"PK":
@@ -62,14 +71,21 @@ def restore_checkpoint(path, system):
     rate its optimizer state holds (the plateau-reduced one) and the step.
     The JAX package stores the index of the epoch it had finished, and its
     own resume trains that epoch again; here the port's rule holds, so such
-    a checkpoint resumes at its epoch + 1.
+    a checkpoint resumes at its epoch + 1, in either of its formats.  An
+    orbax directory without meta.json stored epoch 0 and no extra, as the
+    JAX package reads it, so it resumes at 1.
     """
-    if os.path.isdir(os.path.join(path, "orbax")):
-        raise NotImplementedError(
-            f"{path} is the JAX package's multi-process (orbax) checkpoint, which the port "
-            "does not read yet (ROADMAP A11c)")
+    fmt = checkpoint_format(path)
+    if fmt == "orbax":
+        load_jax_state(system, read_orbax_state(os.path.join(path, "orbax")))
+        meta = {"epoch": 0, "extra": {}}
+        meta_path = os.path.join(path, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+        return int(meta["epoch"]) + 1, meta.get("extra") or {}
     ckpt_file = path if os.path.isfile(path) else os.path.join(path, "model.ckpt")
-    if checkpoint_format(ckpt_file) == "flax":
+    if fmt == "flax":
         payload = flax_msgpack.read(ckpt_file)
         load_jax_state(system, payload["state"])
         return int(payload["epoch"]) + 1, payload.get("extra") or {}

@@ -1,11 +1,12 @@
 """Run one phase of chip_smoke.py alone on one GPU, after building the
 kernels: `observe` (--profile, --debug_nans, --plot_inference and the
-SO(3) probe) or `parallel` (hpcs_torch.parallel: data-parallel steps, the
-sharded test_step, every configuration point-sharded); see each phase's
-docstring.  Prints the card, then the phase's JSON line; with a path,
+SO(3) probe), `parallel` (hpcs_torch.parallel: data-parallel steps, the
+sharded test_step, every configuration point-sharded) or `examples`
+(examples/api_tour_torch.py and eval_noise_torch.py on an orbax
+directory); see each phase's docstring.  Prints the card, then the phase's JSON line; with a path,
 also writes that line there.
 
-    python3 scripts/chip_phase.py observe|parallel [out.json]
+    python3 scripts/chip_phase.py observe|parallel|examples [out.json]
 """
 import json
 import os
@@ -17,7 +18,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from hpcs_torch.ops import _build  # noqa: E402
 
-PHASES = {"observe": cs.observe_phase, "parallel": cs.parallel_phase}
+PHASES = {"observe": cs.observe_phase, "parallel": cs.parallel_phase,
+          "examples": cs.examples_phase}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in PHASES:

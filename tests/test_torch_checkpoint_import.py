@@ -287,12 +287,6 @@ def test_fit_resumes_a_jax_checkpoint_at_its_epoch_plus_one(states, tmp_path):
     assert [s for s, _ in seen] == [2, 3] and system.step == 4
 
 
-def test_an_orbax_directory_raises_naming_a11(tmp_path):
-    os.makedirs(tmp_path / "orbax")
-    with pytest.raises(NotImplementedError, match="A11"):
-        restore_checkpoint(str(tmp_path), None)
-
-
 def test_checkpoint_format_is_told_by_its_first_bytes(tmp_path):
     torch.save({"x": torch.zeros(2)}, str(tmp_path / "t.ckpt"))
     (tmp_path / "m.ckpt").write_bytes(msgpack.packb({"state": {}}))

@@ -672,6 +672,48 @@ def test_checkpoint_imports_round_trip_on_gpu(tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("processes", [1, 2])
+def test_an_orbax_directory_restores_and_serves_on_gpu(tmp_path, processes):
+    """At the flagship width on the card, with no orbax: hpcs_tpu's
+    multi-process checkpoint of a trained system (testing.
+    write_orbax_checkpoint) restores its weights, moments, step and rate
+    bit for bit, resumes at its epoch + 1, and serves test_step through B1
+    and B2 (3 launches each) equal to the written system's."""
+    require_cuda()
+    from hpcs_torch.testing import write_orbax_checkpoint
+    from hpcs_torch.utils.checkpoint import checkpoint_format, restore_checkpoint
+
+    cfg = ModelConfig(num_class=50, num_categories=16, eucl_dim=32, hyp_dim=32, k=20)
+    src = HypHCSystem(cfg, generator=torch.Generator().manual_seed(1))
+    pts, cat, seg = SyntheticPartDataset(2, 1024, 16, seed=2).batch(0, 2)
+    batch = {"points": pts, "category": cat, "labels": seg}
+    src.train_step(batch, torch.Generator(device="cuda").manual_seed(0))
+    src.set_learning_rate(cfg.lr / 2)
+    path = str(tmp_path / "orbax_ckpt")
+    write_orbax_checkpoint(path, src, cfg, epoch=2, extra={"p": processes}, processes=processes)
+    assert checkpoint_format(path) == "orbax"
+    got = HypHCSystem(cfg, generator=torch.Generator().manual_seed(3))
+    assert restore_checkpoint(path, got) == (3, {"p": processes})
+    for k, v in src.net.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(got.net.state_dict()[k], v), k
+    named = dict(got.net.named_parameters())
+    for name, p in src.net.named_parameters():
+        a, b = got.optimizer.state[named[name]], src.optimizer.state[p]
+        assert a["step"] == b["step"] and torch.equal(a["exp_avg"], b["exp_avg"]) and \
+            torch.equal(a["exp_avg_sq"], b["exp_avg_sq"]), name
+    assert got.step == src.step == 1
+    assert got.optimizer.param_groups[0]["lr"] == float(np.float32(cfg.lr / 2))
+    outs = []
+    for system in (src, got):
+        k0, e0 = K.knn.launches, E.edgeconv_infer.launches
+        outs.append(system.test_step(batch, torch.Generator(device="cuda").manual_seed(4))[1])
+        assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 3)
+    for key in ("x_poincare", "pred", "best_k", "best_score", "linkage"):
+        assert torch.equal(outs[0][key], outs[1][key]), key
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method", ["complete", "single", "average"])
 @pytest.mark.parametrize("kind", ["untied", "tied"])
 def test_sequential_linkage_on_gpu_equals_cpu(method, kind):
