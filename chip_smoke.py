@@ -135,7 +135,26 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    that directory on the card and on the CPU: the embeddings within atol
    2e-4 / rtol 1e-3 of each other, every score in [0, 1], B1 3 a training
    step and test_step and B2 3 a test_step;
-13. trains the flagship to convergence (phase trained,
+13. runs the per-category evaluation notebooks' path (phase notebooks):
+   (a) mini-ShapeNet-Part written by tools/make_mini_datasets_torch.py
+   (Airplane and Cap, 3 / 1 / 2 objects each) and read back through
+   ShapeNetDataset and the C++ txt parser; (b) the recipe of
+   tools/parity_real_format_torch.py (80 epochs, B=2, N=256, eucl = hyp =
+   16, k=10) trained on the card for NOTEBOOK_SEEDS and tested: B1 3 a
+   training step and an eval batch, B2 3 an eval batch; the per-seed test
+   loss, raw-cosine accuracy, decode score and purity beside hpcs_tpu's 8
+   seeds (benchmarks/parity_real_format.json), failing where the mean
+   decode score or purity lies more than two combined standard errors
+   below hpcs_tpu's; (c) examples/shapenet_eval_torch.ipynb's code cells
+   but the precision-recall cell on seed 0's checkpoint, on the card and on
+   the CPU port: the embeddings within atol 2e-4 / rtol 1e-3, and on the
+   card's embeddings the CPU's rows equal to the card's (best k and true
+   parts, scores within 1e-5; the rows of the CPU's own embeddings are
+   printed beside them: a decode moves with rounding at near ties); (d) its
+   evaluate_category over the mini test split at the flagship's width
+   (N=1024, k=20, eucl = hyp = 32, 16 categories, 50 classes) from the
+   import phase's hpcs_tpu msgpack checkpoint, ms per category;
+14. trains the flagship to convergence (phase trained,
    hpcs_torch.trained_readings): `python -m hpcs_torch.train`'s main with
    the flags of hpcs_tpu's 60-epoch synthetic run
    (benchmarks/results_round2.json) and seed 0 in a temporary working
@@ -148,7 +167,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    (benchmarks/results_round2.json, benchmarks/bf16_quality.json); B1 and
    B2 counted on every batch, in fp32 and bf16; times the epochs and the
    phase;
-14. runs hpcs_torch.parallel (phase parallel) at the flagship width: (a)
+15. runs hpcs_torch.parallel (phase parallel) at the flagship width: (a)
    the data-parallel step at world size 1 over NCCL (B=8, N=1024, 2
    warm-up + 5 timed steps) against the single-device step from the same
    state and generator: the mean all-reduce the identity bit for bit on
@@ -186,7 +205,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    all-reduce ms per step, each backend, each configuration's readings and
    the phase's B1 and B2 launches and row-range launches, which the
    kernels line counts;
-15. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
+16. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
    with --profile at the flagship (B=8, N=1024, a ShapeNet-Part tree of 2
    categories: 2 training steps, 1 validation and 1 test batch): one
    trace file holding CUDA kernels and a span for every module of
@@ -203,7 +222,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    ImportError before any launch; (d) `python -m
    hpcs_torch.check_invariance` at B=16, N=1024, 8 rotations, fp32 and
    bf16 (its verdict must be PASS), with each stage's graph agreement;
-16. prints one JSON line per kernel summary (with its row-range
+17. prints one JSON line per kernel summary (with its row-range
    launches), the card's name and power limit, and last {"ok": true,
    "device": {...}}.
 
@@ -1607,7 +1626,7 @@ DECODE_OBJECTS = 4  # flagship objects the decode API runs on
 REFERENCE_STUB = "reference_hpcs_models_stub"  # unimportable when the file is read
 
 
-def import_phase(system, cfg, batches, card):
+def import_phase(system, cfg, batches, card, keep=None):
     """What hpcs_tpu's users hold, on the card: an hpcs_tpu-format checkpoint
     (testing.write_flax_checkpoint, flax's msgpack layout) of the forward
     phase's weights after 2 training steps, served by infer and resumed by
@@ -1616,9 +1635,11 @@ def import_phase(system, cfg, batches, card):
     bit for bit, served as the msgpack and resumed; a reference Lightning
     checkpoint imported by
     import_checkpoint and served; the rest of the decode API on 4 flagship
-    objects against the CPU port and scipy."""
+    objects against the CPU port and scipy.  With `keep`, a copy of the
+    hpcs_tpu-format checkpoint is left in that directory."""
     import contextlib
     import io
+    import shutil
     import tempfile
     import types
 
@@ -1692,6 +1713,8 @@ def import_phase(system, cfg, batches, card):
         # 1. an hpcs_tpu-format checkpoint: read, served, resumed
         flax_dir = os.path.join(tmp.name, "hpcs_tpu_ckpt")
         write_flax_checkpoint(flax_dir, src, cfg, epoch=IMPORT_EPOCH)
+        if keep:
+            shutil.copytree(flax_dir, keep)
         ckpt_file = os.path.join(flax_dir, "model.ckpt")
         size_mb = os.path.getsize(ckpt_file) / 2 ** 20
         read_ms = host_ms(lambda: flax_msgpack.read(ckpt_file), 3)
@@ -2050,6 +2073,270 @@ def examples_phase(card):
                printed=printed.getvalue().splitlines(), seconds=time.perf_counter() - t_phase,
                card=card)
     emit("examples", **out)
+    return out
+
+
+# hpcs_tpu's converged mini-ShapeNet-Part run, seeds 0-7 at the recipe's 80
+# epochs (benchmarks/parity_real_format.json, "hpcs_tpu"): mean, std (ddof 1)
+TPU_MINI_SHAPENET = {"decode_score_mean": (0.2499577347189188, 0.014495220601409663),
+                     "decode_purity_mean": (0.4326171875, 0.015343445407218215)}
+TPU_MINI_SHAPENET_SEEDS = 8
+NOTEBOOK_SEEDS = (0, 1, 2, 3)  # the recipe's seeds trained on the card
+MINI_SHAPENET_SPLITS = (3, 1, 2)  # train / val / test objects per category
+NOTEBOOK_SCORE_ATOL = 1e-5  # the card's notebook scores against the CPU port's
+
+
+def _run_cells(cells, cwd, npoints=None, record=None, held=None):
+    """Run notebook code cells in order in one namespace from the
+    directory `cwd`, the setup cell's NPOINTS set to `npoints` where given
+    and PLOT set False after it.  With `record` (a list), every embedding
+    the notebook's system makes is appended to it (numpy); with `held`
+    (such a list), each is replaced by the next of those.  Returns (the
+    namespace, the text the cells printed)."""
+    import contextlib
+    import io
+
+    ns = {"__name__": "__main__"}
+    printed, cwd0, path0 = io.StringIO(), os.getcwd(), list(sys.path)
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(printed):
+            for i, cell in enumerate(cells):
+                if npoints is not None:
+                    cell = cell.replace("NPOINTS, BATCH = 256, 2", f"NPOINTS, BATCH = {npoints}, 2")
+                exec(compile(cell, f"notebook cell {i}", "exec"), ns)
+                if i == 0:
+                    ns["PLOT"] = False
+                    if record is not None:
+                        ns["system"].embed = _recorded_embed(ns["system"], record, held)
+    finally:
+        os.chdir(cwd0)
+        sys.path[:] = path0
+    return ns, printed.getvalue()
+
+
+def _recorded_embed(system, record, held=None):
+    """system.embed, its outputs appended to `record` as numpy arrays and,
+    with `held`, replaced by the next of those (numpy pairs)."""
+    embed = system.embed
+
+    def recorded(points, decode_vector, idx_override=None):
+        out = embed(points, decode_vector, idx_override)
+        record.append(tuple(t.cpu().numpy() for t in out))
+        if held:
+            out = tuple(torch.from_numpy(a).to(system.device) for a in held.pop(0))
+        return out
+
+    return recorded
+
+
+def notebooks_phase(card, flagship_ckpt=None):
+    """The per-category evaluation notebooks' path on the card: (a)
+    mini-ShapeNet-Part written by tools/make_mini_datasets_torch.py and read
+    back through ShapeNetDataset and the C++ txt parser; (b) the recipe of
+    tools/parity_real_format_torch.py trained on the card for
+    NOTEBOOK_SEEDS at 80 epochs and tested, its mean decode score and
+    purity held to hpcs_tpu's (z >= -2); (c) examples/shapenet_eval_torch's
+    code cells but the precision-recall cell on seed 0's checkpoint, on the
+    card and on the CPU port (the embeddings within the eval forward's
+    tolerance; on the card's embeddings best k and true parts equal, scores
+    within NOTEBOOK_SCORE_ATOL); (d) its evaluate_category at the flagship's width
+    (N = 1024, k = 20, eucl = hyp = 32, 16 categories, 50 classes) from an
+    hpcs_tpu msgpack checkpoint (`flagship_ckpt`, the import phase's; else
+    one written here the same way)."""
+    import contextlib
+    import io
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tools"))
+    import make_eval_notebook_torch as nbgen
+    import make_mini_datasets_torch as minidata
+    import parity_real_format_torch as prf
+
+    from hpcs_torch.data import SEG_CLASSES, ShapeNetDataset, fast_txt
+    from hpcs_torch.decode import cosine_distance_matrix, decode_leaves, linkage_from_distances_mnn
+    from hpcs_torch.models import HypHCSystem
+    from hpcs_torch.testing import write_flax_checkpoint
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    launches = {}
+    try:
+        # (a) the mini dataset, read back by the port's reader and parser
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            raw = minidata.make_shapenet(os.path.join(root, "data"))
+        write_s = time.perf_counter() - t
+        if not fast_txt.available():
+            fail("notebooks: the C++ txt parser did not build")
+        counts = {}
+        for cat in ("Airplane", "Cap"):
+            for split, want in zip(("train", "val", "test"), MINI_SHAPENET_SPLITS):
+                ds = ShapeNetDataset(raw, npoints=256, split=split, class_choice=cat)
+                counts[f"{cat}/{split}"] = len(ds)
+                if len(ds) != want:
+                    fail(f"notebooks: {cat} {split} holds {len(ds)} objects, expected {want}")
+                for i in range(len(ds)):
+                    pts, _, seg = ds[i]
+                    if pts.shape != (256, 3) or not set(np.unique(seg)) <= set(SEG_CLASSES[cat]):
+                        fail(f"notebooks: {cat} {split} item {i} read as {pts.shape}, labels "
+                             f"{np.unique(seg)}")
+        path = ShapeNetDataset(raw, split="test").datapath[0][1]
+        if not np.array_equal(fast_txt.loadtxt(path), np.loadtxt(path).astype(np.float32)):
+            fail(f"notebooks: the C++ parser's {path} differs from numpy.loadtxt's")
+
+        # (b) the recipe trained on the card, seed by seed
+        c = prf.CFGS["shapenet"]
+        n_train, n_val, n_test = (2 * n for n in MINI_SHAPENET_SPLITS)
+        steps = c["epochs"] * -(-n_train // c["batch_size"])
+        evals = c["epochs"] * -(-n_val // c["batch_size"]) + -(-n_test // c["batch_size"])
+        want = _launches(knn=3 * (steps + evals), edgeconv=3 * evals)
+        out_dir, runs = os.path.join(root, "logs"), []
+        for seed in NOTEBOOK_SEEDS:
+            _counts(reset=True)
+            r, _ = prf.run_torch("shapenet", seed, device="cuda", out=out_dir,
+                                 data=os.path.join(root, "data"), log=lambda line: None)
+            launches[f"train_s{seed}"] = _counts(reset=True)
+            print(f"notebooks: seed {seed} trained in {r['train_wall_s']:.1f} s; test loss "
+                  f"{r['test_loss']:.4f}, no-margin accuracy {r['test_acc_nomargin']:.4f}, "
+                  f"decode score {r['decode_score_mean']:.4f}, purity "
+                  f"{r['decode_purity_mean']:.4f}", file=sys.stderr, flush=True)
+            if launches[f"train_s{seed}"] != want:
+                fail(f"notebooks: seed {seed} launched {launches[f'train_s{seed}']}, expected "
+                     f"{want} (B1 3 a step and a validation or test batch, B2 3 an eval batch)")
+            if not all(np.isfinite(r[k]) for k in prf.RESULT_KEYS + ("test_loss",)):
+                fail(f"notebooks: seed {seed}'s results are not finite: {r}")
+            runs.append(dict(seed=seed, **{k: r[k] for k in (
+                "test_loss", "test_acc_nomargin", "decode_score_mean", "decode_purity_mean",
+                "train_wall_s", "n_test_objects")}))
+        quality = {}
+        for key, (mean, std) in TPU_MINI_SHAPENET.items():
+            tpu = dict(mean=mean, std=std, stderr=std / np.sqrt(TPU_MINI_SHAPENET_SEEDS))
+            quality[key] = dict(port=prf.aggregate([r[key] for r in runs]), hpcs_tpu=tpu,
+                                **prf.compare(prf.aggregate([r[key] for r in runs]), tpu))
+
+        # (c) the notebook's cells on seed 0's checkpoint: on the card, then
+        # on the CPU port with its own embeddings and with the card's.  The
+        # decode of trained embeddings moves with their rounding at near-tied
+        # distances, so the rows are held on one set of embeddings, and the
+        # two devices' embeddings within the eval forward's tolerance.
+        ckpt = prf.checkpoint_dir(out_dir, "shapenet", NOTEBOOK_SEEDS[0])
+        examples = os.path.join(root, "examples")
+        os.makedirs(examples)
+        tables, rows, cell_s, embedded = {}, {}, {}, {}
+        for run, device, held in (("card", "cuda", None), ("cpu", "cpu", None),
+                                  ("cpu_on_card_embeddings", "cpu", "card")):
+            cells = nbgen.code_cells(nbgen.build(ckpt, device))[:-1]  # not precision-recall
+            _counts(reset=True)
+            t = time.perf_counter()
+            embedded[run] = []
+            ns, printed = _run_cells(cells, examples, record=embedded[run],
+                                     held=None if held is None else list(embedded[held]))
+            torch.cuda.synchronize()
+            cell_s[run] = time.perf_counter() - t
+            launches[f"notebook_{run}"] = _counts(reset=True)
+            rows[run], tables[run] = ns["all_rows"], printed.splitlines()
+            if run == "card":
+                per_cat, scale = ns["per_cat"], ns["system"].net.scale[0].detach().cpu()
+        # B1 and B2 3 times for each category's one test batch
+        if launches["notebook_card"] != _launches(knn=6, edgeconv=6) \
+                or launches["notebook_cpu"] != _launches() \
+                or launches["notebook_cpu_on_card_embeddings"] != _launches():
+            fail(f"notebooks: the notebook launched {launches['notebook_card']} on the card "
+                 f"(expected B1 and B2 6 each) and {launches['notebook_cpu']} on the CPU")
+        if not len(rows["card"]) == len(rows["cpu"]) == len(rows["cpu_on_card_embeddings"]) \
+                == 2 * MINI_SHAPENET_SPLITS[2]:
+            fail(f"notebooks: {len(rows['card'])} rows on the card, {len(rows['cpu'])} on the "
+                 "CPU")
+        embedding_gap = 0.0
+        for card_out, cpu_out in zip(embedded["card"], embedded["cpu"]):
+            for got, want_out in zip(card_out, cpu_out):
+                diff = np.abs(got - want_out)
+                embedding_gap = max(embedding_gap, float(diff.max()))
+                if not (diff <= 2e-4 + 1e-3 * np.abs(want_out)).all():
+                    fail(f"notebooks: the card's embeddings differ from the CPU port's by "
+                         f"{float(diff.max()):.3e}, beyond atol 2e-4 / rtol 1e-3")
+        score_gap = 0.0
+        for got, on_cpu in zip(rows["card"], rows["cpu_on_card_embeddings"]):
+            score_gap = max(score_gap, abs(got["score"] - on_cpu["score"]))
+            if (got["category"], got["best_k"], got["true_parts"]) != (
+                    on_cpu["category"], on_cpu["best_k"], on_cpu["true_parts"]) \
+                    or abs(got["score"] - on_cpu["score"]) > NOTEBOOK_SCORE_ATOL:
+                fail(f"notebooks: the card's row {got} differs from the CPU port's on the "
+                     f"card's embeddings, {on_cpu}")
+        own_rows_differing = sum(
+            (a["best_k"], a["score"]) != (b["best_k"], b["score"])
+            for a, b in zip(rows["card"], rows["cpu"]))
+        # how near to ties the card's dendrograms are: per object, its
+        # merges whose height lies within 1e-6 (relative) of the next one's,
+        # and its median height
+        near_ties = []
+        for _, x_p in embedded["card"]:
+            Z = linkage_from_distances_mnn(cosine_distance_matrix(
+                decode_leaves(torch.from_numpy(x_p), scale)), method="complete")
+            for h in Z[..., 2].double().numpy():
+                near_ties.append(dict(merges=len(h), median_height=float(np.median(h)),
+                                      near_tied=int(np.sum(np.diff(h) <= 1e-6 * h[1:]))))
+
+        # (d) evaluate_category at the flagship's width, from hpcs_tpu's format
+        if flagship_ckpt is None:
+            flagship_ckpt = os.path.join(root, "flagship_hpcs_tpu")
+            cfg = _flagship(dataset="shapenet")
+            src = HypHCSystem(cfg, generator=torch.Generator().manual_seed(SEED))
+            randomize_bn(src.net, torch.Generator().manual_seed(SEED))
+            write_flax_checkpoint(flagship_ckpt, src, cfg)
+        cells = nbgen.code_cells(nbgen.build(flagship_ckpt, "cuda"))[:2]  # setup, helpers
+        ns, _ = _run_cells(cells, examples, npoints=N)
+        fcfg = ns["cfg"]
+        if (fcfg.eucl_dim, fcfg.hyp_dim, fcfg.k, fcfg.num_categories, fcfg.num_class,
+                fcfg.pooling, fcfg.model_name) != (EUCL, HYP, K, CATEGORIES, 50, "mean",
+                                                   "vn_dgcnn_partseg"):
+            fail(f"notebooks: the flagship checkpoint restored as {fcfg}")
+        flagship = {}
+        for cat in ("Airplane", "Cap"):
+            _counts(reset=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cat_rows = ns["evaluate_category"](cat, plot=False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            launched = _counts(reset=True)
+            launches[f"flagship_{cat}"] = launched
+            if launched != _launches(knn=3, edgeconv=3):
+                fail(f"notebooks: the flagship {cat} evaluation launched {launched}, expected "
+                     "B1 and B2 3 each (one batch)")
+            if not all(0.0 <= r["score"] <= 1.0 and r["best_k"] >= 1 for r in cat_rows):
+                fail(f"notebooks: flagship rows {cat_rows}")
+            flagship[cat] = dict(ms=ms, rows=cat_rows)
+    finally:
+        tmp.cleanup()
+    out = dict(dataset=dict(seconds_to_write=write_s, objects=counts,
+                            txt_parser="C++ (hpcs_torch/data/csrc/fast_txt.cpp)"),
+               recipe={k: v for k, v in prf.CFGS["shapenet"].items() if k != "seed"},
+               seeds=runs, quality=quality,
+               train_s_per_seed=[r["train_wall_s"] for r in runs],
+               notebook=dict(rows_card=rows["card"],
+                             rows_cpu_on_card_embeddings=rows["cpu_on_card_embeddings"],
+                             rows_cpu_own_embeddings=rows["cpu"],
+                             max_score_gap_card_vs_cpu=score_gap, score_atol=NOTEBOOK_SCORE_ATOL,
+                             own_embedding_rows_differing=own_rows_differing,
+                             card_dendrograms=near_ties,
+                             max_abs_err_embeddings_card_vs_cpu=embedding_gap,
+                             per_category=per_cat, seconds=cell_s, printed_card=tables["card"]),
+               flagship=dict(N=N, k=K, eucl=EUCL, hyp=HYP, categories=CATEGORIES, batch=2,
+                             ms_per_category={c: v["ms"] for c, v in flagship.items()},
+                             rows={c: v["rows"] for c, v in flagship.items()}),
+               launches_by_run=launches,
+               launches={k: sum(run[k] for run in launches.values()) for k in COUNTERS},
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit("notebooks", **out)
+    for key, q in quality.items():
+        if q["z"] < -2:
+            fail(f"notebooks: the card-trained {key} {q['port']['mean']:.4f} is below "
+                 f"hpcs_tpu's {q['hpcs_tpu']['mean']:.4f} by {-q['z']:.2f} combined standard "
+                 "errors (z < -2)")
     return out
 
 
@@ -3268,8 +3555,14 @@ def main():
         test_step_peak_memory_mb=decode["peak_memory_mb"],
         train_step_ms_median=train["train_step_ms_median"],
         train_peak_memory_mb=train["peak_memory_mb"]))
-    imp = import_phase(system, cfg, batches, card)
+    import tempfile
+
+    kept = tempfile.TemporaryDirectory()  # the import phase's msgpack, for the notebooks phase
+    flagship_ckpt = os.path.join(kept.name, "hpcs_tpu_ckpt")
+    imp = import_phase(system, cfg, batches, card, keep=flagship_ckpt)
     examples = examples_phase(card)
+    notebooks = notebooks_phase(card, flagship_ckpt)
+    kept.cleanup()
     trained = trained_phase(card)
     par = parallel_phase(card)
     obs = observe_phase(card)
@@ -3291,7 +3584,8 @@ def main():
              launches=launches["knn"] + decode["launches"]["knn"] + train["launches"]["knn"]
              + train["fit_launches"]["knn"] + entry_launches["knn"]
              + backbones["launches"]["knn"] + imp["launches"]["knn"]
-             + examples["launches"]["knn"] + trained["launches_fp32"]["knn"]
+             + examples["launches"]["knn"] + notebooks["launches"]["knn"]
+             + trained["launches_fp32"]["knn"]
              + par["launches"]["knn"] - par["launches"]["knn_bf16"] + obs["launches"]["knn"],
              row_launches=par_rows["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
@@ -3303,7 +3597,7 @@ def main():
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
              + imp["launches"]["knn_wide"] + examples["launches"]["knn_wide"]
-             + trained["launches"]["knn_wide"]
+             + notebooks["launches"]["knn_wide"] + trained["launches"]["knn_wide"]
              + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"], row_launches=0,
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
@@ -3313,7 +3607,7 @@ def main():
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
              + imp["launches"]["edgeconv"] + examples["launches"]["edgeconv"]
-             + trained["launches_fp32"]["edgeconv"]
+             + notebooks["launches"]["edgeconv"] + trained["launches_fp32"]["edgeconv"]
              + par["launches"]["edgeconv"] - par["launches"]["edgeconv_bf16"]
              + obs["launches"]["edgeconv"], row_launches=par_rows["edgeconv"],
              max_abs_err=ec_err,

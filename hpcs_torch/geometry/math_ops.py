@@ -69,6 +69,45 @@ def tanh(x):
     return torch.tanh(torch.clamp(x, -TANH_CLAMP, TANH_CLAMP))
 
 
+def cosh(x, clamp=TANH_CLAMP):
+    return torch.cosh(torch.clamp(x, -clamp, clamp))
+
+
+def sinh(x, clamp=TANH_CLAMP):
+    return torch.sinh(torch.clamp(x, -clamp, clamp))
+
+
+def _rows3(a, b, c):
+    return torch.stack([torch.stack(a, -1), torch.stack(b, -1), torch.stack(c, -1)], -2)
+
+
+def yaw_rot(alpha):
+    """Rotations [..., 3, 3] about z by the angles `alpha` [...]."""
+    c, s = torch.cos(alpha), torch.sin(alpha)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return _rows3((c, -s, z), (s, c, z), (z, z, o))
+
+
+def pitch_rot(beta):
+    """Rotations [..., 3, 3] about y by the angles `beta` [...]."""
+    c, s = torch.cos(beta), torch.sin(beta)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return _rows3((c, z, s), (z, o, z), (-s, z, c))
+
+
+def roll_rot(gamma):
+    """Rotations [..., 3, 3] about x by the angles `gamma` [...]."""
+    c, s = torch.cos(gamma), torch.sin(gamma)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return _rows3((o, z, z), (z, c, -s), (z, s, c))
+
+
+def rot_3d(yaw, pitch, roll):
+    """Euler-angle rotations R = R_yaw @ R_pitch @ R_roll (reference
+    hpcs/utils/math.py:6-56)."""
+    return yaw_rot(yaw) @ pitch_rot(pitch) @ roll_rot(roll)
+
+
 class _FMA(torch.autograd.Function):
     """float32 a * b + c, rounded once; the gradient is that of a * b + c."""
 

@@ -145,6 +145,18 @@ knn.wide_launches = 0
 knn.bf16_launches = 0
 knn.row_launches = 0
 
+# the JAX package's dispatching name: here the same function, B1's routes
+knn_auto = knn
+
+
+def pairwise_neg_sqdist(x, y=None):
+    """Negative squared distances [B, N, M] fp32 between x [B, N, D] and
+    y [B, M, D] (None: x): 2 x.y - |x|^2 - |y|^2."""
+    x = x.float()
+    y = x if y is None else y.float()
+    x2, y2 = torch.sum(x * x, dim=-1), torch.sum(y * y, dim=-1)
+    return 2.0 * torch.bmm(x, y.transpose(1, 2)) - x2[..., :, None] - y2[..., None, :]
+
 
 def gather_neighbors(x, idx):
     """x [B, N, ...], idx [B, N, K] -> neighbour features [B, N, K, ...]."""

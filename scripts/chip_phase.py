@@ -1,12 +1,15 @@
 """Run one phase of chip_smoke.py alone on one GPU, after building the
 kernels: `observe` (--profile, --debug_nans, --plot_inference and the
 SO(3) probe), `parallel` (hpcs_torch.parallel: data-parallel steps, the
-sharded test_step, every configuration point-sharded) or `examples`
+sharded test_step, every configuration point-sharded), `examples`
 (examples/api_tour_torch.py and eval_noise_torch.py on an orbax
-directory); see each phase's docstring.  Prints the card, then the phase's JSON line; with a path,
+directory) or `notebooks` (mini-ShapeNet-Part written, trained on and
+evaluated through examples/shapenet_eval_torch.ipynb; the flagship's
+hpcs_tpu checkpoint written by the phase itself); see each phase's
+docstring.  Prints the card, then the phase's JSON line; with a path,
 also writes that line there.
 
-    python3 scripts/chip_phase.py observe|parallel|examples [out.json]
+    python3 scripts/chip_phase.py observe|parallel|examples|notebooks [out.json]
 """
 import json
 import os
@@ -19,7 +22,7 @@ import chip_smoke as cs  # noqa: E402
 from hpcs_torch.ops import _build  # noqa: E402
 
 PHASES = {"observe": cs.observe_phase, "parallel": cs.parallel_phase,
-          "examples": cs.examples_phase}
+          "examples": cs.examples_phase, "notebooks": cs.notebooks_phase}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in PHASES:

@@ -314,3 +314,38 @@ def jax_params_like(named, like):
     return jax.tree_util.tree_unflatten(treedef, [
         jnp.asarray(flat[o:o + np.size(leaf)].reshape(np.shape(leaf)), dtype=leaf.dtype)
         for o, leaf in zip(offsets, leaves)])
+
+
+def jax_trained_on_mini(dataset, data_root, npoints, steps, **over):
+    """hpcs_tpu's system and state on tools/parity_real_format_torch.py's
+    recipe for `dataset` (`over` sets config fields), after `steps`
+    train_steps (PRNGKey(i), temperature 0.1) over the training split of
+    the mini tree under `data_root` in turn, read by the port's readers
+    (equal to hpcs_tpu's, tests/test_torch_data.py).  Returns (JAX system,
+    state, the port's ModelConfig, the port's datasets (train, val, test))."""
+    import dataclasses
+    import os
+    import sys
+
+    import jax
+    import jax.numpy as jnp
+
+    from hpcs_tpu.models import HypHCSystem as JSystem
+    from hpcs_tpu.models import ModelConfig as JConfig
+    from hpcs_torch.data import DataLoader
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    import parity_real_format_torch as prf
+
+    c = dict(prf.CFGS[dataset], npoints=npoints)
+    *sets, hierarchy = prf.datasets(dataset, c, data_root)
+    cfg = dataclasses.replace(prf.make_config(dataset, c, hierarchy), **over)
+    jsys = JSystem(JConfig(**dataclasses.asdict(cfg)))
+    batches = [{k: jnp.asarray(v) for k, v in b.items()}
+               for b in DataLoader(sets[0], c["batch_size"])]
+    state = jsys.init(jax.random.PRNGKey(0), batches[0])
+    for i in range(steps):
+        state, _ = jsys.train_step(state, batches[i % len(batches)], jax.random.PRNGKey(i),
+                                   jnp.float32(0.1))
+    return jsys, state, cfg, sets

@@ -841,3 +841,68 @@ def test_nan_checks_name_the_kernels_on_the_card():
             system.embed(batch["points"], dv)
     assert _get_current_dispatch_mode() is None and not torch.is_anomaly_enabled()
     assert not profiling.nan_debugging_enabled()
+
+
+@pytest.mark.cuda
+def test_an_eval_notebook_cell_on_the_card_equals_the_cpu(tmp_path):
+    """examples/shapenet_eval_torch.ipynb's setup and helper cells, then its
+    Airplane cell, on a checkpoint trained 20 epochs on the card by
+    tools/parity_real_format_torch.py on the mini-ShapeNet-Part tree, on the
+    card and on the CPU port: the embeddings within the eval forward's
+    tolerance (atol 2e-4 / rtol 1e-3) and, on the card's embeddings, the
+    CPU's rows equal to the card's (best k, true parts; scores within
+    1e-5): a decode moves with rounding at near-tied distances.  B1 and B2
+    launch 3 times each for the category's one batch."""
+    require_cuda()
+    import contextlib
+    import io
+    import os
+    import sys
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
+    sys.path.insert(0, tools)
+    import make_eval_notebook_torch as nbgen
+    import make_mini_datasets_torch as minidata
+    import parity_real_format_torch as prf
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        minidata.make_shapenet(str(tmp_path / "data"))
+        prf.run_torch("shapenet", 0, epochs=20, device="cuda", out=str(tmp_path / "logs"),
+                      data=str(tmp_path / "data"))
+    ckpt = prf.checkpoint_dir(str(tmp_path / "logs"), "shapenet", 0)
+    (tmp_path / "examples").mkdir()
+    rows, embedded, cwd, path = {}, {}, os.getcwd(), list(sys.path)
+    try:
+        os.chdir(tmp_path / "examples")
+        for run, device in (("card", "cuda"), ("cpu", "cpu"), ("cpu_held", "cpu")):
+            setup, helpers, airplane = nbgen.code_cells(nbgen.build(ckpt, device))[:3]
+            ns, embedded[run] = {"__name__": "__main__"}, []
+            with contextlib.redirect_stdout(io.StringIO()):
+                exec(setup, ns)
+                exec(helpers, ns)
+            system, embed = ns["system"], ns["system"].embed
+
+            def recorded(points, dv, idx_override=None, run=run, embed=embed, system=system):
+                out = embed(points, dv, idx_override)
+                embedded[run].append([t.cpu() for t in out])
+                if run == "cpu_held":  # the card's embeddings
+                    out = tuple(t.to(system.device) for t in embedded["card"][0])
+                return out
+
+            system.embed = recorded
+            ns["PLOT"] = False
+            before = (K.knn.launches, E.edgeconv_infer.launches)
+            with contextlib.redirect_stdout(io.StringIO()):
+                exec(airplane, ns)
+            launched = (K.knn.launches - before[0], E.edgeconv_infer.launches - before[1])
+            assert launched == ((3, 3) if device == "cuda" else (0, 0))
+            rows[run] = ns["all_rows"]
+    finally:
+        os.chdir(cwd)
+        sys.path[:] = path
+    for got, want in zip(embedded["card"][0], embedded["cpu"][0]):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+    assert len(rows["card"]) == len(rows["cpu_held"]) == 2
+    for got, want in zip(rows["card"], rows["cpu_held"]):
+        assert (got["best_k"], got["true_parts"]) == (want["best_k"], want["true_parts"])
+        assert abs(got["score"] - want["score"]) <= 1e-5
