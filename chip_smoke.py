@@ -10,12 +10,15 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    range) at B=16, N=1024, k=20, and, index for index, on clouds whose
    scores are exact: integer points that each appear twice (far apart or
    adjacent; D = 3, 63 and 64), a line of points whose rows' scores rise
-   (the selection's worst case) and equal points; and times it on clouds
-   whose selection work differs, beside the warp queue's insertions per
-   row; and launches B1 over each half of the points' and stage inputs'
-   rows (a 2-way point-sharded rank's launch), in fp32 and on bf16
-   features, each index for index the whole launch's rows, the second
-   half timed beside the whole launch and its bound;
+   (a running queue's worst case) and equal points; and times it on clouds
+   whose selection work differs, beside the selection's candidates per
+   row and the insertions a running queue would make, by kernel at the
+   flagship shapes, with the launch geometry (grid, shared bytes,
+   registers, resident blocks per SM, waves) of each; and launches B1 over
+   each half of the points' and stage inputs' rows (a 2-way point-sharded
+   rank's launch), in fp32 and on bf16 features, each index for index the
+   whole launch's rows, the second half timed beside the whole launch and
+   its bound (knn_phase; alone: python3 scripts/chip_phase.py knn);
 3. holds kernel B2 (EdgeConv stage) against edgeconv_infer_plain at the
    three stage shapes of the model: atol 1e-5 / rtol 1e-4 wherever fp32
    can fix the result, and a bound scaled by the conditioning elsewhere
@@ -550,6 +553,168 @@ def half_cloud_knn(KN, clouds, k=K):
                 whole_ms=cuda_ms(lambda x=x: KN.knn(x, k), 20), bound_ms=bound, bound_by=by,
                 roofline_share=bound / ms)
     return out
+
+
+def flagship():
+    """The flagship model on the card (eucl = hyp = 32, k = 20, 16
+    categories, 50 classes; random weights and BatchNorm statistics from
+    SEED), its config and REQUESTS batches of B synthetic clouds of N
+    points."""
+    from hpcs_torch.data import SyntheticPartDataset
+    from hpcs_torch.models import HypHCSystem, ModelConfig
+
+    gen = torch.Generator().manual_seed(SEED)
+    cfg = ModelConfig(num_class=50, num_categories=CATEGORIES, eucl_dim=EUCL, hyp_dim=HYP, k=K)
+    system = HypHCSystem(cfg, generator=gen)
+    randomize_bn(system.net, gen)
+    data = SyntheticPartDataset(num_objects=B * REQUESTS, npoints=N,
+                                num_categories=CATEGORIES, seed=SEED)
+    return system, cfg, [data.batch(r * B, B) for r in range(REQUESTS)]
+
+
+def request_stages(system, points):
+    """The eval forward's kNN graphs and EdgeConv stages for one request
+    (numpy points [B, N, 3]) through B1 and B2: the points on the card,
+    idx1, x0, x1, f1 (stage 2's kNN input), idx2, x2, f2, idx3 and the
+    stages' weights (w12, w34, w5)."""
+    from hpcs_torch.nn.backbones import vn_dgcnn
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+
+    net = system.net.nn_feat
+    w12 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv1, net.conv2)]
+    w34 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv3, net.conv4)]
+    w5 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv5)]
+    with torch.no_grad():
+        pts = torch.from_numpy(points).cuda().contiguous()
+        idx1 = KN.knn(pts, K)
+        x0 = pts[:, :, None, :].contiguous()
+        x1 = E.edgeconv_infer(x0, idx1, *w12)
+        f1 = x1.reshape(B, N, -1).contiguous()
+        idx2 = KN.knn(f1, K)
+        x2 = E.edgeconv_infer(x1, idx2, *w34)
+        f2 = x2.reshape(B, N, -1).contiguous()
+        idx3 = KN.knn(f2, K)
+    return pts, idx1, x0, x1, f1, idx2, x2, f2, idx3, (w12, w34, w5)
+
+
+KNN_GEOMETRY = ("grid_x", "grid_y", "threads", "smem_bytes", "resident_blocks_per_sm",
+                "registers", "local_bytes", "tile_rows", "tile_columns", "padded_d",
+                "prep_blocks")
+
+
+def knn_geometry(b, n, d, k, rows=None):
+    """knn_kernel's launch at (b, n, d, k) over `rows` rows (None: n), from
+    knn.cu's hpcs_knn_geometry: grid, threads, dynamic shared bytes, resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
+    and local (spill) bytes a thread, its tile, and the waves of blocks over
+    the card's SMs; knn_prep_kernel's blocks (of the same threads)."""
+    import ctypes
+
+    from hpcs_torch.ops import _build
+
+    fn = _build.function("knn", "hpcs_knn_geometry", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    out = (ctypes.c_int * len(KNN_GEOMETRY))()
+    _build.check(fn(b, n, d, k, n if rows is None else rows, out), "hpcs_knn_geometry")
+    g = dict(zip(KNN_GEOMETRY, out))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g.update(sms=sms, blocks=g["grid_x"] * g["grid_y"],
+             waves=g["grid_x"] * g["grid_y"] / (g["resident_blocks_per_sm"] * sms))
+    return g
+
+
+def knn_phase(card, rng=None):
+    """Kernel B1 against knn_plain at the flagship (B=16, N=1024, k=20).
+
+    Its inputs, built here from SEED: the flagship's request-0 points and
+    stage-2/3 features (through B1 and B2), DGCNN's stage-2/3 inputs (D =
+    64, the top of B1's D range), and synthetic clouds from `rng` (default
+    numpy's default_rng(SEED)): Gaussian points, integer clouds whose
+    points each appear twice (far apart or adjacent; D = 3, 63 and 64), a
+    line of points whose rows' scores rise with the column up to the row's
+    own, and equal points.  The integer clouds' scores are exact in fp32
+    whatever the order of the sums: their indices must be equal; elsewhere
+    knn_check allows near-ties.  Times each case (CUDA events, 20 calls:
+    the prep and main launch and the wrapper) beside the selection's
+    candidates per row (testing.knn_candidates) and the insertions a
+    sequential top-k queue would make; the device time by kernel at the
+    three flagship shapes; the launch geometry of each flagship shape (D =
+    3, 63, 64; fp32 and bf16; whole and half cloud); and each half of the
+    rows, equal to the whole launch's.  Emits the `knn` line; returns it
+    with the largest score gap over the near-tie mismatches."""
+    from hpcs_torch.models import decode_vector_for_batch
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.testing import knn_candidates, knn_queue_insertions
+
+    device = torch.device("cuda")
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    system, _, batches = flagship()
+    pts, _, _, _, f1, _, _, f2, _, _ = request_stages(system, batches[0][0])
+    del system
+    with torch.no_grad():
+        def tie_cloud(d, r):
+            half = rng.integers(-r, r + 1, size=(B, N // 2, d)).astype(np.float32)
+            return torch.from_numpy(np.concatenate([half, half], 1)).to(device)
+
+        def adjacent_cloud(d, r):  # x[2m] == x[2m+1]: ties inside one 32-column group
+            half = rng.integers(-r, r + 1, size=(B, N // 2, d)).astype(np.float32)
+            return torch.from_numpy(np.repeat(half, 2, axis=1)).to(device)
+
+        # x_j = (j, 0, 0): exact scores 2 i j - j^2 that rise with j up to the
+        # row's own column (a running queue's worst case)
+        line = torch.zeros(B, N, 3, device=device)
+        line[:, :, 0] = torch.arange(N, device=device, dtype=torch.float32)
+        # DGCNN's stage-2 and stage-3 inputs: D = 64, the top of B1's D range
+        with recorded_knn() as dgcnn_pairs:
+            dgcnn = backbone_system(BACKBONES["dgcnn_partseg"][0])
+            dgcnn.embed(batches[0][0], decode_vector_for_batch(
+                dgcnn.cfg, {"points": batches[0][0], "category": batches[0][1]}))
+        d64_2, d64_3 = dgcnn_pairs[2][0], dgcnn_pairs[3][0]
+        del dgcnn
+        equal = torch.full((B, N, 3), 0.5, device=device)  # all ties
+        gauss = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)).to(device)
+        cases = {"points_d3": (pts, False), "stage2_d63": (f1, False), "stage3_d63": (f2, False),
+                 "gauss_d3": (gauss, False), "ties_d3": (tie_cloud(3, 8), True),
+                 "ties_d63": (tie_cloud(63, 2), True), "line_d3": (line, True),
+                 "adjacent_d3": (adjacent_cloud(3, 8), True),
+                 "adjacent_d63": (adjacent_cloud(63, 2), True), "equal_d3": (equal, True),
+                 "dgcnn_stage2_d64": (d64_2, False), "dgcnn_stage3_d64": (d64_3, False),
+                 "ties_d64": (tie_cloud(64, 2), True), "adjacent_d64": (adjacent_cloud(64, 2), True)}
+        knn_rows, knn_err = {}, 0.0
+        for case, (x, ties) in cases.items():
+            got, want = KN.knn(x, K), KN.knn_plain(x, K)
+            near, err = knn_check(x, got, want, ties)
+            knn_err = max(knn_err, err)
+            knn_rows[case] = dict(D=x.shape[-1], differing_near_ties=near, max_score_gap=err)
+        # the time against the selection's data-dependent work (every 16th
+        # row): its candidates per row (ceil(candidates / 32) sorts of 32),
+        # and the insertions a top-k queue taking the columns in order makes
+        selection = {case: dict(ms=cuda_ms(lambda x=x: KN.knn(x, K), 20),
+                                candidates_per_row=knn_candidates(x, K, row_step=16),
+                                insertions_per_row=knn_queue_insertions(x, K, row_step=16))
+                     for case, x in (("equal_d3", equal), ("gauss_d3", gauss), ("points_d3", pts),
+                                     ("line_d3", line), ("stage2_d63", f1), ("stage3_d63", f2),
+                                     ("dgcnn_stage2_d64", d64_2))}
+        flagship_inputs = (("d3", pts), ("d63", f1), ("d64", d64_2))
+        knn_ms = {d: selection[c]["ms"] for d, c in (("d3", "points_d3"), ("d63", "stage2_d63"),
+                                                      ("d64", "dgcnn_stage2_d64"))}
+        by_kernel = {d: kernel_ms(lambda x=x: KN.knn(x, K), 20) for d, x in flagship_inputs}
+        plain_ms = {d: cuda_ms(lambda x=x: KN.knn_plain(x, K), 5) for d, x in flagship_inputs}
+        knn_b = {d: bound_ms(*knn_work(B, N, x.shape[-1], K)) for d, x in flagship_inputs}
+        geometry = {}
+        for d, x in flagship_inputs:
+            for dtype in (torch.float32, torch.bfloat16):
+                for part, rows in (("whole", None), ("half", N - N // 2)):
+                    geometry[f"{d}_{str(dtype)[6:]}_{part}"] = dict(
+                        knn_geometry(B, N, x.shape[-1], K, rows),
+                        candidates_per_row=knn_candidates(x.to(dtype), K, row_step=16),
+                        insertions_per_row=knn_queue_insertions(x.to(dtype), K, row_step=16))
+        knn_halves = half_cloud_knn(KN, {"points_d3": pts, "stage2_d63": f1, "stage3_d63": f2})
+    emit("knn", cases=knn_rows, B=B, N=N, k=K, ms=knn_ms, by_kernel_ms=by_kernel,
+         plain_ms=plain_ms, bound_ms={d: v[0] for d, v in knn_b.items()},
+         roofline_share={d: knn_b[d][0] / knn_ms[d] for d in knn_ms}, selection=selection,
+         geometry=geometry, half_cloud=knn_halves, max_score_gap=knn_err, card=card)
+    return RESULTS["knn"]
 
 
 def knn_wide_phase(KN, rng, card):
@@ -3288,13 +3453,12 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(2)
 
-    from hpcs_torch.data import SyntheticPartDataset
-    from hpcs_torch.models import HypHCSystem, ModelConfig, decode_vector_for_batch
+    from hpcs_torch.models import HypHCSystem, decode_vector_for_batch
     from hpcs_torch.nn.backbones import vn_dgcnn
     from hpcs_torch.ops import _build
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
-    from hpcs_torch.testing import check_edgeconv, check_planted_eps, knn_queue_insertions
+    from hpcs_torch.testing import check_edgeconv, check_planted_eps
 
     t0 = time.time()
     _build.build()
@@ -3311,87 +3475,18 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # the flagship model, random weights and BatchNorm statistics from SEED
-    gen = torch.Generator().manual_seed(SEED)
-    cfg = ModelConfig(num_class=50, num_categories=CATEGORIES, eucl_dim=EUCL, hyp_dim=HYP, k=K)
-    system = HypHCSystem(cfg, generator=gen)
-    randomize_bn(system.net, gen)
-    data = SyntheticPartDataset(num_objects=B * REQUESTS, npoints=N,
-                                num_categories=CATEGORIES, seed=SEED)
-    batches = [data.batch(r * B, B) for r in range(REQUESTS)]
-    net = system.net.nn_feat
-    w12 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv1, net.conv2)]
-    w34 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv3, net.conv4)]
-    w5 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv5)]
+    system, cfg, batches = flagship()
 
     with torch.no_grad():
-        pts = torch.from_numpy(batches[0][0]).to(device).contiguous()
         # stage inputs of the main path for request 0 (kernel graphs)
-        idx1 = KN.knn(pts, K)
-        x0 = pts[:, :, None, :].contiguous()
-        x1 = E.edgeconv_infer(x0, idx1, *w12)
-        f1 = x1.reshape(B, N, -1).contiguous()
-        idx2 = KN.knn(f1, K)
-        x2 = E.edgeconv_infer(x1, idx2, *w34)
-        f2 = x2.reshape(B, N, -1).contiguous()
-        idx3 = KN.knn(f2, K)
+        pts, idx1, x0, x1, f1, idx2, x2, f2, idx3, (w12, w34, w5) = request_stages(
+            system, batches[0][0])
 
-        # 2. kernel B1 against knn_plain.  The tie clouds hold every point
-        # twice and lie on an integer lattice, so all their scores are exact
-        # in fp32 whatever the order of the sums: indices must be equal.
+        # 2. kernel B1 against knn_plain (knn_phase); its rng goes on to knn_wide
         rng = np.random.default_rng(SEED)
-
-        def tie_cloud(d, r):
-            half = rng.integers(-r, r + 1, size=(B, N // 2, d)).astype(np.float32)
-            return torch.from_numpy(np.concatenate([half, half], 1)).to(device)
-
-        def adjacent_cloud(d, r):  # x[2m] == x[2m+1]: ties inside one 32-column group
-            half = rng.integers(-r, r + 1, size=(B, N // 2, d)).astype(np.float32)
-            return torch.from_numpy(np.repeat(half, 2, axis=1)).to(device)
-
-        # x_j = (j, 0, 0): exact scores 2 i j - j^2 that rise with j up to the
-        # row's own column, so the last rows insert nearly every column
-        line = torch.zeros(B, N, 3, device=device)
-        line[:, :, 0] = torch.arange(N, device=device, dtype=torch.float32)
-        # DGCNN's stage-2 and stage-3 inputs: D = 64, the top of B1's D range
-        with recorded_knn() as dgcnn_pairs:
-            dgcnn = backbone_system(BACKBONES["dgcnn_partseg"][0])
-            dgcnn.embed(batches[0][0], decode_vector_for_batch(
-                dgcnn.cfg, {"points": batches[0][0], "category": batches[0][1]}))
-        d64_2, d64_3 = dgcnn_pairs[2][0], dgcnn_pairs[3][0]
-        del dgcnn
-        equal = torch.full((B, N, 3), 0.5, device=device)  # all ties: only k columns go in
-        gauss = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)).to(device)
-        cases = {"points_d3": (pts, False), "stage2_d63": (f1, False), "stage3_d63": (f2, False),
-                 "gauss_d3": (gauss, False), "ties_d3": (tie_cloud(3, 8), True),
-                 "ties_d63": (tie_cloud(63, 2), True), "line_d3": (line, True),
-                 "adjacent_d3": (adjacent_cloud(3, 8), True),
-                 "adjacent_d63": (adjacent_cloud(63, 2), True), "equal_d3": (equal, True),
-                 "dgcnn_stage2_d64": (d64_2, False), "dgcnn_stage3_d64": (d64_3, False),
-                 "ties_d64": (tie_cloud(64, 2), True), "adjacent_d64": (adjacent_cloud(64, 2), True)}
-        knn_rows, knn_err = {}, 0.0
-        for case, (x, ties) in cases.items():
-            got, want = KN.knn(x, K), KN.knn_plain(x, K)
-            near, err = knn_check(x, got, want, ties)
-            knn_err = max(knn_err, err)
-            knn_rows[case] = dict(D=x.shape[-1], differing_near_ties=near, max_score_gap=err)
-        # the kernel's time against the selection's data-dependent work: the
-        # warp queue's mean insertions per row (every 16th row)
-        selection = {case: dict(ms=cuda_ms(lambda x=x: KN.knn(x, K), 20),
-                                insertions_per_row=knn_queue_insertions(x, K, row_step=16))
-                     for case, x in (("equal_d3", equal), ("gauss_d3", gauss), ("points_d3", pts),
-                                     ("line_d3", line), ("stage2_d63", f1), ("stage3_d63", f2),
-                                     ("dgcnn_stage2_d64", d64_2))}
-        knn_ms = {"d3": selection["points_d3"]["ms"], "d63": selection["stage2_d63"]["ms"],
-                  "d64": selection["dgcnn_stage2_d64"]["ms"]}
-        plain_ms = {d: cuda_ms(lambda x=x: KN.knn_plain(x, K), 5)
-                    for d, x in (("d3", pts), ("d63", f1), ("d64", d64_2))}
+        knn = knn_phase(card, rng)
+        knn_ms, plain_ms, knn_err = knn["ms"], knn["plain_ms"], knn["max_score_gap"]
         w3, w63 = knn_work(B, N, 3, K), knn_work(B, N, 63, K)
-        knn_b = {d: bound_ms(*w) for d, w in (("d3", w3), ("d63", w63),
-                                               ("d64", knn_work(B, N, 64, K)))}
-        knn_halves = half_cloud_knn(KN, {"points_d3": pts, "stage2_d63": f1, "stage3_d63": f2})
-        emit("knn", cases=knn_rows, B=B, N=N, k=K, ms=knn_ms, plain_ms=plain_ms,
-             bound_ms={d: v[0] for d, v in knn_b.items()}, selection=selection,
-             half_cloud=knn_halves, card=card)
 
         # 3. kernel B2 against edgeconv_infer_plain at the three stage shapes
         stages = {"stage1_c1": (x0, idx1, w12, 2), "stage2_c21": (x1, idx2, w34, 2),

@@ -3,41 +3,70 @@
 // Replaces hpcs_tpu/ops/pallas/knn_pallas.py::_knn_kernel.  For x [B, N, D]
 // fp32 (or bf16, below) it writes idx [B, N, k] int32: nearest first, the point itself
 // included, ties broken toward the smallest index.  The ranking score of
-// column j for row i is 2 x_i.x_j - |x_j|^2, accumulated with fp32 FMAs on
-// the CUDA cores (never TF32), so the N x N score matrix never reaches
-// device memory.
+// column j for row i is 2 x_i.x_j - |x_j|^2, x_i.x_j and |x_j|^2 each one
+// chain of fp32 FMAs in dimension order on the CUDA cores (never TF32), so
+// the N x N score matrix never reaches device memory.
 //
 // What bounds it on an H100: the score FMAs, 2 B N^2 D operations (2.1
 // GFLOP at B=16, N=1024, D=63) against 67 TFLOP/s of fp32, plus one compare
-// per score for a running top-k; it reads only B N D floats.
+// per score to select; it reads only B N D values.  At D = 3 the scores cost
+// little and the selection is the work.
+//
+// Two launches.  knn_prep_kernel reads x once (bf16 converted to fp32 on
+// load: exact, so the bf16 route is the fp32 route on x.float() bit for bit)
+// into a scratch copy xp [B, N, dx], each row zero-padded to dx, a multiple
+// of the staged depth DC, so that every 16 bytes of it are aligned, and
+// |x_j|^2 [B, N] once per point.  knn_kernel then runs one block per (cloud,
+// tile of TR rows), of a Tile chosen by shared memory (plan_of):
+//
+// * Scores.  The row tile sits in shared memory as [TR][dx] (row-major, as
+//   xp).  The cloud streams through in tiles of TC columns, each cut into
+//   slices of DC dimensions that cp.async brings into a ring of STAGES
+//   [TC][DC] buffers, the next STAGES - 1 slices in flight while the FMAs
+//   run on this one.  Each thread holds a 4 x 8 register tile (rows
+//   rt + RT i, columns ct + CT j); per 4 dimensions it loads 4 + 8 float4s
+//   (the lanes of a warp form an RTW x CTW grid, so the row loads are
+//   broadcasts) for 128 FMAs.  Padded strides keep every float4 load free
+//   of bank conflicts.  A tile's scores go to shared memory, [TR][N] for the
+//   block's rows.  At D > 4 and N <= 1024 a block is 8 warps over 32 rows,
+//   so the cloud is read from L2 once per 32 rows.  At D <= 4 a column is
+//   one float4 of xp: each thread loads its 8 columns from L2 into
+//   registers a tile ahead, and there is no ring.
+// * Selection, one warp per row (a warp takes RTW rows at once, so that
+//   their loads and shuffles overlap), in three steps whose work does not
+//   depend on the order of the columns.  (s, i) ranks above (s', i') if
+//   s > s', or s == s' and i < i': a total order, so ties go to the smallest
+//   index whatever order the columns arrive in, as the TPU kernel's
+//   first-argmax does.  NaN scores never rank.
+//   1. Lane l's maximum is the best of the columns l, l + 32, ...: the
+//      score epilogue keeps each thread's best column (its columns are all
+//      congruent mod 32), and lane l combines those of its class.  These 32
+//      maxima are distinct columns, so the k-th best of them, T, ranks at or
+//      below the row's k-th best: every column of the result ranks at or
+//      above T.  A bitonic sort of the 32 maxima across the warp gives T.
+//   2. Each lane scans its columns for those at or above T (near k of them
+//      on any order of the columns: on a line of points, whose scores rise
+//      up to the row's own column, the lane maxima are the 32 nearest),
+//      marking them a bit each (no branch and no shuffle per column), then
+//      reads them out into four register slots.  Where fewer than k lanes
+//      saw a score, T is the empty slot (-inf, INT_MAX) and every non-NaN
+//      column goes in.
+//   3. The slots are gathered into the row's own (now dead) score row in
+//      lane order; the first 32 are sorted across the warp (bitonic) and
+//      the rest merged in 32 at a time (a bitonic merge).  A row where a
+//      lane holds more than four is selected again by select_rescan, which
+//      compacts the columns by ballot and merges them 32 at a time.  Lane
+//      q < k then holds the q-th best; a slot no score reached reports -1.
+//   tests/test_torch_knn_select.py replays these steps lane by lane.
 //
 // A launch may cover a range of query rows, ranked against all N points
 // (the point-sharded forward's rows of the gathered cloud): the row tiles
 // then start at the range's first row, and each score and selection is the
-// whole launch's, bit for bit.
-//
-// Design: one block of 256 threads per (cloud, tile of TR rows).  The row
-// tile is staged transposed in shared memory; the cloud streams through in
-// tiles of TC=128 columns, also transposed, so each thread computes a
-// register tile of TR/8 rows x 4 columns from one broadcast load per row
-// and one float4 load per dimension.  The block keeps all N scores of its
-// rows in shared memory; then each warp selects its rows' k best with a
-// warp queue: lane q < k holds the q-th best (score, index) seen so far,
-// sorted across lanes, and (s, i) ranks above (s', i') if s > s', or
-// s == s' and i < i', so ties go to the smallest index whatever order the
-// columns arrive in, as the TPU kernel's first-argmax does.  The warp scans
-// the row 32 columns at a time, one load and one compare against the k-th
-// best per score; only the columns that beat it (a ballot) are inserted,
-// lowest lane first, each re-checked against the moving k-th best.  NaN
-// scores never rank; a slot no score reached reports -1.
-//
-// bf16 features (VN-DGCNN's bf16 configuration): knn_kernel is a template
-// on the element type of x and converts each value to fp32 as it loads it
-// into shared memory, so everything after the load, and the result, is the
-// fp32 kernel's on the upcast values (bf16 to fp32 is exact), as the TPU
-// kernel upcasts bf16 at its entry.  The loads move half the bytes.
+// whole launch's, bit for bit (a score's FMA chain is the same in any tile).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <algorithm>
+#include <atomic>
 #include <climits>
 #include <cmath>
 
@@ -46,142 +75,592 @@ namespace {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;       // the wide route's block
 constexpr int WARPS = THREADS / 32;
-constexpr int TC = 128;           // columns per staged tile (32 lanes x 4)
-constexpr int TC_STRIDE = TC + 4; // padded row of the column tile
+constexpr int PREP_THREADS = 128;  // knn_prep_kernel's block
+constexpr int PREP_POINTS = 32;    // and its points
 constexpr int MAX_D = 64;
 constexpr int MAX_K = 32;
 constexpr int MAX_N = 4096;
+constexpr int MAX_SMEM = 227 * 1024;   // a block's shared memory on the H100
+constexpr int SM_SMEM = 228 * 1024;    // an SM's, of which each block reserves 1 KiB more
+constexpr int SM_THREADS = 2048;
+constexpr int BUF = 64;                // a row's candidate buffer
+constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ inline int padded_n(int n) { return (n + TC - 1) / TC * TC; }
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-__host__ inline size_t smem_bytes(int tr, int n, int d) {
-  return sizeof(float) * ((size_t)tr * padded_n(n) + (size_t)d * tr +
-                          (size_t)d * TC_STRIDE + TC);
+// The layout of knn_kernel<Tile<RTW, DC, WR, STAGES>>: a warp's lanes span
+// RTW rows and CTW = 32 / RTW columns; the block's warps, WR along the rows
+// and 4 along the columns, span TR = 4 RT rows and TC = 8 CT columns (each
+// thread 4 x 8: rows rt + RT i, columns ct + CT j); the ring holds STAGES
+// slices of DC dimensions at a padded stride S (S / 4 odd: consecutive
+// columns' float4s fall in different banks).
+template <int RTW_, int DC_, int WR, int STAGES_>
+struct Tile {
+  static constexpr int RTW = RTW_, DC = DC_, STAGES = STAGES_;
+  static constexpr int WARPS = 4 * WR;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int CTW = 32 / RTW;
+  static constexpr int RT = WR * RTW;
+  static constexpr int CT = 4 * CTW;
+  static constexpr int TR = 4 * RT;
+  static constexpr int TC = 8 * CT;
+  static constexpr int S = (DC / 4) % 2 ? DC : DC + 4;
+  static constexpr int CHUNKS = TC * DC / 4 / THREADS;  // 16-byte copies a thread, a slice
+  static_assert(TC * DC / 4 % THREADS == 0, "a slice is whole 16-byte copies per thread");
+  static_assert(STAGES * TC * S >= 2 * WARPS * RTW * BUF, "the candidate buffers fit the ring");
+  static_assert(STAGES * TC * S >= 2 * TR * CT, "the threads' maxima fit the ring");
+  static_assert(TC >= 256, "a score row holds 128 gathered candidates and their indices");
+  // the row tile's stride (dx / 4 odd) and the score rows' (CTW mod 32: the
+  // RTW x CTW lanes of an epilogue store hit 32 banks)
+  __host__ __device__ static int sa(int dx) { return (dx / 4) % 2 ? dx : dx + 4; }
+  __host__ __device__ static int srow(int n) { return round_up(n, TC) + CTW; }
+  __host__ static size_t smem(int n, int dx) {
+    return sizeof(float) * ((size_t)TR * srow(n) + (size_t)TR * sa(dx) + STAGES * TC * S);
+  }
+};
+
+// The instantiations, by plan: D <= 4 (one slice a tile) and D > 4, from
+// the largest row tile down (each a fallback for larger N).
+using Tile0 = Tile<4, 4, 1, 2>;   // D <= 4: 16 rows, 3 blocks an SM at N = 1024
+using Tile1 = Tile<2, 4, 1, 2>;
+using Tile2 = Tile<1, 4, 1, 2>;
+using Tile3 = Tile<4, 16, 2, 4>;  // D > 4: 32 rows, 8 warps, 4 slices in flight
+using Tile4 = Tile<4, 16, 1, 2>;
+using Tile5 = Tile<2, 8, 1, 2>;
+constexpr int TILES = 6;
+
+template <class F>
+auto with_tile(int t, F&& f) {
+  switch (t) {
+    case 0: return f(Tile0{});
+    case 1: return f(Tile1{});
+    case 2: return f(Tile2{});
+    case 3: return f(Tile3{});
+    case 4: return f(Tile4{});
+    default: return f(Tile5{});
+  }
 }
 
-template <int TR, typename T>
-__global__ void __launch_bounds__(THREADS)
-knn_kernel(const T* __restrict__ x, int* __restrict__ idx, int n, int d, int k, int row_begin,
-           int rows) {
-  constexpr int RT = TR / WARPS;  // rows per thread
+// (s, i) ranks above (s2, i2); bitwise, not short-circuit, so that it
+// compiles to predicates and no branch
+__device__ __forceinline__ bool above(float s, int i, float s2, int i2) {
+  return (s > s2) | ((s == s2) & (i < i2));  // false whenever s is NaN
+}
+
+// Sorts one (s, i) per lane across the warp, best first (a bitonic network),
+// for R rows at once.
+template <int R>
+__device__ __forceinline__ void warp_sort(float (&s)[R], int (&i)[R], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride /= 2) {
+      // blocks of `size` lanes alternate direction; the lower lane of a pair
+      // keeps the better in a descending block
+      const bool keep_better = ((lane & size) == 0) == ((lane & stride) == 0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float os = __shfl_xor_sync(FULL, s[r], stride);
+        const int oi = __shfl_xor_sync(FULL, i[r], stride);
+        if (keep_better ? above(os, oi, s[r], i[r]) : above(s[r], i[r], os, oi)) {
+          s[r] = os;
+          i[r] = oi;
+        }
+      }
+    }
+  }
+}
+
+// Merges the sorted 32 (cs, ci) into the warp's sorted best 32 (qs, qi).
+__device__ __forceinline__ void warp_merge(float& qs, int& qi, float cs, int ci, int lane) {
+  const float rs = __shfl_sync(FULL, cs, 31 - lane);  // the chunk reversed: q[l] against
+  const int ri = __shfl_sync(FULL, ci, 31 - lane);    // c[31 - l] keeps the best 32, bitonic
+  if (above(rs, ri, qs, qi)) {
+    qs = rs;
+    qi = ri;
+  }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride /= 2) {
+    const float os = __shfl_xor_sync(FULL, qs, stride);
+    const int oi = __shfl_xor_sync(FULL, qi, stride);
+    if ((lane & stride) == 0 ? above(os, oi, qs, qi) : above(qs, qi, os, oi)) {
+      qs = os;
+      qi = oi;
+    }
+  }
+}
+
+struct Best {
+  float s;
+  int i;
+};
+
+// Sorts a chunk of 32 (one a lane) and merges it into the best 32 so far.
+// Out of line: one copy of the network serves every row, which keeps the
+// selection small in the instruction cache.
+__device__ __noinline__ Best merge_chunk(Best q, float cs, int ci, int lane) {
+  float s[1] = {cs};
+  int i[1] = {ci};
+  warp_sort<1>(s, i, lane);
+  warp_merge(q.s, q.i, s[0], i[0], lane);
+  return q;
+}
+
+// The best 32 of a row's columns at or above T = (ts, ti), for a row where a
+// lane holds more than four of them: the columns compacted by ballot, 32 at a
+// time, into the row's buffer (bs, bi: 64 entries), and merged 32 at a time.
+__device__ __noinline__ Best select_rescan(const float* srow, int n, float ts, int ti, float* bs,
+                                           int* bi, int lane) {
+  const unsigned below_lane = (1u << lane) - 1u;
+  Best q{-INFINITY, INT_MAX};
+  int count = 0;
+  for (int c = lane; c < round_up(n, 32); c += 32) {
+    const float v = srow[c];
+    const bool cand = (c < n) & ((v > ts) | ((v == ts) & (c <= ti)));
+    const unsigned mask = __ballot_sync(FULL, cand);
+    if (cand) {
+      const int p = count + __popc(mask & below_lane);
+      bs[p] = v;
+      bi[p] = c;
+    }
+    count += __popc(mask);
+    if (count >= 32) {
+      __syncwarp();
+      const float cs = bs[lane];
+      const int ci = bi[lane];
+      const bool carry = lane < count - 32;
+      const float xs = carry ? bs[32 + lane] : 0.f;
+      const int xi = carry ? bi[32 + lane] : 0;
+      __syncwarp();
+      if (carry) {
+        bs[lane] = xs;
+        bi[lane] = xi;
+      }
+      count -= 32;
+      q = merge_chunk(q, cs, ci, lane);
+    }
+  }
+  __syncwarp();
+  if (count > 0)
+    q = merge_chunk(q, lane < count ? bs[lane] : -INFINITY, lane < count ? bi[lane] : INT_MAX, lane);
+  __syncwarp();
+  return q;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0));  // source size 0: zero fill
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// xp [points, dx] (x converted to fp32, zero-padded) and sq [points] = |x_j|^2
+// (one FMA chain in dimension order).  A block takes PREP_POINTS points: its
+// warps read and write whole rows (coalesced, all loads in flight at once),
+// and a thread a point makes |x_j|^2 from shared memory (rows at an odd
+// stride: no bank conflicts).
+template <typename T>
+__global__ void __launch_bounds__(PREP_THREADS)
+knn_prep_kernel(const T* __restrict__ x, float* __restrict__ xp, float* __restrict__ sq,
+                int points, int d, int dx) {
+  constexpr int PER_WARP = PREP_POINTS / (PREP_THREADS / 32);
+  __shared__ float rows[PREP_POINTS * (MAX_D + 1)];
+  const int ds = d | 1;
+  const int p0 = blockIdx.x * PREP_POINTS;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float v[PER_WARP][2];
+#pragma unroll
+  for (int m = 0; m < PER_WARP; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + warp * PER_WARP + m, q = lane + 32 * h;
+      v[m][h] = p < points && q < d ? to_float(x[(size_t)p * d + q]) : 0.f;
+    }
+#pragma unroll
+  for (int m = 0; m < PER_WARP; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (lane + 32 * h < d) rows[(warp * PER_WARP + m) * ds + lane + 32 * h] = v[m][h];
+  __syncthreads();
+  if (tid < PREP_POINTS && p0 + tid < points) {
+    float s = 0.f;
+    for (int q = 0; q < d; ++q) s = fmaf(rows[tid * ds + q], rows[tid * ds + q], s);
+    sq[p0 + tid] = s;
+  }
+#pragma unroll
+  for (int m = 0; m < PER_WARP; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + warp * PER_WARP + m, q = lane + 32 * h;
+      if (p < points && q < dx) xp[(size_t)p * dx + q] = v[m][h];
+    }
+}
+
+template <class L>
+__global__ void __launch_bounds__(L::THREADS, L::THREADS == 128 ? 3 : 1)
+knn_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int* __restrict__ idx,
+           int n, int dx, int k, int row_begin, int rows) {
+  constexpr int RTW = L::RTW, DC = L::DC, STAGES = L::STAGES;
   extern __shared__ float4 smem4[];
-  const int np = padded_n(n);
-  float* scores = reinterpret_cast<float*>(smem4);  // [TR][np]
-  float* tile = scores + TR * np;                   // [d][TR]
-  float* cols = tile + d * TR;                      // [d][TC_STRIDE]
-  float* colsq = cols + d * TC_STRIDE;              // [TC]
+  const int srow = L::srow(n), sa = L::sa(dx);
+  float* scores = reinterpret_cast<float*>(smem4);  // [TR][srow]
+  float* rowt = scores + L::TR * srow;              // [TR][sa]
+  float* ring = rowt + L::TR * sa;  // [STAGES][TC][S] slices (D > 4), then maxima and buffers
 
   const int b = blockIdx.y;
-  const int row0 = row_begin + blockIdx.x * TR;
+  const int row0 = row_begin + blockIdx.x * L::TR;
   const int row_end = row_begin + rows;
-  const T* xb = x + (size_t)b * n * d;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const float* xb = xp + (size_t)b * n * dx;
+  const float* sqb = sq + (size_t)b * n;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rt = warp / 4 * RTW + lane / L::CTW;       // rows rt + RT i
+  const int ct = warp % 4 * L::CTW + lane % L::CTW;    // columns ct + CT j
 
-  for (int e = tid; e < TR * d; e += THREADS) {
-    const int r = e / d, dd = e % d;
-    tile[dd * TR + r] = row0 + r < row_end ? to_float(xb[(size_t)(row0 + r) * d + dd]) : 0.f;
+  // the row tile (16 floats of a row a copy at most: dx <= 64)
+  for (int q = tid; q < L::TR * 16; q += L::THREADS) {
+    const int r = q / 16, part = q % 16;
+    const bool valid = row0 + r < row_end;
+    if (part * 4 < dx)
+      cp_async16(rowt + r * sa + part * 4, valid ? xb + (size_t)(row0 + r) * dx + part * 4 : xb,
+                 valid);
   }
-
-  for (int c0 = 0; c0 < n; c0 += TC) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int e = tid; e < TC * d; e += THREADS) {
-      const int c = e / d, dd = e % d;
-      cols[dd * TC_STRIDE + c] = c0 + c < n ? to_float(xb[(size_t)(c0 + c) * d + dd]) : 0.f;
-    }
-    __syncthreads();
-    if (tid < TC) {
-      float sq = 0.f;
-      for (int dd = 0; dd < d; ++dd) {
-        const float v = cols[dd * TC_STRIDE + tid];
-        sq = fmaf(v, v, sq);
-      }
-      colsq[tid] = sq;
-    }
-    float acc[RT][4];
+  float acc[4][8];
+  float sqv[8];
+  // step 1 of the selection rides on the epilogue: the best of this
+  // thread's columns (ct + CT j, all congruent to ct mod 32) in each of its
+  // rows, in column order
+  float lm_s[4];
+  int lm_i[4];
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-    for (int dd = 0; dd < d; ++dd) {
-      const float4 cv = *reinterpret_cast<const float4*>(&cols[dd * TC_STRIDE + lane * 4]);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const float rv = tile[dd * TR + warp * RT + r];
-        acc[r][0] = fmaf(rv, cv.x, acc[r][0]);
-        acc[r][1] = fmaf(rv, cv.y, acc[r][1]);
-        acc[r][2] = fmaf(rv, cv.z, acc[r][2]);
-        acc[r][3] = fmaf(rv, cv.w, acc[r][3]);
-      }
-    }
-    __syncthreads();  // colsq is written
-    const float4 sq = *reinterpret_cast<const float4*>(&colsq[lane * 4]);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      float4 s;
-      s.x = 2.f * acc[r][0] - sq.x;
-      s.y = 2.f * acc[r][1] - sq.y;
-      s.z = 2.f * acc[r][2] - sq.z;
-      s.w = 2.f * acc[r][3] - sq.w;
-      *reinterpret_cast<float4*>(&scores[(warp * RT + r) * np + c0 + lane * 4]) = s;
-    }
+  for (int i = 0; i < 4; ++i) {
+    lm_s[i] = -INFINITY;
+    lm_i[i] = INT_MAX;
   }
-  __syncthreads();
+  auto clear = [&]() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  };
+  // 4 dimensions of the 4 x 8 sums, each sum's chain in dimension order
+  auto fma4 = [&](const float4 (&a)[4], const float4 (&v)[8]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].x, v[j].x, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].y, v[j].y, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].z, v[j].z, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].w, v[j].w, acc[i][j]);
+  };
+  // the tile's scores, 2 x_i.x_j - |x_j|^2, and the running maxima
+  auto epilogue = [&](int c0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + ct + L::CT * j;
+        const float v = __fsub_rn(__fmul_rn(2.f, acc[i][j]), sqv[j]);
+        scores[(rt + L::RT * i) * srow + c] = v;
+        const bool better = (c < n) & above(v, c, lm_s[i], lm_i[i]);
+        lm_s[i] = better ? v : lm_s[i];
+        lm_i[i] = better ? c : lm_i[i];
+      }
+  };
+  const int ntiles = (n + L::TC - 1) / L::TC;
 
-  // selection: warp w owns rows w*RT .. w*RT+RT-1 of the tile
-  const unsigned below_k = k == 32 ? 0xffffffffu : (1u << k) - 1u;
-  for (int r = 0; r < RT; ++r) {
-    const int lr = warp * RT + r;
-    const int row = row0 + lr;
-    if (row >= row_end) break;
-    const float* srow = scores + lr * np;
-    float qs = -INFINITY;  // this lane's queue entry
-    int qi = INT_MAX;
-    float ts = -INFINITY;  // the threshold: entry k-1
-    int ti = INT_MAX;
-    for (int c0 = 0; c0 < n; c0 += 32) {
-      const int c = c0 + lane;
-      const float v = c < n ? srow[c] : -INFINITY;
-      unsigned cand = __ballot_sync(0xffffffffu, c < n && (v > ts || (v == ts && c < ti)));
-      while (cand) {
-        const int src = __ffs(cand) - 1;
-        cand &= cand - 1;
-        const float cv = __shfl_sync(0xffffffffu, v, src);
-        const int ci = c0 + src;
-        if (!(cv > ts || (cv == ts && ci < ti))) continue;  // the queue moved past it
-        const bool above = qs > cv || (qs == cv && qi < ci);
-        const int pos = __popc(__ballot_sync(0xffffffffu, above) & below_k);
-        const float us = __shfl_up_sync(0xffffffffu, qs, 1);
-        const int ui = __shfl_up_sync(0xffffffffu, qi, 1);
-        if (lane == pos) {
-          qs = cv;
-          qi = ci;
-        } else if (lane > pos) {
-          qs = us;
-          qi = ui;
+  if constexpr (DC == 4) {
+    // D <= 4: a column is one float4 of xp, so each thread loads its 8
+    // columns and their |x_j|^2 straight from L2 into registers, a tile
+    // ahead: no ring and no barrier in the loop
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // the row tile
+    float4 a[4], vn[8];
+    float sn[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(rowt + (rt + L::RT * i) * sa);
+    auto fetch = [&](int c0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + ct + L::CT * j;
+        vn[j] = c < n ? __ldg(reinterpret_cast<const float4*>(xb) + c) : make_float4(0, 0, 0, 0);
+        sn[j] = c < n ? __ldg(sqb + c) : 0.f;
+      }
+    };
+    fetch(0);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      float4 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = vn[j];
+        sqv[j] = sn[j];
+      }
+      fetch((tile + 1) * L::TC);  // (past the last tile: nothing)
+      clear();
+      fma4(a, v);
+      epilogue(tile * L::TC);
+    }
+  } else {
+    // slice s of the sweep: column tile s / nslices, dimensions DC (s % nslices) ..
+    const int nslices = dx / DC;
+    const int total = ntiles * nslices;
+    auto load_slice = [&](int s) {
+      if (s < total) {
+        float* dst = ring + s % STAGES * L::TC * L::S;
+        const int c0 = s / nslices * L::TC, d0 = s % nslices * DC;
+#pragma unroll
+        for (int m = 0; m < L::CHUNKS; ++m) {
+          const int q = tid + m * L::THREADS;
+          const int col = q / (DC / 4), part = q % (DC / 4);
+          const bool valid = c0 + col < n;
+          cp_async16(dst + col * L::S + part * 4,
+                     valid ? xb + (size_t)(c0 + col) * dx + d0 + part * 4 : xb, valid);
         }
-        ts = __shfl_sync(0xffffffffu, qs, k - 1);
-        ti = __shfl_sync(0xffffffffu, qi, k - 1);
+      }
+      cp_async_commit();  // (an empty group past the end keeps the count)
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) load_slice(s);  // with the row tile in group 0
+    float sqn[8];  // |x_j|^2 of the next tile's columns (loaded a tile ahead)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sqn[j] = ct + L::CT * j < n ? sqb[ct + L::CT * j] : 0.f;
+    for (int s = 0, tile = 0, slice = 0; s < total; ++s) {
+      cp_async_wait<STAGES - 2>();  // slice s has landed
+      __syncthreads();              // for every thread; and slice s - 1 is consumed
+      load_slice(s + STAGES - 1);   // into slice s - 1's buffer
+      if (slice == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = (tile + 1) * L::TC + ct + L::CT * j;
+          sqv[j] = sqn[j];
+          sqn[j] = c < n ? sqb[c] : 0.f;
+        }
+        clear();
+      }
+      const float* st = ring + s % STAGES * L::TC * L::S;
+#pragma unroll
+      for (int q = 0; q < DC / 4; ++q) {
+        float4 a[4], v[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(rowt + (rt + L::RT * i) * sa + slice * DC + 4 * q);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = *reinterpret_cast<const float4*>(st + (ct + L::CT * j) * L::S + 4 * q);
+        fma4(a, v);
+      }
+      if (slice + 1 == nslices) {
+        epilogue(tile * L::TC);
+        ++tile;
+        slice = 0;
+      } else {
+        ++slice;
       }
     }
-    // only NaN scores were left for a slot still at INT_MAX: report -1
-    if (lane < k) idx[((size_t)b * rows + row - row_begin) * k + lane] = qi < n ? qi : -1;
+  }
+  cp_async_wait<0>();
+  // the threads' maxima, [TR][CT], in the ring (free once every thread is
+  // past the last slice)
+  float* lms = ring;
+  int* lmi = reinterpret_cast<int*>(ring + L::TR * L::CT);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lms[(rt + L::RT * i) * L::CT + ct] = lm_s[i];
+    lmi[(rt + L::RT * i) * L::CT + ct] = lm_i[i];
+  }
+  __syncthreads();  // every score and maximum is written
+
+  // selection: warp w owns rows w RTW + r of the tile, r < RTW, taken
+  // together so that their loads and shuffles overlap; the candidate
+  // buffers reuse the ring
+  constexpr int R = RTW;
+  float* srows = scores + warp * R * srow;        // this warp's rows
+  float* bs = ring + warp * R * BUF;              // [R][BUF] this warp's buffers
+  int* bi = reinterpret_cast<int*>(ring + L::WARPS * R * BUF) + warp * R * BUF;
+  const unsigned below_lane = (1u << lane) - 1u;
+  // 1. lane l's best column of l, l + 32, ... (the maxima of the CT / 32
+  // threads that held them), then T = the k-th best of the 32
+  float ms[R], ts[R];
+  int mi[R], ti[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    ms[r] = -INFINITY;
+    mi[r] = INT_MAX;
+#pragma unroll
+    for (int m = lane; m < L::CT; m += 32) {
+      const float v = lms[(warp * R + r) * L::CT + m];
+      const int c = lmi[(warp * R + r) * L::CT + m];
+      const bool better = above(v, c, ms[r], mi[r]);
+      ms[r] = better ? v : ms[r];
+      mi[r] = better ? c : mi[r];
+    }
+  }
+  __syncthreads();  // every warp has its maxima: the buffers may take the ring
+  warp_sort<R>(ms, mi, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    ts[r] = __shfl_sync(FULL, ms[r], k - 1);
+    ti[r] = __shfl_sync(FULL, mi[r], k - 1);
+  }
+  // 2. this lane's columns at or above T, (v, c) == T included: near k in a
+  // row, about one a lane.  The scan keeps, per 32 column groups, a bit a
+  // group (no branch, no shuffle, a one-op chain per row); each block of
+  // bits is then read out into four register slots (sl_s, sl_i), and cn
+  // counts every candidate of the lane.
+  float sl_s[R][4];
+  int sl_i[R][4], cn[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      sl_s[r][q] = -INFINITY;
+      sl_i[r][q] = INT_MAX;
+    }
+    cn[r] = 0;
+  }
+  const int ng = (n + 31) / 32;
+  for (int g0 = 0; g0 < ng; g0 += 32) {
+    unsigned bits[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) bits[r] = 0;
+    const int g1 = min(ng, g0 + 32);
+#pragma unroll 4
+    for (int g = g0; g < g1; ++g) {
+      const int c = g * 32 + lane;
+      const unsigned bit = 1u << (g - g0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float v = srows[r * srow + c];  // (the score rows run past n: masked)
+        const bool cand = (c < n) & ((v > ts[r]) | ((v == ts[r]) & (c <= ti[r])));
+        bits[r] |= cand ? bit : 0u;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      for (unsigned m = bits[r]; m; m &= m - 1) {  // this lane's own, in column order
+        const int c = (g0 + __ffs(m) - 1) * 32 + lane;
+        const float v = srows[r * srow + c];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sl_s[r][q] = cn[r] == q ? v : sl_s[r][q];
+          sl_i[r][q] = cn[r] == q ? c : sl_i[r][q];
+        }
+        ++cn[r];
+      }
+    }
+  }
+  // 3. a row's candidates gathered into its own score row, dead now (the
+  // lanes' first slots in lane order, then their second, third, fourth:
+  // scores at [0, C), indices at [128, 128 + C)); the first 32 sorted, the
+  // rest merged in 32 at a time.  A row where some lane holds more than four
+  // is selected again by select_rescan, from its buffer (bs, bi).
+  __syncwarp();
+  int count[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float* gs = srows + r * srow;
+    int* gi = reinterpret_cast<int*>(gs) + 128;
+    count[r] = 0;
+    if (__any_sync(FULL, cn[r] > 4)) {
+      count[r] = -1;
+      continue;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned bq = __ballot_sync(FULL, cn[r] > q);
+      if (cn[r] > q) {
+        const int p = count[r] + __popc(bq & below_lane);
+        gs[p] = sl_s[r][q];
+        gi[p] = sl_i[r][q];
+      }
+      count[r] += __popc(bq);
+    }
+  }
+  __syncwarp();
+  float cs[R];
+  int ci[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* gs = srows + r * srow;
+    cs[r] = lane < count[r] ? gs[lane] : -INFINITY;
+    ci[r] = lane < count[r] ? reinterpret_cast<const int*>(gs)[128 + lane] : INT_MAX;
+  }
+  warp_sort<R>(cs, ci, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* gs = srows + r * srow;
+    Best q{cs[r], ci[r]};
+    for (int m = 32; m < count[r]; m += 32)  // the rest, 32 at a time
+      q = merge_chunk(q, m + lane < count[r] ? gs[m + lane] : -INFINITY,
+                      m + lane < count[r] ? reinterpret_cast<const int*>(gs)[128 + m + lane] : INT_MAX,
+                      lane);
+    if (count[r] < 0)
+      q = select_rescan(gs, n, ts[r], ti[r], bs + r * BUF, bi + r * BUF, lane);
+    // a slot still at INT_MAX: only NaN scores were left for it
+    const int row = row0 + warp * R + r;
+    if (row < row_end && lane < k)
+      idx[((size_t)b * rows + row - row_begin) * k + lane] = q.i < n ? q.i : -1;
   }
 }
 
-template <int TR, typename T>
-cudaError_t launch(const T* x, int* idx, int b, int n, int d, int k, int row_begin, int rows,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(TR, n, d);
-  cudaError_t err = cudaFuncSetAttribute(knn_kernel<TR, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Lets knn_kernel<L> take up to MAX_SMEM of shared memory: once per
+// instantiation and device.
+template <class L>
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + TR - 1) / TR, b);
-  knn_kernel<TR, T><<<grid, THREADS, smem, stream>>>(x, idx, n, d, k, row_begin, rows);
-  return cudaGetLastError();
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(knn_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+// The launch plan: of the tiles for this D (D <= 4 or not), the one whose
+// blocks keep the most rows resident on an SM by shared memory and threads
+// (the larger tile on a tie: it reads the cloud fewer times); the padded
+// row width dx (a multiple of its DC) and its shared bytes.
+struct Plan {
+  int tile, dx;
+  size_t smem;
+};
+
+__host__ inline Plan plan_of(int n, int d) {
+  Plan best{-1, 0, 0};
+  int best_rows = 0;
+  for (int t = d <= 4 ? 0 : 3; t < (d <= 4 ? 3 : TILES); ++t) {
+    with_tile(t, [&](auto tile) {
+      using L = decltype(tile);
+      const int dx = round_up(d, L::DC);
+      const size_t smem = L::smem(n, dx);
+      if (smem > (size_t)MAX_SMEM) return 0;
+      const int blocks = std::min((int)(SM_SMEM / (smem + 1024)), SM_THREADS / L::THREADS);
+      if (blocks * L::TR > best_rows) {
+        best_rows = blocks * L::TR;
+        best = Plan{t, dx, smem};
+      }
+      return 0;
+    });
+  }
+  return best;
 }
 
 // A row range [row_begin, row_begin + rows) of an n-point cloud.
@@ -189,22 +668,35 @@ __host__ inline bool valid_rows(int n, int row_begin, int rows) {
   return row_begin >= 0 && rows >= 1 && row_begin <= n - rows;
 }
 
+__host__ inline bool in_domain(int b, int n, int d, int k) {
+  return b >= 1 && b <= 65535 && n >= 1 && n <= MAX_N && d >= 1 && d <= MAX_D && k >= 1 &&
+         k <= MAX_K && k <= n;
+}
+
 // B1 on x [b, n, d] of element type T, for rows row_begin .. row_begin +
-// rows - 1: the row tile as knn_kernel's entry points choose it.  The tile
-// is sized by n, the candidates, whatever the number of rows.
+// rows - 1; work holds n (round_up(d, 16) + 1) floats per cloud.
 template <typename T>
-int knn_entry(const T* x, int* idx, int b, int n, int d, int k, int row_begin, int rows,
-              void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || n > MAX_N || d < 1 || d > MAX_D || k < 1 ||
-      k > MAX_K || k > n || !valid_rows(n, row_begin, rows))
-    return (int)cudaErrorInvalidValue;
+int knn_entry(const T* x, int* idx, float* work, int b, int n, int d, int k, int row_begin,
+              int rows, void* stream) {
+  if (!in_domain(b, n, d, k) || !valid_rows(n, row_begin, rows)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the largest row tile that leaves room for two blocks on an SM
-  if (smem_bytes(32, n, d) <= 113 * 1024)
-    return (int)launch<32>(x, idx, b, n, d, k, row_begin, rows, s);
-  if (smem_bytes(16, n, d) <= 113 * 1024)
-    return (int)launch<16>(x, idx, b, n, d, k, row_begin, rows, s);
-  return (int)launch<8>(x, idx, b, n, d, k, row_begin, rows, s);
+  const Plan p = plan_of(n, d);
+  if (p.tile < 0) return (int)cudaErrorInvalidValue;  // (every shape of the domain has one)
+  float* xp = work;
+  float* sq = work + (size_t)b * n * p.dx;
+  const int points = b * n;
+  const int prep_blocks = (points + PREP_POINTS - 1) / PREP_POINTS;
+  knn_prep_kernel<T><<<prep_blocks, PREP_THREADS, 0, s>>>(x, xp, sq, points, d, p.dx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)with_tile(p.tile, [&](auto tile) {
+    using L = decltype(tile);
+    cudaError_t e = allow_smem<L>();
+    if (e != cudaSuccess) return e;
+    const dim3 grid((rows + L::TR - 1) / L::TR, b);
+    knn_kernel<L><<<grid, L::THREADS, p.smem, s>>>(xp, sq, idx, n, p.dx, k, row_begin, rows);
+    return cudaGetLastError();
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -302,18 +794,46 @@ knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d
 }  // namespace
 
 // x [b, n, d] fp32 and idx [b, rows, k] int32, both contiguous on the
-// device: the k nearest of all n points for each of rows row_begin ..
-// row_begin + rows - 1 (rows = n, row_begin = 0: the whole cloud).
-// Returns the cudaError_t of the launch.
-extern "C" int hpcs_knn(const float* x, int* idx, int b, int n, int d, int k, int row_begin,
-                        int rows, void* stream) {
-  return knn_entry(x, idx, b, n, d, k, row_begin, rows, stream);
+// device, and work, scratch of n (round_up(d, 16) + 1) floats per cloud:
+// the k nearest of all n points for each of rows row_begin .. row_begin +
+// rows - 1 (rows = n, row_begin = 0: the whole cloud).  Returns the
+// cudaError_t of the launches.
+extern "C" int hpcs_knn(const float* x, int* idx, float* work, int b, int n, int d, int k,
+                        int row_begin, int rows, void* stream) {
+  return knn_entry(x, idx, work, b, n, d, k, row_begin, rows, stream);
 }
 
 // The same for x [b, n, d] bf16.
-extern "C" int hpcs_knn_bf16(const __nv_bfloat16* x, int* idx, int b, int n, int d, int k,
-                             int row_begin, int rows, void* stream) {
-  return knn_entry(x, idx, b, n, d, k, row_begin, rows, stream);
+extern "C" int hpcs_knn_bf16(const __nv_bfloat16* x, int* idx, float* work, int b, int n, int d,
+                             int k, int row_begin, int rows, void* stream) {
+  return knn_entry(x, idx, work, b, n, d, k, row_begin, rows, stream);
+}
+
+// The launch geometry of hpcs_knn at (b, n, d, k) over `rows` rows, into
+// out[11]: knn_kernel's grid x and y, threads, dynamic shared bytes, resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers,
+// local (spill) bytes a thread, rows and columns of its tile, the padded row
+// width dx, and knn_prep_kernel's blocks.  Returns a cudaError_t.
+extern "C" int hpcs_knn_geometry(int b, int n, int d, int k, int rows, int* out) {
+  if (!in_domain(b, n, d, k) || !valid_rows(n, 0, rows)) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_of(n, d);
+  return (int)with_tile(p.tile, [&](auto tile) {
+    using L = decltype(tile);
+    cudaError_t err = allow_smem<L>();
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, knn_kernel<L>);
+    if (err != cudaSuccess) return err;
+    int resident = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, knn_kernel<L>, L::THREADS,
+                                                        p.smem);
+    if (err != cudaSuccess) return err;
+    const int values[] = {(rows + L::TR - 1) / L::TR, b, L::THREADS, (int)p.smem, resident,
+                          attr.numRegs, (int)attr.localSizeBytes, L::TR, L::TC, p.dx,
+                          (b * n + PREP_POINTS - 1) / PREP_POINTS};
+    for (int q = 0; q < 11; ++q) out[q] = values[q];
+    return cudaSuccess;
+  });
 }
 
 // The wide route: x [b, n, d] fp32 and idx [b, rows, k] int32, both

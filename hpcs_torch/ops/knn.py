@@ -2,8 +2,10 @@
 
 `knn` is the dispatching wrapper: a CPU tensor goes to `knn_plain`, a CUDA
 tensor to one of two hand-written kernels in `csrc/knn.cu`, chosen by shape:
-`knn_kernel` (kernel B1) for D <= 64, k <= 32 and N <= 4096, and
-`knn_wide_kernel` for every other shape, up to N + D = WIDE_MAX_FLOATS.
+`knn_kernel` (kernel B1, after `knn_prep_kernel` has made its padded fp32
+copy of x and |x_j|^2 in scratch the wrapper allocates) for D <= 64, k <= 32
+and N <= 4096, and `knn_wide_kernel` for every other shape, up to N + D =
+WIDE_MAX_FLOATS.
 Each takes a range of query rows (`rows`), ranked against every point: the
 point-sharded forward's rows of the gathered cloud.  All rank by the exact
 fp32 score 2 x_i.x_j - |x_j|^2 (the row's own -|x_i|^2 cannot change the
@@ -12,10 +14,11 @@ toward the smallest index.
 
 x may be float32 or bfloat16.  bf16 features are ranked by their fp32
 values (bf16 to fp32 is exact), as the TPU kernel upcasts them: B1 reads
-bf16 in the kernel and converts each value on load, so its bf16 route is
-its fp32 route on x.float(), bit for bit; the wide route, which no
+bf16 in its prep kernel and converts each value on load, so its bf16 route
+is its fp32 route on x.float(), bit for bit; the wide route, which no
 configuration takes, gets x.float() from the wrapper.
 """
+import contextlib
 import ctypes
 
 import torch
@@ -29,6 +32,16 @@ MAX_N = 4096
 # the wide kernel keeps a row's N scores and the row's D values in shared memory
 WIDE_MAX_FLOATS = 192 * 1024 // 4 - 16
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_B1_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# B1's scratch at most (256 MiB); a larger batch goes through in groups of clouds
+WORK_FLOATS = 1 << 26
+_B1_ENTRIES = {}  # B1's C entry points, bound at first use
+
+
+def _work_floats(n, d):
+    """B1's scratch per cloud, at least what hpcs_knn takes: the copy padded
+    to a width of D rounded up to 4, 8 or 16, and the squared norms."""
+    return n * (-(-d // 16) * 16 + 1)
 
 
 def _row_range(rows, n):
@@ -91,12 +104,35 @@ def _knn_cuda(x, k, rows=None):
     if not (1 <= D <= MAX_D and 1 <= k <= min(MAX_K, N) and N <= MAX_N):
         raise ValueError(f"knn kernel takes D <= {MAX_D}, k <= {MAX_K}, k <= N <= "
                          f"{MAX_N}; got D={D}, k={k}, N={N}")
-    if x.dtype == torch.bfloat16:
-        idx = _launch("hpcs_knn_bf16", x, k, rows)
-        if B:
-            knn.bf16_launches += 1
+    r0, r1 = _row_range(rows, N)
+    idx = torch.empty((B, r1 - r0, k), dtype=torch.int32, device=x.device)
+    if B == 0:
         return idx
-    return _launch("hpcs_knn", x, k, rows)
+    symbol = "hpcs_knn_bf16" if x.dtype == torch.bfloat16 else "hpcs_knn"
+    fn = _B1_ENTRIES.get(symbol)
+    if fn is None:
+        fn = _B1_ENTRIES[symbol] = _build.function("knn", symbol, _B1_ARGTYPES)
+    per_cloud = _work_floats(N, D)
+    group = max(1, min(B, WORK_FLOATS // per_cloud))
+    work = torch.empty(group * per_cloud, dtype=torch.float32, device=x.device)
+    current = x.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(x.device):
+        # the current stream's raw handle (torch.cuda.current_stream(...)
+        # would build a Stream object a call, on a path whose host time is
+        # close to the D = 3 launch's device time)
+        stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+        for b0 in range(0, B, group):
+            b1 = min(B, b0 + group)
+            err = fn(x[b0].data_ptr() if b0 else x.data_ptr(),
+                     idx[b0].data_ptr() if b0 else idx.data_ptr(), work.data_ptr(), b1 - b0, N,
+                     D, k, r0, r1 - r0, stream)
+            _build.check(err, symbol)
+    knn.launches += 1
+    if rows is not None:
+        knn.row_launches += 1
+    if x.dtype == torch.bfloat16:
+        knn.bf16_launches += 1
+    return idx
 
 
 def _knn_wide_cuda(x, k, rows=None):

@@ -208,14 +208,47 @@ def edgeconv_split_model(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_co
     return out
 
 
-def knn_queue_insertions(x, k, row_step=1):
-    """Mean insertions per row of kernel B1's warp queue on x [B, N, D],
-    over rows 0, row_step, 2 row_step, ... of each cloud.
+def knn_candidates(x, k, row_step=1):
+    """Mean candidates per row of kernel B1's selection on x [B, N, D], over
+    rows 0, row_step, 2 row_step, ... of each cloud: its data-dependent work.
 
-    The queue takes the columns in index order, so after column c it holds
-    the k best of columns 0..c: c goes in iff fewer than k earlier columns
-    score at least as high (the earlier one wins a tie), and a NaN score
-    never does.  This is the selection's data-dependent work.
+    Lane l's maximum is the best of columns l, l + 32, ... ((s, i) ranks
+    above (s', i') if s > s', or s == s' and i < i'; NaN never ranks; a lane
+    with no score holds (-inf, INT_MAX)); T is the k-th best of the 32
+    maxima; the candidates are the non-NaN columns that rank at or above T.
+    They are sorted and merged 32 at a time, so a row costs
+    ceil(candidates / 32) sorts of 32.
+    """
+    s = knn_scores(x)[:, ::row_step]  # [B, R, N]
+    n = s.shape[-1]
+    cols = torch.arange(n, device=s.device)
+    lanes = torch.nn.functional.pad(s, (0, -n % 32), value=float("nan"))
+    lanes = lanes.reshape(*s.shape[:2], -1, 32)  # [B, R, G, 32]: column 32 g + l
+    real = ~torch.isnan(lanes)
+    v = torch.where(real, lanes, -torch.inf)
+    best = v.amax(2)
+    first = (real & (v == best[:, :, None])).int().argmax(2)  # the earliest of equal maxima
+    seen = real.any(2)
+    ms = torch.where(seen, best, -torch.inf)
+    mi = torch.where(seen, first * 32 + torch.arange(32, device=s.device), 2 ** 31 - 1)
+    order = torch.sort(mi, dim=-1, stable=True).indices  # by index, then by score: (s, i) order
+    ms, mi = ms.gather(-1, order), mi.gather(-1, order)
+    order = torch.sort(ms, dim=-1, descending=True, stable=True).indices
+    ts = ms.gather(-1, order)[..., k - 1:k]
+    ti = mi.gather(-1, order)[..., k - 1:k]
+    cand = (s > ts) | ((s == ts) & (cols <= ti))
+    return int(cand.sum()) / (s.shape[0] * s.shape[1])
+
+
+def knn_queue_insertions(x, k, row_step=1):
+    """Mean insertions per row of a running top-k queue that takes the
+    columns of x [B, N, D] in index order (a one-compare warp queue), over
+    rows 0, row_step, 2 row_step, ... of each cloud: the work that depends on
+    the order of the columns, reported beside knn_candidates.
+
+    After column c the queue holds the k best of columns 0..c, so c goes in
+    iff fewer than k earlier columns score at least as high (the earlier one
+    wins a tie), and a NaN score never does.
     """
     s = knn_scores(x)[:, ::row_step]  # [B, R, N]
     n = s.shape[-1]

@@ -1,7 +1,9 @@
 """Run one phase of chip_smoke.py alone on one GPU, after building the
-kernels: `observe` (--profile, --debug_nans, --plot_inference and the
-SO(3) probe), `parallel` (hpcs_torch.parallel: data-parallel steps, the
-sharded test_step, every configuration point-sharded), `examples`
+kernels: `knn` (kernel B1 against knn_plain at the flagship: exactness,
+times, selection work, launch geometry, half clouds), `observe`
+(--profile, --debug_nans, --plot_inference and the SO(3) probe),
+`parallel` (hpcs_torch.parallel: data-parallel steps, the sharded
+test_step, every configuration point-sharded), `examples`
 (examples/api_tour_torch.py and eval_noise_torch.py on an orbax
 directory) or `notebooks` (mini-ShapeNet-Part written, trained on and
 evaluated through examples/shapenet_eval_torch.ipynb; the flagship's
@@ -9,7 +11,7 @@ hpcs_tpu checkpoint written by the phase itself); see each phase's
 docstring.  Prints the card, then the phase's JSON line; with a path,
 also writes that line there.
 
-    python3 scripts/chip_phase.py observe|parallel|examples|notebooks [out.json]
+    python3 scripts/chip_phase.py knn|observe|parallel|examples|notebooks [out.json]
 """
 import json
 import os
@@ -21,7 +23,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from hpcs_torch.ops import _build  # noqa: E402
 
-PHASES = {"observe": cs.observe_phase, "parallel": cs.parallel_phase,
+PHASES = {"knn": cs.knn_phase, "observe": cs.observe_phase, "parallel": cs.parallel_phase,
           "examples": cs.examples_phase, "notebooks": cs.notebooks_phase}
 
 if __name__ == "__main__":

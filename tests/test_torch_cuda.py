@@ -159,6 +159,83 @@ def test_knn_kernel_selection_worst_cases(cloud, B, N, D, k):
     torch.testing.assert_close(K.knn(x, k), K.knn_plain(x, k), rtol=0, atol=0)
 
 
+# B1's domain corners: N around one warp's 32 lanes and at its top, k at
+# its ends, D at its ends
+KNN_CORNERS = sorted({(n, k) for n in (1, 31, 32, 33, 4096) for k in (1, min(n, 32))})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 64])
+@pytest.mark.parametrize("N,k", KNN_CORNERS)
+def test_knn_kernel_domain_corners(N, k, D, dtype):
+    """Lanes with no column (N < 32), N = k, two columns in one lane (N =
+    33), the largest N; integer coordinates keep every score exact (also in
+    bf16), so B1 equals knn_plain index for index."""
+    require_cuda()
+    x = np.random.default_rng(N * 7 + k + D).integers(-2, 3, size=(2, N, D)).astype(np.float32)
+    x = torch.from_numpy(x).cuda().to(dtype)
+    torch.testing.assert_close(K.knn(x, k), K.knn_plain(x, k), rtol=0, atol=0)
+
+
+def _ranked_without_nan(x, k, rows=None):
+    """knn_plain's order over the non-NaN scores of each row, -1 past them
+    (B1's rule: NaN never ranks, a slot no score reached reports -1)."""
+    s = K.knn_scores(x.cpu(), rows)
+    nan = torch.isnan(s)
+    order = torch.sort(torch.where(nan, -torch.inf, s), dim=-1, descending=True,
+                       stable=True).indices
+    order = order.gather(-1, torch.sort(nan.gather(-1, order).int(), dim=-1,
+                                        stable=True).indices)[..., :k]
+    return torch.where(nan.gather(-1, order), -1, order).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,k,nan_points", [(40, 3, 20, 30), (1024, 63, 20, 5),
+                                              (33, 64, 32, 33)])
+def test_knn_kernel_nan_rows_and_fewer_than_k_real_scores(N, D, k, nan_points, dtype):
+    """Points with a NaN coordinate: their rows' scores are all NaN (every
+    slot -1) and their columns NaN in every row; with 30 of 40 points NaN a
+    row has 10 real scores for k = 20."""
+    require_cuda()
+    rng = np.random.default_rng(N + nan_points)
+    x = rng.integers(-3, 4, size=(2, N, D)).astype(np.float32)
+    x[:, rng.permutation(N)[:nan_points], rng.integers(0, D)] = np.nan
+    x = torch.from_numpy(x).cuda().to(dtype)
+    got = K.knn(x, k).cpu()
+    torch.testing.assert_close(got, _ranked_without_nan(x.float(), k), rtol=0, atol=0)
+    assert (got[torch.isnan(x.float()).any(-1).cpu()] == -1).all()
+    torch.testing.assert_close(K.knn(x, k, rows=(3, N)).cpu(), got[:, 3:], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [(5, 1000), (1003, 1021)])
+def test_knn_kernel_row_range_starting_mid_tile(rows, dtype):
+    """A row range whose first row lies inside a row tile of 16 (and of 4
+    and 8): knn_plain's rows and the whole launch's, index for index, on
+    exact-score clouds at D = 3 and 63."""
+    require_cuda()
+    for D in (3, 63):
+        x = np.random.default_rng(D).integers(-3, 4, size=(3, 1024, D)).astype(np.float32)
+        x = torch.from_numpy(x).cuda().to(dtype)
+        got = K.knn(x, 20, rows=rows)
+        torch.testing.assert_close(got, K.knn_plain(x, 20, rows=rows), rtol=0, atol=0)
+        torch.testing.assert_close(got, K.knn(x, 20)[:, rows[0]:rows[1]], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_knn_kernel_line_at_the_flagship(dtype):
+    """The line x_j = (j, 0, 0) at B = 16, N = 1024: every row's scores rise
+    up to its own column; exact scores (bf16 rounds j > 256 into runs of
+    equal points, still exact), so B1 equals knn_plain."""
+    require_cuda()
+    x = torch.from_numpy(line_cloud(16, 1024)).cuda().to(dtype)
+    torch.testing.assert_close(K.knn(x, 20), K.knn_plain(x, 20), rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 def test_edgeconv_kernel_ragged_point_count():
     """B*N not a multiple of the warps per block, K other than 20."""
