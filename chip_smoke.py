@@ -157,7 +157,27 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    evaluate_category over the mini test split at the flagship's width
    (N=1024, k=20, eucl = hyp = 32, 16 categories, 50 classes) from the
    import phase's hpcs_tpu msgpack checkpoint, ms per category;
-14. trains the flagship to convergence (phase trained,
+14. runs PartNet without h5py (phase partnet; alone: python3
+   scripts/chip_phase.py partnet): (a) the mini PartNet tree (Bottle,
+   levels 1 and 3, 10,000 points an object) written by
+   tools/make_mini_datasets_torch.py through hpcs_torch.utils.hdf5 and
+   read back by PartNetDataset, equal to the generator's arrays, and a
+   file of 16 such objects written contiguous and chunked-deflated, each
+   read timed; (b) `python -m hpcs_torch.train --dataset partnet
+   --category Bottle --level 3` at the entry phase's flags (N=1024, k=20,
+   eucl = hyp = 32, B=8; the hierarchical CosFace over levels 1 and 3, its
+   sum matrices on the card) for 2 epochs on a tree of 8 / 8 / 8 objects,
+   --resume for a third and `python -m hpcs_torch.infer partnet` on
+   final/ for 2 requests of 4, held as the entry phase holds ShapeNet's;
+   (c) one hierarchical train_step at B=2, N=1024 against the CPU port
+   (testing.check_train_step_card_vs_cpu), also with class_vector; (d)
+   tools/parity_real_format_torch.py's PartNet recipe trained on the card
+   for NOTEBOOK_SEEDS at 80 epochs, its mean decode purity and score held
+   to hpcs_tpu's 8 seeds (benchmarks/parity_real_format_partnet.json; z >=
+   -2); (e) examples/partnet_eval_torch.ipynb's code cells on seed 0's
+   checkpoint on the card and on the CPU port, compared as in phase
+   notebooks; B1 and B2 counted in every run;
+15. trains the flagship to convergence (phase trained,
    hpcs_torch.trained_readings): `python -m hpcs_torch.train`'s main with
    the flags of hpcs_tpu's 60-epoch synthetic run
    (benchmarks/results_round2.json) and seed 0 in a temporary working
@@ -170,7 +190,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    (benchmarks/results_round2.json, benchmarks/bf16_quality.json); B1 and
    B2 counted on every batch, in fp32 and bf16; times the epochs and the
    phase;
-15. runs hpcs_torch.parallel (phase parallel) at the flagship width: (a)
+16. runs hpcs_torch.parallel (phase parallel) at the flagship width: (a)
    the data-parallel step at world size 1 over NCCL (B=8, N=1024, 2
    warm-up + 5 timed steps) against the single-device step from the same
    state and generator: the mean all-reduce the identity bit for bit on
@@ -208,7 +228,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    all-reduce ms per step, each backend, each configuration's readings and
    the phase's B1 and B2 launches and row-range launches, which the
    kernels line counts;
-16. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
+17. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
    with --profile at the flagship (B=8, N=1024, a ShapeNet-Part tree of 2
    categories: 2 training steps, 1 validation and 1 test batch): one
    trace file holding CUDA kernels and a span for every module of
@@ -225,7 +245,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    ImportError before any launch; (d) `python -m
    hpcs_torch.check_invariance` at B=16, N=1024, 8 rotations, fp32 and
    bf16 (its verdict must be PASS), with each stage's graph agreement;
-17. prints one JSON line per kernel summary (with its row-range
+18. prints one JSON line per kernel summary (with its row-range
    launches), the card's name and power limit, and last {"ok": true,
    "device": {...}}.
 
@@ -1053,14 +1073,11 @@ def entry_phase(card):
     import tempfile
 
     from hpcs_torch import infer, train, trainer
-    from hpcs_torch.cli import freeze_hierarchy
     from hpcs_torch.data import DataLoader, ShapeNetDataset, fast_txt
     from hpcs_torch.data import loader as loader_module
-    from hpcs_torch.models import HypHCSystem, ModelConfig
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
     from hpcs_torch.testing import check_same_test_outputs, record_test_steps, write_mini_shapenet
-    from hpcs_torch.utils.checkpoint import load_config, restore_checkpoint
 
     passes = []  # host seconds of each pass over a DataLoader, in order
     iterate = loader_module.DataLoader.__iter__
@@ -1132,48 +1149,8 @@ def entry_phase(card):
         expect("infer (2 requests)", l3, 0, 2)
         loader_module.DataLoader.__iter__ = iterate
 
-        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
-        epochs = [r for r in records if "epoch" in r]
-        tests = [r for r in records if "epoch" not in r]
-        if [r["epoch"] for r in epochs] != [0, 1, 2] or len(tests) != 2:
-            fail(f"entry: records of epochs {[r['epoch'] for r in epochs]} and {len(tests)} "
-                 f"test records, expected epochs 0, 1, 2 and 2 test records")
-        names = {"epoch", "train_total_loss", "loss_metric", "loss_hyp", "train_acc",
-                 "train_iou", "scale", "val_loss", "acc", "iou", "lr", "temperature",
-                 "epoch_time_s", "step", "_time"}
-        for r in epochs:
-            if set(r) != names:
-                fail(f"entry: epoch record keys {sorted(r)}")
-            if not all(np.isfinite(r[k]) for k in ("train_total_loss", "loss_metric", "loss_hyp",
-                                                    "val_loss")) or r["scale"] == 1e-3:
-                fail(f"entry: epoch record {r}")
-        if [r["step"] for r in epochs] != [steps, 2 * steps, 3 * steps]:
-            fail(f"entry: steps {[r['step'] for r in epochs]}")
-        for r, want in zip(tests, (first_results, results)):
-            if set(r) != {"test_loss", "score", "test_acc", "test_iou", "_time"} or any(
-                    r[k] != v for k, v in want.items()) or not np.isfinite(r["test_loss"]):
-                fail(f"entry: test record {r} against {want}")
-        for name in ("best", "last", "final"):
-            if sorted(os.listdir(os.path.join(ckpt, name))) != ["config.json", "model.ckpt"]:
-                fail(f"entry: checkpoint {name} holds {os.listdir(os.path.join(ckpt, name))}")
-
-        # final/ restored into a fresh system equals the trained one
-        cfg_dict = load_config(os.path.join(ckpt, "final"))
-        cfg_dict["hierarchy_list"] = freeze_hierarchy(cfg_dict["hierarchy_list"])
-        fresh = HypHCSystem(ModelConfig(**cfg_dict), generator=torch.Generator().manual_seed(7))
-        restore_checkpoint(os.path.join(ckpt, "final"), fresh)
-        for label, sd in (("restored", fresh.state_dict()), ("infer", restored.state_dict())):
-            want = trained.state_dict()
-            for k, v in want["net"].items():
-                if not torch.equal(sd["net"][k], v):
-                    fail(f"entry: {label} state differs from the trained one at {k}")
-            for p, st in want["optimizer"]["state"].items():
-                if not all(torch.equal(sd["optimizer"]["state"][p][k], v)
-                           for k, v in st.items() if torch.is_tensor(v)):
-                    fail(f"entry: {label} optimizer state differs at parameter {p}")
-            if sd["step"] != want["step"]:
-                fail(f"entry: {label} step {sd['step']} against {want['step']}")
+        epochs = _check_trained_run("entry", run_dir, ckpt, trained, restored,
+                                    (first_results, results), steps)
 
         # infer against trainer.test on the trained system, same batches and seed
         test_loader = DataLoader(ShapeNetDataset("data/ShapeNet/raw", N, "test"), B,
@@ -1213,6 +1190,63 @@ def entry_phase(card):
                infer_vs_in_memory_max_rel_log_diff=logs_rel, card=card)
     emit("entry", **out)
     return out
+
+
+def _check_trained_run(tag, run_dir, ckpt, trained, restored, test_results, steps):
+    """The records and checkpoints of `python -m hpcs_torch.train` run for
+    2 epochs, then resumed for a third: epoch records 0, 1, 2 with every
+    field finite, `steps` training steps an epoch, the two runs' test
+    records equal to `test_results`, best/, last/ and final/ written, and
+    final/ restored into a fresh system (and `restored`, infer's system)
+    equal to `trained` in weights, optimizer moments and step.  Returns
+    the epoch records."""
+    from hpcs_torch.cli import freeze_hierarchy
+    from hpcs_torch.models import HypHCSystem, ModelConfig
+    from hpcs_torch.utils.checkpoint import load_config, restore_checkpoint
+
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    epochs = [r for r in records if "epoch" in r]
+    tests = [r for r in records if "epoch" not in r]
+    if [r["epoch"] for r in epochs] != [0, 1, 2] or len(tests) != 2:
+        fail(f"{tag}: records of epochs {[r['epoch'] for r in epochs]} and {len(tests)} "
+             f"test records, expected epochs 0, 1, 2 and 2 test records")
+    names = {"epoch", "train_total_loss", "loss_metric", "loss_hyp", "train_acc",
+             "train_iou", "scale", "val_loss", "acc", "iou", "lr", "temperature",
+             "epoch_time_s", "step", "_time"}
+    for r in epochs:
+        if set(r) != names:
+            fail(f"{tag}: epoch record keys {sorted(r)}")
+        if not all(np.isfinite(r[k]) for k in ("train_total_loss", "loss_metric", "loss_hyp",
+                                                "val_loss")) or r["scale"] == 1e-3:
+            fail(f"{tag}: epoch record {r}")
+    if [r["step"] for r in epochs] != [steps, 2 * steps, 3 * steps]:
+        fail(f"{tag}: steps {[r['step'] for r in epochs]}")
+    for r, want in zip(tests, test_results):
+        if set(r) != {"test_loss", "score", "test_acc", "test_iou", "_time"} or any(
+                r[k] != v for k, v in want.items()) or not np.isfinite(r["test_loss"]):
+            fail(f"{tag}: test record {r} against {want}")
+    for name in ("best", "last", "final"):
+        if sorted(os.listdir(os.path.join(ckpt, name))) != ["config.json", "model.ckpt"]:
+            fail(f"{tag}: checkpoint {name} holds {os.listdir(os.path.join(ckpt, name))}")
+
+    # final/ restored into a fresh system equals the trained one
+    cfg_dict = load_config(os.path.join(ckpt, "final"))
+    cfg_dict["hierarchy_list"] = freeze_hierarchy(cfg_dict["hierarchy_list"])
+    fresh = HypHCSystem(ModelConfig(**cfg_dict), generator=torch.Generator().manual_seed(7))
+    restore_checkpoint(os.path.join(ckpt, "final"), fresh)
+    for label, sd in (("restored", fresh.state_dict()), ("infer", restored.state_dict())):
+        want = trained.state_dict()
+        for k, v in want["net"].items():
+            if not torch.equal(sd["net"][k], v):
+                fail(f"{tag}: {label} state differs from the trained one at {k}")
+        for p, st in want["optimizer"]["state"].items():
+            if not all(torch.equal(sd["optimizer"]["state"][p][k], v)
+                       for k, v in st.items() if torch.is_tensor(v)):
+                fail(f"{tag}: {label} optimizer state differs at parameter {p}")
+        if sd["step"] != want["step"]:
+            fail(f"{tag}: {label} step {sd['step']} against {want['step']}")
+    return epochs
 
 
 BACKBONE_FLAGS = ["--dataset", "shapenet", "--fixed_points", str(N), "--k", str(K),
@@ -2505,6 +2539,357 @@ def notebooks_phase(card, flagship_ckpt=None):
     return out
 
 
+# hpcs_tpu's converged mini-PartNet run (Bottle, level 3, hierarchical CosFace
+# over levels [1, 3]), seeds 0-7 at the recipe's 80 epochs
+# (benchmarks/parity_real_format_partnet.json, "hpcs_tpu"): mean, std (ddof 1)
+TPU_MINI_PARTNET = {"decode_score_mean": (0.0997028760612011, 0.015706302039676774),
+                    "decode_purity_mean": (0.221435546875, 0.02034942289359577)}
+TPU_MINI_PARTNET_NOMARGIN = (0.133056640625, 0.009536228711012486)  # test_acc_nomargin, printed
+TPU_MINI_PARTNET_SEEDS = 8
+PARTNET_SPLITS = (8, 8, 8)  # Bottle objects: train, val, test; a batch of TRAIN_B each
+PARTNET_FLAGS = ["--dataset", "partnet", "--category", "Bottle", "--level", "3"] + ENTRY_FLAGS[2:]
+PARTNET_LEVELS = [1, 3]  # the levels the mini tree holds: the hierarchy's
+PARTNET_H5_OBJECTS = 16  # 10,000-point objects in the deflated file the reader is timed on
+PARTNET_STEP_B, PARTNET_STEP_N = 2, N  # the card-vs-CPU training step
+PARTNET_WARMUP, PARTNET_TIMED = 2, 5  # the trained system's steps at B = TRAIN_B, N
+
+
+def _h5_read_ms(hdf5, path, reps=3):
+    """The median ms of reading every dataset of `path` with
+    hpcs_torch.utils.hdf5, and the arrays."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        with hdf5.File(path) as f:
+            arrays = {k: f[k][...] for k in f.keys()}
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), arrays
+
+
+def partnet_phase(card):
+    """PartNet on the card, read and written without h5py: (a)
+    the mini PartNet tree (Bottle, levels 1 and 3, 10,000 points an object)
+    written by tools/make_mini_datasets_torch.py through
+    hpcs_torch.utils.hdf5 and read back through PartNetDataset, equal to the
+    generator's arrays, and a 10,000-point file written chunked and deflated
+    (testing.write_h5_deflated) read to the same arrays, each read timed;
+    (b) `python -m hpcs_torch.train --dataset partnet --category Bottle
+    --level 3` at the flagship's width (N = 1024, k = 20, eucl = hyp = 32,
+    hierarchical CosFace over levels 1 and 3, B = 8) for 2 epochs on a tree
+    of PARTNET_SPLITS objects, --resume for a third and `python -m
+    hpcs_torch.infer partnet` on final/ for 2 requests of 4 clouds, held as
+    the entry phase holds ShapeNet's (records, checkpoints, the restored
+    state, infer equal to trainer.test in memory), the system's level sum
+    matrices on the card; (c) one hierarchical train_step at B = 2, N = 1024
+    on the card against the CPU port (testing.check_train_step_card_vs_cpu),
+    and again with class_vector; (d) the recipe of
+    tools/parity_real_format_torch.py --dataset partnet trained on the card
+    for NOTEBOOK_SEEDS at 80 epochs and tested, its mean decode purity and
+    score held to hpcs_tpu's 8 seeds (z >= -2), the raw-cosine accuracy
+    printed beside hpcs_tpu's; (e) examples/partnet_eval_torch's code cells
+    on seed 0's checkpoint, on the card and on the CPU port, compared as
+    the notebooks phase compares ShapeNet's.  B1 and B2
+    counted in every run.  Prints whether h5py is installed: the port never
+    imports it."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tools"))
+    import make_eval_notebook_torch as nbgen
+    import make_mini_datasets_torch as minidata
+    import parity_real_format_torch as prf
+
+    from hpcs_torch import infer, train, trainer
+    from hpcs_torch.cli import freeze_hierarchy
+    from hpcs_torch.data import DataLoader, PartNetDataset, get_hierarchy_list
+    from hpcs_torch.loss import hierarchy_sum_matrices
+    from hpcs_torch.models import HypHCSystem, ModelConfig
+    from hpcs_torch.testing import (check_same_test_outputs, check_train_step_card_vs_cpu,
+                                    record_test_steps, write_h5_deflated)
+    from hpcs_torch.utils import hdf5
+
+    h5py_installed = importlib.util.find_spec("h5py") is not None
+    print(f"partnet: h5py is {'installed' if h5py_installed else 'not installed'} on this "
+          "machine; the port reads and writes HDF5 without it", file=sys.stderr, flush=True)
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root, cwd, launches = tmp.name, os.getcwd(), {}
+    try:
+        # (a) the mini tree, written and read back; a deflated file
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            minidata.make_partnet(os.path.join(root, "data"))
+        write_s = time.perf_counter() - t
+        h5_root = os.path.join(root, "data", "PartNet", "sem_seg_h5")
+        t = time.perf_counter()
+        read = {(level, split): PartNetDataset(
+            os.path.join(h5_root, f"Bottle-{level}", f"{split}_files.txt"), 256)
+            for level in PARTNET_LEVELS for split in ("train", "val", "test")}
+        read_s = time.perf_counter() - t
+        for level, split, arrays in minidata.partnet_arrays():
+            ds = read[(level, split)]
+            for key, got in (("data", ds.points), ("data_num", ds.data_num),
+                             ("label_seg", ds.label_seg)):
+                if got.dtype != arrays[key].dtype or not np.array_equal(got, arrays[key]):
+                    fail(f"partnet: level {level} {split} {key} read back as {got.dtype} "
+                         f"{got.shape}, not the generator's {arrays[key].dtype} "
+                         f"{arrays[key].shape}")
+        objects = {f"{lv}/{sp}": len(ds) for (lv, sp), ds in read.items()}
+        _, _, arrays = next(minidata.partnet_arrays(per_split=(PARTNET_H5_OBJECTS, 0, 0)))
+        files = {"contiguous": os.path.join(root, "contiguous.h5"),
+                 "deflated": os.path.join(root, "deflated.h5")}
+        t = time.perf_counter()
+        hdf5.write_h5(files["contiguous"], arrays)
+        write_ms = {"contiguous": (time.perf_counter() - t) * 1e3}
+        t = time.perf_counter()
+        write_h5_deflated(files["deflated"], arrays)
+        write_ms["deflated"] = (time.perf_counter() - t) * 1e3
+        read_ms, mib = {}, {}
+        for kind, path in files.items():
+            read_ms[kind], got = _h5_read_ms(hdf5, path)
+            mib[kind] = os.path.getsize(path) / 2 ** 20
+            for key, want in arrays.items():
+                if got[key].dtype != want.dtype or not np.array_equal(got[key], want):
+                    fail(f"partnet: the {kind} file's {key} reads back unequal")
+
+        # (b) the entry points at the flagship's width, on a tree of PARTNET_SPLITS
+        work = os.path.join(root, "work")
+        with contextlib.redirect_stdout(io.StringIO()):
+            minidata.make_partnet(os.path.join(work, "data"), per_split=PARTNET_SPLITS)
+        os.chdir(work)
+        n_train, n_val, n_test = PARTNET_SPLITS
+        steps, val_batches = n_train // TRAIN_B, n_val // TRAIN_B
+        test_batches = -(-n_test // TRAIN_B)
+        run_dir = os.path.join("logs", "partnet_vn_dgcnn_partseg")
+        ckpt = os.path.join(run_dir, "checkpoints")
+
+        def run(name, fn, argv, train_steps, eval_batches):
+            _counts(reset=True)
+            t = time.perf_counter()
+            out = fn(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            launches[name] = _counts(reset=True)
+            want = _launches(knn=3 * (train_steps + eval_batches), edgeconv=3 * eval_batches)
+            if launches[name] != want:
+                fail(f"partnet: {name} launched {launches[name]}, expected {want}")
+            return out, seconds
+
+        (_, first_results), s1 = run("train", train.main, PARTNET_FLAGS + ["--epochs", "2"],
+                                     2 * steps, 2 * val_batches + test_batches)
+        (trained, results), s2 = run(
+            "resume", train.main,
+            PARTNET_FLAGS + ["--epochs", "3", "--resume", os.path.join(ckpt, "last")],
+            steps, val_batches + test_batches)
+        infer_b = 4
+        with record_test_steps() as served:
+            (restored, served_results), s3 = run("infer", infer.main, [
+                "partnet", "--category", "Bottle", "--level", "3", "--model_path",
+                os.path.join(ckpt, "final"), "--fixed_points", str(N), "--batch", str(infer_b),
+                "--test_batches", "2"], 0, 2)
+        records = _check_trained_run("partnet", run_dir, ckpt, trained, restored,
+                                     (first_results, results), steps)
+        hierarchy = get_hierarchy_list("data/PartNet/after_merging_label_ids", "Bottle",
+                                       PARTNET_LEVELS)
+        cfg = trained.cfg
+        if not (cfg.use_hierarchical and cfg.dataset == "partnet" and cfg.num_class == 9
+                and cfg.num_categories == 1 and cfg.hierarchy_list == freeze_hierarchy(hierarchy)
+                and restored.cfg.use_hierarchical):
+            fail(f"partnet: the trained system's config {cfg}")
+        for system in (trained, restored):
+            mats = system.hierarchy_matrices
+            want = hierarchy_sum_matrices(hierarchy, cfg.num_class)
+            if len(mats) != len(PARTNET_LEVELS) or any(
+                    m.device.type != "cuda" or not torch.equal(m.cpu(), w)
+                    for m, w in zip(mats, want)):
+                fail(f"partnet: the level sum matrices {[tuple(m.shape) for m in mats]} on "
+                     f"{[m.device.type for m in mats]}")
+        test_loader = DataLoader(PartNetDataset(
+            "data/PartNet/sem_seg_h5/Bottle-3/test_files.txt", N), infer_b, shuffle=True,
+            seed=SEED)
+        with record_test_steps() as in_memory:
+            in_memory_results = trainer.test(trained, test_loader, seed=SEED, limit_batches=2)
+        try:
+            logs_rel = check_same_test_outputs(served, in_memory)
+        except AssertionError as e:
+            fail(f"partnet: infer differs from trainer.test in memory: {e}")
+        for c in served:
+            if c["linkage"].shape != (infer_b, N - 1, 4) or not 0 <= c["logs"]["score"] <= 1:
+                fail("partnet: infer's output shapes or score")
+        # the trained system's hierarchical step at the flagship's width, timed
+        train_files = "data/PartNet/sem_seg_h5/Bottle-3/train_files.txt"
+        step_batch = next(iter(DataLoader(PartNetDataset(train_files, N), TRAIN_B)))
+        gen, step_ms = torch.Generator(device="cuda").manual_seed(SEED), []
+        _counts(reset=True)
+        for _ in range(PARTNET_WARMUP + PARTNET_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logs = trained.train_step(step_batch, gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if not all(bool(torch.isfinite(v).all()) for v in logs.values()):
+                fail(f"partnet: a hierarchical training step's logs {logs}")
+        launches["timed_steps"] = _counts(reset=True)
+        if launches["timed_steps"] != _launches(
+                knn=3 * (PARTNET_WARMUP + PARTNET_TIMED)):
+            fail(f"partnet: the timed steps launched {launches['timed_steps']}")
+        entry = dict(objects_per_split=list(PARTNET_SPLITS), B_train=TRAIN_B, B_infer=infer_b,
+                     N=N, k=K, eucl=EUCL, hyp=HYP, levels=PARTNET_LEVELS,
+                     train_steps_per_epoch=steps, val_batches=val_batches,
+                     test_batches=test_batches,
+                     epoch_seconds=[r["epoch_time_s"] for r in records],
+                     train_step_ms=step_ms[PARTNET_WARMUP:],
+                     train_step_ms_median=float(np.median(step_ms[PARTNET_WARMUP:])),
+                     train_step_warmup_ms=step_ms[:PARTNET_WARMUP],
+                     train_call_seconds=[s1, s2], infer_call_seconds=s3,
+                     infer_seconds_per_request=[c["seconds"] for c in served],
+                     train_total_loss=[r["train_total_loss"] for r in records],
+                     loss_metric=[r["loss_metric"] for r in records],
+                     val_loss=[r["val_loss"] for r in records],
+                     test_results=[first_results, results], infer_results=served_results,
+                     in_memory_results=in_memory_results,
+                     infer_vs_in_memory_max_rel_log_diff=logs_rel)
+
+        # (c) one hierarchical training step, card against the CPU port
+        batch = next(iter(DataLoader(PartNetDataset(train_files, PARTNET_STEP_N),
+                                     PARTNET_STEP_B)))
+        step = {}
+        for name, over in (("hierarchical", {}), ("class_vector", dict(class_vector=True))):
+            scfg = dataclasses.replace(cfg, dropout=0.0, train_rotation="none", **over)
+            system = HypHCSystem(scfg, generator=torch.Generator().manual_seed(SEED))
+            _counts(reset=True)
+            t = time.perf_counter()
+            try:
+                readings = check_train_step_card_vs_cpu(system, batch, seed=SEED)
+            except AssertionError as e:
+                fail(f"partnet: the {name} train_step on the card differs from the CPU "
+                     f"port's: {e}")
+            seconds = time.perf_counter() - t
+            launches[f"step_{name}"] = _counts(reset=True)
+            if launches[f"step_{name}"] != _launches(knn=3):
+                fail(f"partnet: the {name} step launched {launches[f'step_{name}']}, "
+                     "expected B1 3 and B2 none")
+            step[name] = dict(seconds=seconds, **{k: v for k, v in readings.items()
+                                                  if not isinstance(v, dict)})
+        os.chdir(cwd)
+
+        # (d) the recipe on the card, seed by seed
+        c = prf.CFGS["partnet"]
+        n_tr, n_va, n_te = 4, 2, 2  # make_partnet's default split
+        r_steps = c["epochs"] * -(-n_tr // c["batch_size"])
+        r_evals = c["epochs"] * -(-n_va // c["batch_size"]) + -(-n_te // c["batch_size"])
+        want = _launches(knn=3 * (r_steps + r_evals), edgeconv=3 * r_evals)
+        out_dir, runs = os.path.join(root, "logs"), []
+        for seed in NOTEBOOK_SEEDS:
+            _counts(reset=True)
+            r, system = prf.run_torch("partnet", seed, device="cuda", out=out_dir,
+                                      data=os.path.join(root, "data"), log=lambda line: None)
+            launches[f"recipe_s{seed}"] = _counts(reset=True)
+            print(f"partnet: seed {seed} trained in {r['train_wall_s']:.1f} s; test loss "
+                  f"{r['test_loss']:.4f}, no-margin accuracy {r['test_acc_nomargin']:.4f}, "
+                  f"decode score {r['decode_score_mean']:.4f}, purity "
+                  f"{r['decode_purity_mean']:.4f}", file=sys.stderr, flush=True)
+            if launches[f"recipe_s{seed}"] != want:
+                fail(f"partnet: seed {seed} launched {launches[f'recipe_s{seed}']}, expected "
+                     f"{want}")
+            if not (system.cfg.use_hierarchical and len(system.hierarchy_matrices) == 2):
+                fail(f"partnet: seed {seed} trained without the hierarchical loss")
+            if not all(np.isfinite(r[k]) for k in prf.RESULT_KEYS + ("test_loss",)):
+                fail(f"partnet: seed {seed}'s results are not finite: {r}")
+            runs.append(dict(seed=seed, **{k: r[k] for k in (
+                "test_loss", "test_acc", "test_acc_nomargin", "decode_score_mean",
+                "decode_purity_mean", "train_wall_s", "n_test_objects")}))
+        quality = {}
+        for key, (mean, std) in TPU_MINI_PARTNET.items():
+            tpu = dict(mean=mean, std=std, stderr=std / np.sqrt(TPU_MINI_PARTNET_SEEDS))
+            quality[key] = dict(port=prf.aggregate([r[key] for r in runs]), hpcs_tpu=tpu,
+                                **prf.compare(prf.aggregate([r[key] for r in runs]), tpu))
+        nomargin = dict(port=prf.aggregate([r["test_acc_nomargin"] for r in runs]),
+                        hpcs_tpu=dict(mean=TPU_MINI_PARTNET_NOMARGIN[0],
+                                      std=TPU_MINI_PARTNET_NOMARGIN[1]))
+
+        # (e) the notebook's cells on seed 0's checkpoint, on the card, on
+        # the CPU port, and on the CPU port with the card's embeddings (rows
+        # compared on one set of embeddings)
+        ckpt0 = prf.checkpoint_dir(out_dir, "partnet", NOTEBOOK_SEEDS[0])
+        examples = os.path.join(root, "examples")
+        os.makedirs(examples)
+        rows, cell_s, embedded, printed = {}, {}, {}, {}
+        for run_name, run_device, held in (("card", "cuda", None), ("cpu", "cpu", None),
+                                           ("cpu_on_card_embeddings", "cpu", "card")):
+            cells = nbgen.code_cells(nbgen.build_partnet(ckpt0, run_device))
+            _counts(reset=True)
+            t = time.perf_counter()
+            embedded[run_name] = []
+            ns, text = _run_cells(cells, examples, record=embedded[run_name],
+                                  held=None if held is None else list(embedded[held]))
+            torch.cuda.synchronize()
+            cell_s[run_name] = time.perf_counter() - t
+            launches[f"notebook_{run_name}"] = _counts(reset=True)
+            rows[run_name], printed[run_name] = ns["all_rows"], text.splitlines()
+            if run_name == "card":
+                mean_score, ncfg = ns["mean_score"], ns["cfg"]
+        if launches["notebook_card"] != _launches(knn=3, edgeconv=3) \
+                or launches["notebook_cpu"] != _launches() \
+                or launches["notebook_cpu_on_card_embeddings"] != _launches():
+            fail(f"partnet: the notebook launched {launches['notebook_card']} on the card "
+                 f"(expected B1 and B2 3 each) and {launches['notebook_cpu']} on the CPU")
+        if not (ncfg.use_hierarchical and len(ncfg.hierarchy_list) == 2):
+            fail(f"partnet: the notebook restored {ncfg}")
+        if not len(rows["card"]) == len(rows["cpu"]) == len(rows["cpu_on_card_embeddings"]) \
+                == n_te:
+            fail(f"partnet: {len(rows['card'])} notebook rows on the card, {len(rows['cpu'])} "
+                 "on the CPU")
+        embedding_gap = 0.0
+        for card_out, cpu_out in zip(embedded["card"], embedded["cpu"]):
+            for got, want_out in zip(card_out, cpu_out):
+                diff = np.abs(got - want_out)
+                embedding_gap = max(embedding_gap, float(diff.max()))
+                if not (diff <= 2e-4 + 1e-3 * np.abs(want_out)).all():
+                    fail(f"partnet: the card's notebook embeddings differ from the CPU port's "
+                         f"by {float(diff.max()):.3e}, beyond atol 2e-4 / rtol 1e-3")
+        score_gap = 0.0
+        for got, on_cpu in zip(rows["card"], rows["cpu_on_card_embeddings"]):
+            score_gap = max(score_gap, abs(got["score"] - on_cpu["score"]))
+            if (got["split"], got["best_k"], got["true_parts"]) != (
+                    on_cpu["split"], on_cpu["best_k"], on_cpu["true_parts"]) \
+                    or abs(got["score"] - on_cpu["score"]) > NOTEBOOK_SCORE_ATOL:
+                fail(f"partnet: the card's notebook row {got} differs from the CPU port's on "
+                     f"the card's embeddings, {on_cpu}")
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    out = dict(h5py_installed=h5py_installed,
+               dataset=dict(seconds_to_write=write_s, seconds_to_read=read_s, objects=objects,
+                            points=10000, deflated_file=dict(
+                                objects=PARTNET_H5_OBJECTS, points=10000, level=4,
+                                write_ms=write_ms, read_ms=read_ms, mib=mib)),
+               entry=entry, train_step=dict(B=PARTNET_STEP_B, N=PARTNET_STEP_N, **step),
+               recipe={k: v for k, v in c.items() if k != "seed"},
+               seeds=runs, quality=quality, test_acc_nomargin=nomargin,
+               train_s_per_seed=[r["train_wall_s"] for r in runs],
+               notebook=dict(rows_card=rows["card"],
+                             rows_cpu_on_card_embeddings=rows["cpu_on_card_embeddings"],
+                             rows_cpu_own_embeddings=rows["cpu"],
+                             max_score_gap_card_vs_cpu=score_gap, score_atol=NOTEBOOK_SCORE_ATOL,
+                             max_abs_err_embeddings_card_vs_cpu=embedding_gap,
+                             mean_score_card=mean_score, seconds=cell_s,
+                             printed_card=printed["card"]),
+               launches_by_run=launches,
+               launches={k: sum(run[k] for run in launches.values()) for k in COUNTERS},
+               seconds=time.perf_counter() - t_phase, card=card)
+    emit("partnet", **out)
+    for key, q in quality.items():
+        if q["z"] < -2:
+            fail(f"partnet: the card-trained {key} {q['port']['mean']:.4f} is below "
+                 f"hpcs_tpu's {q['hpcs_tpu']['mean']:.4f} by {-q['z']:.2f} combined standard "
+                 "errors (z < -2)")
+    return out
+
+
 TRAINED_SCORE_GUARD = 0.98  # well under the 0.9969 of hpcs_tpu's converged run
 TRAINED_PURITY_DELTA = 0.005  # bench.py's bound on the fp32 / bf16 purity delta
 SYNTHETIC_BATCHES = (8, 2, 2)  # batches of 8 in cli.py's synthetic train / val / test splits
@@ -3658,11 +4043,12 @@ def main():
     examples = examples_phase(card)
     notebooks = notebooks_phase(card, flagship_ckpt)
     kept.cleanup()
+    partnet = partnet_phase(card)
     trained = trained_phase(card)
     par = parallel_phase(card)
     obs = observe_phase(card)
 
-    # 16. summary lines (row_launches: the launches over a row range, all
+    # 18. summary lines (row_launches: the launches over a row range, all
     # in the parallel phase's point-sharded runs)
     par_rows = par["row_launches"]
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
@@ -3680,7 +4066,7 @@ def main():
              + train["fit_launches"]["knn"] + entry_launches["knn"]
              + backbones["launches"]["knn"] + imp["launches"]["knn"]
              + examples["launches"]["knn"] + notebooks["launches"]["knn"]
-             + trained["launches_fp32"]["knn"]
+             + partnet["launches"]["knn"] + trained["launches_fp32"]["knn"]
              + par["launches"]["knn"] - par["launches"]["knn_bf16"] + obs["launches"]["knn"],
              row_launches=par_rows["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
@@ -3692,7 +4078,8 @@ def main():
              + train["launches"]["knn_wide"] + train["fit_launches"]["knn_wide"]
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
              + imp["launches"]["knn_wide"] + examples["launches"]["knn_wide"]
-             + notebooks["launches"]["knn_wide"] + trained["launches"]["knn_wide"]
+             + notebooks["launches"]["knn_wide"] + partnet["launches"]["knn_wide"]
+             + trained["launches"]["knn_wide"]
              + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"], row_launches=0,
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
@@ -3702,7 +4089,8 @@ def main():
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
              + imp["launches"]["edgeconv"] + examples["launches"]["edgeconv"]
-             + notebooks["launches"]["edgeconv"] + trained["launches_fp32"]["edgeconv"]
+             + notebooks["launches"]["edgeconv"] + partnet["launches"]["edgeconv"]
+             + trained["launches_fp32"]["edgeconv"]
              + par["launches"]["edgeconv"] - par["launches"]["edgeconv_bf16"]
              + obs["launches"]["edgeconv"], row_launches=par_rows["edgeconv"],
              max_abs_err=ec_err,

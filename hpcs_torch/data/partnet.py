@@ -1,12 +1,14 @@
 """PartNet semantic-segmentation reader (h5), as the JAX package's.
 
 `filelist` is a `{split}_files.txt` naming h5 files beside it, each with
-the keys data [B, P, 3], data_num [B] and label_seg [B, P].  Needs h5py.
+the keys data [B, P, 3], data_num [B] and label_seg [B, P], read by the
+port's own HDF5 reader (`hpcs_torch.utils.hdf5`, no h5py).
 """
 import os
 
 import numpy as np
 
+from ..utils import hdf5
 from .transforms import pc_normalize, resample
 
 
@@ -16,16 +18,11 @@ class PartNetDataset:
     and resampled with replacement from np.random.default_rng((0, i))."""
 
     def __init__(self, filelist, npoints):
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError("PartNetDataset needs the h5py package to read PartNet's "
-                              ".h5 files") from e
         points, point_nums, labels_seg = [], [], []
         folder = os.path.dirname(filelist)
         with open(filelist) as f:
             for line in f:
-                with h5py.File(os.path.join(folder, line.strip()), "r") as data:
+                with hdf5.File(os.path.join(folder, line.strip()), "r") as data:
                     points.append(data["data"][...].astype(np.float32))
                     point_nums.append(data["data_num"][...].astype(np.int32))
                     labels_seg.append(data["label_seg"][...].astype(np.int64))

@@ -1,9 +1,10 @@
 """Checks of the port's kernels against their plain versions, of the
 card's training step and of the packed optimizer against the
 per-parameter one, the test data and probes of the entry points' checks,
-the fp32 / bf16 serving of a trained checkpoint (`fp32_bf16_quality`), and
+the fp32 / bf16 serving of a trained checkpoint (`fp32_bf16_quality`),
 writers of the JAX package's two checkpoint formats (`write_flax_checkpoint`,
-`write_orbax_checkpoint`).
+`write_orbax_checkpoint`), and of chunked, deflated HDF5 files
+(`write_h5_deflated`, as h5py's `compression="gzip"` stores them).
 
 Used by chip_smoke.py, `trained_readings` and the tests; nothing on the
 forward or training path imports this module.
@@ -11,10 +12,12 @@ forward or training path imports this module.
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import struct
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -22,7 +25,7 @@ import torch
 from .ops.edgeconv import _vn_llr_folded, edgeconv_infer_plain, graph_feature_vn
 from .ops.knn import gather_neighbors, knn_scores
 from .ops.vn_math import EPS, NEGATIVE_SLOPE, channel_mix
-from .utils import ocdbt, zstd
+from .utils import hdf5, ocdbt, zstd
 
 ATOL, RTOL = 1e-5, 1e-4
 ILL_CONDITIONED = 1e-4  # pre-BatchNorm |p| below which fp32 cannot fix the output
@@ -335,6 +338,8 @@ def float64_train_step(system, batch, graphs, device="cpu", shard=None, group=No
     sys64 = copy.deepcopy(system)
     sys64.optimizer.zero_grad(set_to_none=True)
     net = sys64.net.to(device).double().train()
+    if sys64.hierarchy_matrices is not None:  # the hierarchical CosFace's level sums
+        sys64.hierarchy_matrices = [m.to(device).double() for m in sys64.hierarchy_matrices]
     if getattr(net.nn_feat, "compute_dtype", None) is not None:
         net.nn_feat.compute_dtype = None  # a bf16 backbone's step, in float64 throughout
     for st in sys64.optimizer.state.values():
@@ -738,6 +743,62 @@ def write_mini_shapenet(root, categories=("Airplane", "Chair"), per_split=(4, 2,
                                f"shuffled_{split}_file_list.json"), "w") as f:
             json.dump(items, f)
     return root
+
+
+CHUNK_BTREE_K = 32  # a chunk B-tree node's K under superblock version 0: 64 chunks a node
+
+
+def write_h5_deflated(path, arrays, rows=1, level=4, shuffle=False):
+    """Write `arrays` ({name: array}) as hdf5.write_h5 does, each dataset
+    chunked by `rows` along its first dim (chunks (rows, *shape[1:]); the
+    edge chunk stored whole, zero padded), each chunk shuffled where asked
+    and deflated at `level`, and indexed by one leaf of a version 1 B-tree:
+    h5py's `create_dataset(..., chunks=chunks, compression="gzip",
+    compression_opts=level, shuffle=shuffle)` with libver "earliest".  Up
+    to 64 chunks a dataset."""
+
+    def messages(image, array):
+        array = np.ascontiguousarray(array)
+        rank, size = array.ndim, array.dtype.itemsize
+        chunks = (rows,) + array.shape[1:]
+        entries = []
+        for offsets in itertools.product(*(range(0, s, c) for s, c in zip(array.shape, chunks))):
+            block = np.zeros(chunks, array.dtype)
+            part = array[tuple(slice(o, o + c) for o, c in zip(offsets, chunks))]
+            block[tuple(slice(0, n) for n in part.shape)] = part
+            raw = block.tobytes()
+            if shuffle:
+                raw = np.frombuffer(raw, np.uint8).reshape(-1, size).T.tobytes()
+            raw = zlib.compress(raw, level)
+            addr = image.alloc(len(raw))
+            image.put(addr, raw)
+            entries.append((offsets, len(raw), addr))
+        if len(entries) > 2 * CHUNK_BTREE_K:
+            raise ValueError(f"{path}: {len(entries)} chunks; one B-tree leaf holds "
+                             f"{2 * CHUNK_BTREE_K}")
+        key = struct.Struct(f"<II{rank + 1}Q")
+        tree = bytearray(b"TREE" + struct.pack("<BBHQQ", 1, 0, len(entries), hdf5.UNDEFINED,
+                                               hdf5.UNDEFINED))
+        for offsets, nbytes, addr in entries:
+            tree += key.pack(nbytes, 0, *offsets, 0) + struct.pack("<Q", addr)
+        # the right key: one chunk past the last in every dim
+        last = entries[-1][0] if entries else (0,) * rank
+        tree += key.pack(0, 0, *(o + c for o, c in zip(last, chunks)), size)
+        btree = image.alloc(8 + 2 * 8 + (2 * CHUNK_BTREE_K + 1) * key.size
+                            + 2 * CHUNK_BTREE_K * 8)
+        image.put(btree, tree)
+        filters = [(hdf5.SHUFFLE, size)] if shuffle else []
+        filters.append((hdf5.DEFLATE, level))
+        pipeline = struct.pack("<BB6x", 1, len(filters)) + b"".join(
+            struct.pack("<HHHHI4x", fid, 0, 1, 1, value) for fid, value in filters)
+        layout = struct.pack(f"<BBBQ{rank + 1}I", 3, 2, rank + 1, btree, *chunks, size)
+        return [(hdf5.DATASPACE, hdf5.dataspace_message(array.shape)),
+                (hdf5.DATATYPE, hdf5.datatype_message(array.dtype)),
+                (hdf5.FILL, hdf5.FILL_DEFAULT), (hdf5.PIPELINE, pipeline),
+                (hdf5.LAYOUT, layout)]
+
+    hdf5.write_h5(path, arrays, messages)
+    return path
 
 
 @contextlib.contextmanager

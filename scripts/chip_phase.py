@@ -5,13 +5,16 @@ times, selection work, launch geometry, half clouds), `observe`
 `parallel` (hpcs_torch.parallel: data-parallel steps, the sharded
 test_step, every configuration point-sharded), `examples`
 (examples/api_tour_torch.py and eval_noise_torch.py on an orbax
-directory) or `notebooks` (mini-ShapeNet-Part written, trained on and
+directory), `notebooks` (mini-ShapeNet-Part written, trained on and
 evaluated through examples/shapenet_eval_torch.ipynb; the flagship's
-hpcs_tpu checkpoint written by the phase itself); see each phase's
-docstring.  Prints the card, then the phase's JSON line; with a path,
+hpcs_tpu checkpoint written by the phase itself) or `partnet` (mini
+PartNet written and read without h5py, the entry points with the
+hierarchical CosFace, a step against the CPU port, the recipe trained on
+and evaluated through examples/partnet_eval_torch.ipynb); see each
+phase's docstring.  Prints the card, then the phase's JSON line; with a path,
 also writes that line there.
 
-    python3 scripts/chip_phase.py knn|observe|parallel|examples|notebooks [out.json]
+    python3 scripts/chip_phase.py knn|observe|parallel|examples|notebooks|partnet [out.json]
 """
 import json
 import os
@@ -24,7 +27,8 @@ import chip_smoke as cs  # noqa: E402
 from hpcs_torch.ops import _build  # noqa: E402
 
 PHASES = {"knn": cs.knn_phase, "observe": cs.observe_phase, "parallel": cs.parallel_phase,
-          "examples": cs.examples_phase, "notebooks": cs.notebooks_phase}
+          "examples": cs.examples_phase, "notebooks": cs.notebooks_phase,
+          "partnet": cs.partnet_phase}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in PHASES:

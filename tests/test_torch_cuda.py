@@ -487,6 +487,61 @@ def test_train_step_on_gpu_matches_cpu():
     assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 0)
 
 
+# Bottle's level tree at levels 1 and 3 (tools/make_mini_datasets_torch.py's)
+BOTTLE_HIERARCHY = (((0,), (1, 2), (3, 4, 5, 6, 7)),
+                    ((0,), (1,), (2,), (3,), (4,), (5,), (6,), (7,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("class_vector", [False, True])
+def test_partnet_hierarchical_train_step_on_gpu_matches_cpu(class_vector):
+    """PartNet's step: the hierarchical CosFace over two levels (its sum
+    matrices on the card), with the constant or the part-presence decode
+    vector, at B=2, N=128 on the card against the CPU port."""
+    require_cuda()
+    cfg = ModelConfig(dataset="partnet", num_class=9, num_categories=1, eucl_dim=8, hyp_dim=8,
+                      k=8, dropout=0.0, train_rotation="none", t_per_anchor=10,
+                      temperature=0.1, hierarchical=True, hierarchy_list=BOTTLE_HIERARCHY,
+                      class_vector=class_vector)
+    tsys = HypHCSystem(cfg)
+    assert [m.device.type for m in tsys.hierarchy_matrices] == ["cuda", "cuda"]
+    pts, _, seg = SyntheticPartDataset(2, 128, 3, seed=1).batch(0, 2)
+    batch = {"points": pts, "category": np.zeros(2, np.int32), "labels": seg}
+    k0, e0 = K.knn.launches, E.edgeconv_infer.launches
+    check_train_step_card_vs_cpu(tsys, batch)
+    assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 0)
+
+
+@pytest.mark.cuda
+def test_hdf5_reader_on_a_deflated_partnet_file(tmp_path):
+    """A chunked, deflated file of 10,000-point objects (as h5py writes
+    gzip) read by the port's HDF5 reader to the arrays written, its clouds
+    served on the card through both kernels."""
+    require_cuda()
+    from hpcs_torch.data import DataLoader, PartNetDataset
+    from hpcs_torch.testing import write_h5_deflated
+    from hpcs_torch.utils import hdf5
+
+    rng = np.random.default_rng(0)
+    arrays = {"data": rng.standard_normal((4, 10000, 3)).astype(np.float32),
+              "label_seg": rng.integers(1, 9, (4, 10000)),
+              "data_num": np.full(4, 10000, np.int32)}
+    write_h5_deflated(str(tmp_path / "test-00.h5"), arrays, shuffle=True)
+    with hdf5.File(tmp_path / "test-00.h5") as f:
+        for name, want in arrays.items():
+            got = f[name][...]
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    (tmp_path / "test_files.txt").write_text("test-00.h5\n")
+    batch = next(iter(DataLoader(PartNetDataset(str(tmp_path / "test_files.txt"), 1024), 4)))
+    cfg = ModelConfig(dataset="partnet", num_class=9, num_categories=1, eucl_dim=8, hyp_dim=8,
+                      k=20)
+    k0, e0 = K.knn.launches, E.edgeconv_infer.launches
+    x_e, x_p = HypHCSystem(cfg).embed(batch["points"], decode_vector_for_batch(cfg, batch))
+    assert (K.knn.launches - k0, E.edgeconv_infer.launches - e0) == (3, 3)
+    assert x_p.shape == (4, 1024, 8) and bool(torch.isfinite(x_p).all())
+
+
 @pytest.mark.cuda
 def test_train_and_eval_steps_count_their_kernels():
     require_cuda()

@@ -92,14 +92,23 @@ def test_partnet_and_hierarchy_equal_jax_package(trees):
             hroot, "Bottle", levels)
 
 
-def test_partnet_without_h5py_names_it(monkeypatch, tmp_path):
+def test_partnet_without_h5py_names_it(monkeypatch, trees):
+    """Without h5py the port's PartNetDataset reads the tree (its own HDF5
+    reader) to the arrays h5py reads."""
     import sys
+
+    import h5py
 
     from hpcs_torch.data import PartNetDataset
 
+    files = os.path.join(trees["partnet"], "sem_seg_h5", "Bottle-3", "train_files.txt")
+    with open(files) as f, h5py.File(os.path.join(os.path.dirname(files),
+                                                  f.readline().strip()), "r") as h5:
+        want = {key: h5[key][()] for key in ("data", "data_num", "label_seg")}
     monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        PartNetDataset(str(tmp_path / "train_files.txt"), 16)
+    got = PartNetDataset(files, 16)
+    for key, attr in (("data", "points"), ("data_num", "data_num"), ("label_seg", "label_seg")):
+        np.testing.assert_array_equal(getattr(got, attr), want[key], err_msg=key)
 
 
 @pytest.mark.parametrize("shuffle,drop_last", [(True, True), (True, False), (False, False)])

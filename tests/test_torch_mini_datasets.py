@@ -3,7 +3,7 @@ tools/make_mini_datasets.py: the trees they write under two roots are
 equal, every txt and json file byte for byte and each h5 file's data,
 data_num and label_seg arrays exactly (h5 bytes may hold timestamps); the
 port's readers read them; the generator writes only what it is asked to,
-and without h5py only the PartNet writer fails, naming it.
+and without h5py it writes the same trees (its own HDF5 writer).
 """
 import contextlib
 import io
@@ -90,10 +90,21 @@ def test_only_the_datasets_asked_for_are_written(tmp_path):
     assert os.listdir(tmp_path) == ["ShapeNet"]
 
 
-def test_without_h5py_only_partnet_fails_naming_it(tmp_path, monkeypatch):
+def test_without_h5py_only_partnet_fails_naming_it(trees, tmp_path, monkeypatch):
+    """Without h5py the generator writes both trees, the PartNet h5 arrays
+    (read afterwards by h5py, the oracle) equal to the JAX generator's."""
     monkeypatch.setitem(sys.modules, "h5py", None)
     with contextlib.redirect_stdout(io.StringIO()):
         generator.make_shapenet(str(tmp_path))
-        with pytest.raises(ImportError, match="h5py"):
-            generator.make_partnet(str(tmp_path))
+        generator.make_partnet(str(tmp_path))
+    monkeypatch.undo()  # h5py imports its own modules as it reads
     assert os.path.isdir(tmp_path / "ShapeNet" / "raw")
+    names = [f for f in _files(trees[1]) if f.endswith(".h5")]
+    assert [f for f in _files(str(tmp_path)) if f.endswith(".h5")] == names
+    for name in names:
+        with h5py.File(os.path.join(tmp_path, name), "r") as a, \
+                h5py.File(os.path.join(trees[1], name), "r") as b:
+            assert set(a) == set(b)
+            for key in a:
+                assert a[key].dtype == b[key].dtype, (name, key)
+                np.testing.assert_array_equal(a[key][()], b[key][()], err_msg=f"{name} {key}")

@@ -195,8 +195,9 @@ def test_epoch_end_schedules_match_jax(pair):
 def _small_system(**over):
     from hpcs_torch.models import HypHCSystem, ModelConfig
 
-    cfg = ModelConfig(num_class=6, num_categories=2, eucl_dim=4, hyp_dim=4, k=6, t_per_anchor=5,
-                      temperature=0.1, **over)
+    fields = dict(num_class=6, num_categories=2, eucl_dim=4, hyp_dim=4, k=6, t_per_anchor=5,
+                  temperature=0.1)
+    cfg = ModelConfig(**{**fields, **over})
     return HypHCSystem(cfg, device="cpu")
 
 
@@ -247,6 +248,29 @@ def test_card_vs_cpu_check_rehearsed_on_the_cpu():
     assert tsys.step == 1
     with pytest.raises(ValueError, match="dropout"):
         check_train_step_card_vs_cpu(_small_system(), synthetic_batch(2, 64))
+
+
+# Bottle's level tree at levels 1 and 3 (tools/make_mini_datasets_torch.py's,
+# as get_hierarchy_list remaps it)
+BOTTLE_HIERARCHY = (((0,), (1, 2), (3, 4, 5, 6, 7)),
+                    ((0,), (1,), (2,), (3,), (4,), (5,), (6,), (7,)))
+
+
+@pytest.mark.parametrize("class_vector", [False, True])
+def test_card_vs_cpu_check_rehearsed_on_a_hierarchical_partnet_system(class_vector):
+    """The same rehearsal on PartNet's configuration: the hierarchical
+    CosFace over two levels (and the part-presence decode vector).  The
+    check's float64 witness runs the loss on float64 embeddings, so it
+    needs the level sum matrices in float64 as well."""
+    from _torch_port import synthetic_batch
+
+    tsys = _small_system(dataset="partnet", num_class=9, num_categories=1, hierarchical=True,
+                         hierarchy_list=BOTTLE_HIERARCHY, class_vector=class_vector,
+                         dropout=0.0, train_rotation="none")
+    assert tsys.cfg.use_hierarchical and len(tsys.hierarchy_matrices) == 2
+    out = check_train_step_card_vs_cpu(tsys, synthetic_batch(2, 64, categories=3, seed=4))
+    assert out["filter_flips"] == 0 and out["max_rel_err_logs"] < 1e-5
+    assert all(m.dtype == torch.float32 for m in tsys.hierarchy_matrices)
 
 
 def test_reordered_points_give_the_same_float64_step(monkeypatch):

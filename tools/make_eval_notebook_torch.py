@@ -20,9 +20,11 @@ precision-recall curve.
   they are absent, under data/ and logs/ (both ignored by git).
 - Figures need matplotlib and are drawn only with PLOT = True; the summary
   is plain Python; the precision-recall cell needs sklearn and matplotlib
-  and runs on the CPU only.  PartNet needs h5py.  The card's machine has
+  and runs on the CPU only.  PartNet's h5 files are read and written by the
+  port's own HDF5 code (hpcs_torch.utils.hdf5).  The card's machine has
   none of matplotlib, pandas, sklearn or h5py: there the ShapeNet notebook
-  runs every cell but the precision-recall cell, with PLOT = False.
+  runs every cell but the precision-recall cell and the PartNet notebook
+  every cell, with PLOT = False.
 
 Usage: python tools/make_eval_notebook_torch.py [--dataset shapenet|partnet]
            [--ckpt DIR] [--device cpu] [--execute]
@@ -236,8 +238,9 @@ plt.show()
 
 CELL_SETUP_PARTNET = '''\
 %matplotlib inline
-# Per-category evaluation on mini-PartNet (real h5 format, needs h5py) -
-# the reference's notebooks/PartNet.ipynb deliverable on the PyTorch port.
+# Per-category evaluation on mini-PartNet (real h5 format, read without
+# h5py) - the reference's notebooks/PartNet.ipynb deliverable on the
+# PyTorch port.
 import os, sys
 sys.path.insert(0, os.path.abspath('..'))  # executes from examples/
 import numpy as np
@@ -335,8 +338,7 @@ def build(ckpt=DEFAULT_CKPT["shapenet"], device="cuda"):
 
 
 def build_partnet(ckpt=DEFAULT_CKPT["partnet"], device="cuda"):
-    """The PartNet notebook on checkpoint `ckpt` and `device` (CPU machines
-    with h5py)."""
+    """The PartNet notebook on checkpoint `ckpt` and `device`."""
     cells = [
         md("# Per-category evaluation — mini-PartNet (Bottle, level 3), on the "
            "PyTorch port\n\n"
@@ -345,7 +347,7 @@ def build_partnet(ckpt=DEFAULT_CKPT["partnet"], device="cuda"):
            "HypHC loss, trained by `tools/parity_real_format_torch.py --dataset "
            "partnet`; both it and the data are made here when absent), render "
            "per-object hyperbolic eval panels, part confusion, score table.  "
-           "Needs h5py, so it runs on the CPU machine."),
+           "`DEVICE` is the card unless set to `'cpu'`; `PLOT` needs matplotlib."),
         code(_setup(CELL_SETUP_PARTNET, ckpt, device, "partnet", "H5", "parity_rf_pn_torch")),
         code(CELL_HELPERS_PARTNET),
         md("## Bottle — test split"),

@@ -18,8 +18,8 @@ whose generators, draws and files it repeats, so both write the same trees.
         data_num [B], label_seg [B, 10000]
     <root>/PartNet/after_merging_label_ids/<Cat>.txt           tree w/ 'leaf'
     <root>/PartNet/after_merging_label_ids/<Cat>-level-<L>.txt "NN name" lines
-  Bottle, levels 1 and 3 (num_class 9 at level 3).  Writing the h5 files
-  needs h5py, imported only here.
+  Bottle, levels 1 and 3 (num_class 9 at level 3), the h5 files written by
+  the port's own writer (hpcs_torch.utils.hdf5.write_h5, no h5py).
 
 Geometry is synthetic but part-structured (each label a distinct gaussian
 blob), so the decode's sweeps have real cluster structure to find.
@@ -38,6 +38,7 @@ import numpy as np
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
 from hpcs_torch.data.shapenet import SEG_CLASSES  # noqa: E402
+from hpcs_torch.utils.hdf5 import write_h5  # noqa: E402
 
 SYNSETS = {  # real ShapeNet-Part synset offsets for the vendored categories
     "Airplane": "02691156",
@@ -120,8 +121,25 @@ BOTTLE_LEVELS = {
 }
 
 
+def partnet_arrays(n_points=10000, per_split=(4, 2, 2)):
+    """(level, split, {"data", "data_num", "label_seg"}) of each h5 file
+    make_partnet writes, in the order it draws them."""
+    rng = np.random.default_rng(13)
+    for lvl, lines in BOTTLE_LEVELS.items():
+        num_class = len(lines) + 1  # reference: len(level file) + 1
+        for split, count in zip(("train", "val", "test"), per_split):
+            data = np.zeros((count, n_points, 3), np.float32)
+            label = np.zeros((count, n_points), np.int64)
+            for b in range(count):
+                # labels 1..num_class-1 are semantic parts; 0 = unlabeled
+                pts, seg = _object_cloud(rng, list(range(1, num_class)), total=n_points)
+                data[b], label[b] = pts, seg
+            yield lvl, split, {"data": data, "data_num": np.full(count, n_points, np.int32),
+                               "label_seg": label}
+
+
 def make_partnet(root, category="Bottle", n_points=10000, per_split=(4, 2, 2)):
-    """Write the PartNet tree under root/PartNet (needs h5py); returns it."""
+    """Write the PartNet tree under root/PartNet; returns it."""
     hier = osp.join(root, "PartNet", "after_merging_label_ids")
     os.makedirs(hier, exist_ok=True)
     with open(osp.join(hier, f"{category}.txt"), "w") as f:
@@ -130,30 +148,13 @@ def make_partnet(root, category="Bottle", n_points=10000, per_split=(4, 2, 2)):
         with open(osp.join(hier, f"{category}-level-{lvl}.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
 
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError("writing the PartNet tree needs the h5py package") from e
-
-    rng = np.random.default_rng(13)
-    for lvl, lines in BOTTLE_LEVELS.items():
-        num_class = len(lines) + 1  # reference: len(level file) + 1
+    for lvl, split, arrays in partnet_arrays(n_points, per_split):
         base = osp.join(root, "PartNet", "sem_seg_h5", f"{category}-{lvl}")
         os.makedirs(base, exist_ok=True)
-        for split, count in zip(("train", "val", "test"), per_split):
-            name = f"{split}-00.h5"
-            data = np.zeros((count, n_points, 3), np.float32)
-            label = np.zeros((count, n_points), np.int64)
-            for b in range(count):
-                # labels 1..num_class-1 are semantic parts; 0 = unlabeled
-                pts, seg = _object_cloud(rng, list(range(1, num_class)), total=n_points)
-                data[b], label[b] = pts, seg
-            with h5py.File(osp.join(base, name), "w") as f:
-                f.create_dataset("data", data=data)
-                f.create_dataset("data_num", data=np.full(count, n_points, np.int32))
-                f.create_dataset("label_seg", data=label)
-            with open(osp.join(base, f"{split}_files.txt"), "w") as f:
-                f.write(name + "\n")
+        name = f"{split}-00.h5"
+        write_h5(osp.join(base, name), arrays)
+        with open(osp.join(base, f"{split}_files.txt"), "w") as f:
+            f.write(name + "\n")
     out = osp.join(root, "PartNet")
     print(f"PartNet mini: {category} levels {sorted(BOTTLE_LEVELS)} "
           f"({sum(per_split)} objects/level, {n_points} pts) under {out}")

@@ -9,7 +9,8 @@ Datasets:
   shapenet: mini-ShapeNet-Part txt under <data>/ShapeNet/raw (Airplane,
     Cap), plain CosFace;
   partnet: mini-PartNet h5 under <data>/PartNet (Bottle, level 3),
-    hierarchical CosFace over levels [1, 3] (needs h5py).
+    hierarchical CosFace over levels [1, 3] (read by the port's own HDF5
+    reader, hpcs_torch.utils.hdf5).
 
 Stages:
   torch: train one seed with hpcs_torch.trainer.fit on `--device` (cuda by
