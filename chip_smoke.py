@@ -37,12 +37,29 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    (atol 1e-4 / rtol 1e-3 when run from the kernel's stage-1 output; within
    1e-4 + 1e-3 max|output| in full, see forward_diff) and with the plain
    forward on the CPU on a small input, and times both;
-5. holds B1's wide route (knn_wide_kernel, the shapes knn_kernel refuses:
-   k = 33 and 40, N = 4097 and 8192, D = 128) against knn_plain, index for
-   index on the exact-score clouds and up to near-ties on a random one,
-   times it beside its bound, and checks that the forward's requests made
-   no wide launch; over half of the rows of two shapes it equals the whole
-   launch's rows, timed beside it;
+5. holds B1's wide route (knn_wide_kernel, row tiles with a streamed
+   selection, for the shapes knn_kernel refuses: k = 33 and 40, N = 4097
+   and 8192, D = 128) against knn_plain, index for index on the
+   exact-score clouds and up to near-ties on a random one, on bf16 index
+   for index its route on x.float(); times it in fp32 and bf16 beside its
+   bound, knn_plain and torch.topk(pairwise_neg_sqdist(x), k), with its
+   launch geometry (hpcs_knn_wide_geometry) and its selection work per
+   row (merges of 32, single insertions); holds
+   one cloud of N = 65,536 (D = 3 and 63) on three ranges of rows; times
+   B1 at N = 4096 beside the wide route at 4097 (per score pair); holds
+   and times the one-row kernel at k = 300 (k > 256); over half of the rows
+   of three shapes it equals the whole launch's rows, timed beside it
+   (knn_wide_phase; alone: python3 scripts/chip_phase.py knn_wide); and
+   checks that the forward's requests made no wide launch;
+5b. serves the flagship where B1 does not reach (phase long_cloud; alone:
+   python3 scripts/chip_phase.py long_cloud): 3 requests of 4 synthetic
+   clouds of N = 8192 (k = 20) and 2 in bf16, 3 of 16 clouds of 1024 at
+   k = 40, each request 3 wide launches and 3 B2 launches, its graphs
+   against knn_plain and its output against the plain forward on the card
+   on those graphs (as step 4 holds the main path; bf16 as step 10), and
+   `python -m hpcs_torch.train --dataset synthetic --fixed_points 8192` at
+   the flagship's k and widths, B = 4, 1 epoch (16 steps, 4 validation and
+   4 test batches), its launches counted;
 6. answers the same requests with HypHCSystem.test_step (so3 rotation from
    a seeded generator, labels from the synthetic parts): counts the
    kernels' launches, checks the card's distance matrices against the CPU
@@ -208,7 +225,8 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    score equal the single-process decode of its embeddings; (d) the
    point-sharded eval forward at B=2, N=4096 over the 2 ranks against the
    unsharded forward (atol 1e-4 / rtol 1e-3), timed beside it, B1 and B2
-   over each rank's rows of the gathered cloud only, and the
+   over each rank's rows of the gathered cloud only, the same at the long
+   cloud's B=4, N=8192 (the wide route over each rank's rows), and the
    point-sharded training step at B=2, N=256 against the unsharded step:
    in fp32 the loss within rtol 2e-5 and the ranks equal, in float64
    (knn_plain's graphs) logs and gradients within testing.FLOAT64_WITNESS
@@ -229,8 +247,9 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    the phase's B1 and B2 launches and row-range launches, which the
    kernels line counts;
 17. observes (phase observe): (a) `python -m hpcs_torch.train`'s main
-   with --profile at the flagship (B=8, N=1024, a ShapeNet-Part tree of 2
-   categories: 2 training steps, 1 validation and 1 test batch): one
+   with --profile, in a process of its own, at the flagship (B=8,
+   N=1024, a ShapeNet-Part tree of 2 categories: 2 training steps, 1
+   validation and 1 test batch): one
    trace file holding CUDA kernels and a span for every module of
    VNDGCNNPartSeg, for train_step, eval_step, test_step, embed, decode,
    optimizer.step, knn and edgeconv, every B1 kernel launched inside a
@@ -245,8 +264,9 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    ImportError before any launch; (d) `python -m
    hpcs_torch.check_invariance` at B=16, N=1024, 8 rotations, fp32 and
    bf16 (its verdict must be PASS), with each stage's graph agreement;
-18. prints one JSON line per kernel summary (with its row-range
-   launches), the card's name and power limit, and last {"ok": true,
+18. prints one JSON line of the kernels (each with its row-range
+   launches: B1, the wide route, B2, each on bf16 too, and the wide route's
+   one-row kernel), the card's name and power limit, and last {"ok": true,
    "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -407,12 +427,13 @@ def edgeconv_work(b, n, c, k, n_convs, cout=21, feature_bytes=4, rows=None):
     return ops, nbytes
 
 
-def knn_check(x, got, want, ties_exact):
+def knn_check(x, got, want, ties_exact, row0=0):
     """Equal indices, except entries whose two candidates' exact scores
     differ by at most 1e-6 * the row's max |score|, or by no more than the
     two scores' fp32 rounding can (the bound of a D-term sum; DGCNN's D = 64
-    features are positive and large, where that is the wider).  Returns
-    (near-tie entries, max |score difference| over mismatches)."""
+    features are positive and large, where that is the wider).  got and
+    want hold rows row0.. of x's clouds.  Returns (near-tie entries, max
+    |score difference| over mismatches)."""
     mism = got != want
     n_mis = int(mism.sum())
     if n_mis == 0:
@@ -421,7 +442,7 @@ def knn_check(x, got, want, ties_exact):
         fail(f"knn: {n_mis} indices differ on the tie cloud")
     b, i, _ = mism.nonzero(as_tuple=True)
     xd = x.double()
-    xi = xd[b, i]
+    xi = xd[b, i + row0]
 
     def score(j):
         xj = xd[b, j.long()]
@@ -516,12 +537,13 @@ BACKBONE_TRAIN_TIMED = 3
 
 def backbone_system(fields, **train_fields):
     """A system on the card at full width (50 classes, 16 categories, hyp
-    32, k 20), random weights and BatchNorm statistics from SEED."""
+    32, k 20 unless `fields` says), random weights and BatchNorm statistics
+    from SEED."""
     from hpcs_torch.models import HypHCSystem, ModelConfig
 
     gen = torch.Generator().manual_seed(SEED)
-    cfg = ModelConfig(num_class=50, num_categories=CATEGORIES, hyp_dim=HYP, k=K, **fields,
-                      **train_fields)
+    cfg = ModelConfig(**{"num_class": 50, "num_categories": CATEGORIES, "hyp_dim": HYP, "k": K,
+                         **fields, **train_fields})
     system = HypHCSystem(cfg, generator=gen)
     randomize_bn(system.net, gen)
     return system
@@ -592,51 +614,63 @@ def flagship():
     return system, cfg, [data.batch(r * B, B) for r in range(REQUESTS)]
 
 
+def request_weights(system):
+    """The eval stages' weights (w12, w34, w5) of a VN-DGCNN system."""
+    from hpcs_torch.nn.backbones import vn_dgcnn
+
+    net = system.net.nn_feat
+    return ([t.detach() for t in vn_dgcnn.stage_weights(net.conv1, net.conv2)],
+            [t.detach() for t in vn_dgcnn.stage_weights(net.conv3, net.conv4)],
+            [t.detach() for t in vn_dgcnn.stage_weights(net.conv5)])
+
+
 def request_stages(system, points):
     """The eval forward's kNN graphs and EdgeConv stages for one request
-    (numpy points [B, N, 3]) through B1 and B2: the points on the card,
+    (numpy points [B, N, 3]) through the kernels: the points on the card,
     idx1, x0, x1, f1 (stage 2's kNN input), idx2, x2, f2, idx3 and the
     stages' weights (w12, w34, w5)."""
-    from hpcs_torch.nn.backbones import vn_dgcnn
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
 
-    net = system.net.nn_feat
-    w12 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv1, net.conv2)]
-    w34 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv3, net.conv4)]
-    w5 = [t.detach() for t in vn_dgcnn.stage_weights(net.conv5)]
+    k, (b, n) = system.cfg.k, points.shape[:2]
+    w12, w34, w5 = request_weights(system)
     with torch.no_grad():
         pts = torch.from_numpy(points).cuda().contiguous()
-        idx1 = KN.knn(pts, K)
+        idx1 = KN.knn(pts, k)
         x0 = pts[:, :, None, :].contiguous()
         x1 = E.edgeconv_infer(x0, idx1, *w12)
-        f1 = x1.reshape(B, N, -1).contiguous()
-        idx2 = KN.knn(f1, K)
+        f1 = x1.reshape(b, n, -1).contiguous()
+        idx2 = KN.knn(f1, k)
         x2 = E.edgeconv_infer(x1, idx2, *w34)
-        f2 = x2.reshape(B, N, -1).contiguous()
-        idx3 = KN.knn(f2, K)
+        f2 = x2.reshape(b, n, -1).contiguous()
+        idx3 = KN.knn(f2, k)
     return pts, idx1, x0, x1, f1, idx2, x2, f2, idx3, (w12, w34, w5)
 
 
 KNN_GEOMETRY = ("grid_x", "grid_y", "threads", "smem_bytes", "resident_blocks_per_sm",
                 "registers", "local_bytes", "tile_rows", "tile_columns", "padded_d",
                 "prep_blocks")
+WIDE_GEOMETRY = KNN_GEOMETRY + ("stages", "list_slots", "rowwise")
 
 
-def knn_geometry(b, n, d, k, rows=None):
+def knn_geometry(b, n, d, k, rows=None, wide=False):
     """knn_kernel's launch at (b, n, d, k) over `rows` rows (None: n), from
     knn.cu's hpcs_knn_geometry: grid, threads, dynamic shared bytes, resident
     blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
     and local (spill) bytes a thread, its tile, and the waves of blocks over
-    the card's SMs; knn_prep_kernel's blocks (of the same threads)."""
+    the card's SMs; knn_prep_kernel's blocks (of the same threads).  With
+    `wide`, the wide route's (hpcs_knn_wide_geometry), which adds the ring's
+    stages, a row list's slots and whether the one-row kernel takes it."""
     import ctypes
 
     from hpcs_torch.ops import _build
 
-    fn = _build.function("knn", "hpcs_knn_geometry", [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    out = (ctypes.c_int * len(KNN_GEOMETRY))()
-    _build.check(fn(b, n, d, k, n if rows is None else rows, out), "hpcs_knn_geometry")
-    g = dict(zip(KNN_GEOMETRY, out))
+    fields = WIDE_GEOMETRY if wide else KNN_GEOMETRY
+    symbol = "hpcs_knn_wide_geometry" if wide else "hpcs_knn_geometry"
+    fn = _build.function("knn", symbol, [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    out = (ctypes.c_int * len(fields))()
+    _build.check(fn(b, n, d, k, n if rows is None else rows, out), symbol)
+    g = dict(zip(fields, out))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g.update(sms=sms, blocks=g["grid_x"] * g["grid_y"],
              waves=g["grid_x"] * g["grid_y"] / (g["resident_blocks_per_sm"] * sms))
@@ -737,69 +771,359 @@ def knn_phase(card, rng=None):
     return RESULTS["knn"]
 
 
-def knn_wide_phase(KN, rng, card):
-    """B1's wide route at the shapes knn_kernel refuses, against knn_plain.
+# the wide route's seven timed shapes (shapes knn_kernel refuses)
+WIDE_SHAPES = [(B, 1024, 3, 33), (B, 1024, 3, 40), (4, 4097, 3, 20), (4, 4097, 63, 20),
+               (4, 8192, 3, 20), (4, 8192, 63, 20), (B, 1024, 128, 20)]
+# one cloud of 65,536 points, held against knn_plain on these rows
+WIDE_LONG = [(1, 65536, 3, 20), (1, 65536, 63, 20)]
+WIDE_LONG_ROWS = ((0, 512), (32668, 33180), (65024, 65536))
+WIDE_ROWWISE = (2, 1024, 3, 300)  # k > 256: knn_rowwise_kernel
 
-    Exact-score clouds (integer points each there twice, far apart or
-    adjacent; all-equal points; the line x_j = (j, 0, ...) where N <= 2048
-    keeps its scores exact) must match index for index; a Gaussian cloud
-    may differ at near-ties only.  Times the kernel on the Gaussian cloud.
+
+def knn_wide_phase(card, rng=None):
+    """B1's wide route (knn_wide_kernel: the shapes knn_kernel refuses)
+    against knn_plain.
+
+    At its seven timed shapes (WIDE_SHAPES): exact-score clouds (integer
+    points each there twice, far apart or adjacent; all-equal points; the
+    line x_j = (j, 0, ...) where N <= 2048 keeps its scores exact) must
+    match index for index, a Gaussian cloud (from `rng`, default numpy's
+    default_rng(SEED)) may differ at near-ties only, and each on bf16
+    features must equal the route on x.float(), index for index.  Times
+    the Gaussian cloud in fp32 and bf16 (CUDA events, prep and wrapper
+    included) beside the bound, knn_plain, the two-call composition
+    torch.topk(pairwise_neg_sqdist(x), k), the launch geometry and the
+    selection's merges of 32 and single insertions per row
+    (testing.knn_stream_work, its data-dependent work).  At N = 65,536 (WIDE_LONG) a Gaussian and an
+    integer cloud, whole, against knn_plain on WIDE_LONG_ROWS, each range
+    also launched alone; the cap's edge: B1 at (4, 4096, D, 20) beside the
+    wide route at (4, 4097, D, 20), per score pair; the one-row kernel at
+    WIDE_ROWWISE (k > 256); and half of the rows of three shapes, equal to
+    the whole launch's rows, timed beside it.  Emits the `knn_wide` line.
     """
-    shapes = [(B, 1024, 3, 33), (B, 1024, 3, 40), (4, 4097, 3, 20), (4, 4097, 63, 20),
-              (4, 8192, 3, 20), (4, 8192, 63, 20), (B, 1024, 128, 20)]
-    rows, gap = [], 0.0
-    for b, n, d, k in shapes:
+    from hpcs_torch.ops import knn as KN
+    from hpcs_torch.ops.knn import pairwise_neg_sqdist
+    from hpcs_torch.testing import knn_stream_work
+
+    rng = np.random.default_rng(SEED) if rng is None else rng
+
+    def lattice(b, n, d, adjacent):
         r = 2 if d > 3 else 8
+        half = rng.integers(-r, r + 1, size=(b, (n + 1) // 2, d)).astype(np.float32)
+        x = np.repeat(half, 2, axis=1) if adjacent else np.concatenate([half, half], 1)
+        return torch.from_numpy(np.ascontiguousarray(x[:, :n])).cuda()
 
-        def lattice(adjacent):
-            half = rng.integers(-r, r + 1, size=(b, (n + 1) // 2, d)).astype(np.float32)
-            x = np.repeat(half, 2, axis=1) if adjacent else np.concatenate([half, half], 1)
-            return torch.from_numpy(np.ascontiguousarray(x[:, :n])).cuda()
+    def gauss(b, n, d):
+        return torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32)).cuda()
 
-        clouds = {"ties": (lattice(False), True), "adjacent": (lattice(True), True),
+    def wide(x, k, rows=None, rowwise=0):
+        """KN.knn(x, k, rows), which must be one wide launch (of the one-row
+        kernel with rowwise)."""
+        before = KN.knn.launches, KN.knn.wide_launches, KN.knn.rowwise_launches
+        got = KN.knn(x, k, rows=rows)
+        torch.cuda.synchronize()
+        if (KN.knn.launches - before[0], KN.knn.wide_launches - before[1],
+                KN.knn.rowwise_launches - before[2]) != (1, 1, rowwise):
+            fail(f"knn_wide: {tuple(x.shape)}, k={k} did not make one wide launch")
+        return got
+
+    def same_bf16(x, k, rows=None, rowwise=0):
+        xb = x.bfloat16()
+        if not torch.equal(wide(xb, k, rows, rowwise),
+                           KN._knn_wide_cuda(xb.float(), k, rows=rows)):
+            fail(f"knn_wide: bf16 {tuple(x.shape)}, k={k}, rows {rows} differs from the "
+                 "route on x.float()")
+
+    shapes, gap = [], 0.0
+    for b, n, d, k in WIDE_SHAPES:
+        clouds = {"ties": (lattice(b, n, d, False), True),
+                  "adjacent": (lattice(b, n, d, True), True),
                   "equal": (torch.full((b, n, d), 0.5, device="cuda"), True),
-                  "gauss": (torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32))
-                            .cuda(), False)}
+                  "gauss": (gauss(b, n, d), False)}
         if n <= 2048:
             line = torch.zeros(b, n, d, device="cuda")
             line[:, :, 0] = torch.arange(n, device="cuda", dtype=torch.float32)
             clouds["line"] = (line, True)
         cases = {}
         for name, (x, exact) in clouds.items():
-            before = (KN.knn.launches, KN.knn.wide_launches)
-            got = KN.knn(x, k)
-            torch.cuda.synchronize()
-            if (KN.knn.launches - before[0], KN.knn.wide_launches - before[1]) != (1, 1):
-                fail(f"knn_wide: {(b, n, d, k)} did not make one wide launch")
-            near, err = knn_check(x, got, KN.knn_plain(x, k), exact)
+            near, err = knn_check(x, wide(x, k), KN.knn_plain(x, k), exact)
+            same_bf16(x, k)
             gap = max(gap, err)
-            cases[name] = dict(differing_near_ties=near, max_score_gap=err)
+            cases[name] = dict(differing_near_ties=near, max_score_gap=err, bf16_equal=True)
         x = clouds["gauss"][0]
-        ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 5)
-        plain = cuda_ms(lambda: KN.knn_plain(x, k), 2)
+        xb = x.bfloat16()
+        ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 10)
+        ms_bf16 = cuda_ms(lambda: KN._knn_wide_cuda(xb, k), 10)
         bound, by = bound_ms(*knn_work(b, n, d, k))
-        rows.append(dict(B=b, N=n, D=d, k=k, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         roofline_share=bound / ms, cases=cases))
-    # the wide route over half of each cloud's rows, index for index the
-    # whole launch's, timed beside it
+        shapes.append(dict(
+            B=b, N=n, D=d, k=k, ms=ms, ms_bf16=ms_bf16,
+            plain_ms=cuda_ms(lambda: KN.knn_plain(x, k), 2),
+            topk_ms=cuda_ms(lambda: torch.topk(pairwise_neg_sqdist(x), k), 2),
+            bound_ms=bound, bound_by=by, bf16_bound_ms=bound_ms(*knn_work(b, n, d, k, 2))[0],
+            roofline_share=bound / ms, geometry=knn_geometry(b, n, d, k, wide=True),
+            selection_work_per_row=dict(zip(("merges", "insertions"),
+                                            knn_stream_work(x, k, row_step=n // 16))),
+            cases=cases))
+
+    # N = 65,536: whole launches, held on row ranges (knn_plain's [rows, N] scores)
+    long = {}
+    for b, n, d, k in WIDE_LONG:
+        x, ties = gauss(b, n, d), lattice(b, n, d, False)
+        whole, whole_ties = wide(x, k), wide(ties, k)
+        checked = []
+        for rows in WIDE_LONG_ROWS:
+            got = wide(x, k, rows)
+            if not (torch.equal(got, whole[:, rows[0]:rows[1]])
+                    and torch.equal(wide(ties, k, rows), whole_ties[:, rows[0]:rows[1]])):
+                fail(f"knn_wide: rows {rows} of {(b, n, d, k)} differ from the whole launch's")
+            near, err = knn_check(x, got, KN.knn_plain(x, k, rows), False, row0=rows[0])
+            knn_check(ties, whole_ties[:, rows[0]:rows[1]], KN.knn_plain(ties, k, rows), True,
+                      row0=rows[0])
+            gap = max(gap, err)
+            checked.append(dict(rows=list(rows), differing_near_ties=near, max_score_gap=err))
+        same_bf16(x, k, WIDE_LONG_ROWS[1])
+        ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 3)
+        bound, by = bound_ms(*knn_work(b, n, d, k))
+        long[f"{b}x{n}x{d}_k{k}"] = dict(
+            ms=ms, ms_bf16=cuda_ms(lambda: KN._knn_wide_cuda(x.bfloat16(), k), 3), bound_ms=bound,
+            bound_by=by, roofline_share=bound / ms, geometry=knn_geometry(b, n, d, k, wide=True),
+            rows_checked=checked, bf16_equal_on_rows=list(WIDE_LONG_ROWS[1]))
+
+    # the cap's edge: B1 at N = 4096 beside the wide route at 4097, per score pair
+    edge = {}
+    for d in (3, 63):
+        x4096, x4097 = gauss(4, 4096, d), gauss(4, 4097, d)
+        b1 = cuda_ms(lambda: KN._knn_cuda(x4096, K), 10)
+        w = cuda_ms(lambda: KN._knn_wide_cuda(x4097, K), 10)
+        edge[f"d{d}"] = dict(b1_4096_ms=b1, wide_4097_ms=w,
+                             wide_per_pair_over_b1=(w / 4097 ** 2) / (b1 / 4096 ** 2))
+
+    # k > 256: the one-row kernel
+    b, n, d, k = WIDE_ROWWISE
+    x = gauss(b, n, d)
+    rowwise_before = KN.knn.rowwise_launches
+    near, err = knn_check(x, wide(x, k, rowwise=1), KN.knn_plain(x, k), False)
+    gap = max(gap, err)
+    same_bf16(x, k, rowwise=1)
+    ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 3)
+    bound, by = bound_ms(*knn_work(b, n, d, k))
+    rowwise = dict(B=b, N=n, D=d, k=k, ms=ms, plain_ms=cuda_ms(lambda: KN.knn_plain(x, k), 2),
+                   topk_ms=cuda_ms(lambda: torch.topk(pairwise_neg_sqdist(x), k), 2),
+                   bound_ms=bound, bound_by=by, roofline_share=bound / ms,
+                   differing_near_ties=near, max_score_gap=err,
+                   geometry=knn_geometry(b, n, d, k, wide=True))
+    # (timed launches included: the kernels line counts the others)
+    rowwise["launches_in_phase"] = KN.knn.rowwise_launches - rowwise_before
+
+    # half of each cloud's rows, index for index the whole launch's, timed beside it
     halves = {}
-    for b, n, d, k in ((4, 8192, 63, 20), (B, 1024, 128, 20)):
-        x = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32)).cuda()
+    for b, n, d, k in ((4, 8192, 3, 20), (4, 8192, 63, 20), (B, 1024, 128, 20)):
+        x = gauss(b, n, d)
         whole = KN._knn_wide_cuda(x, k)
         for half in ((0, n // 2), (n // 2, n)):
             if not torch.equal(KN._knn_wide_cuda(x, k, rows=half), whole[:, half[0]:half[1]]):
                 fail(f"knn_wide: rows {half} of {(b, n, d, k)} differ from the whole launch's")
-        ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k, rows=(n // 2, n)), 5)
+        ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k, rows=(n // 2, n)), 10)
         bound, by = bound_ms(*knn_work(b, n, d, k, rows=n - n // 2))
         halves[f"{b}x{n}x{d}_k{k}"] = dict(rows=[n // 2, n], equal_to_whole=True, ms=ms,
-                                          whole_ms=cuda_ms(lambda: KN._knn_wide_cuda(x, k), 5),
+                                          whole_ms=cuda_ms(lambda: KN._knn_wide_cuda(x, k), 10),
                                           bound_ms=bound, bound_by=by)
-    out = dict(shapes=rows, half_cloud=halves, max_score_gap=gap, ms=sum(r["ms"] for r in rows),
-               plain_ms=sum(r["plain_ms"] for r in rows),
-               bound_ms=sum(r["bound_ms"] for r in rows), card=card)
-    out["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in rows)
+    out = dict(shapes=shapes, long=long, edge_4096_4097=edge, rowwise=rowwise,
+               half_cloud=halves, max_score_gap=gap, ms=sum(r["ms"] for r in shapes),
+               ms_bf16=sum(r["ms_bf16"] for r in shapes),
+               plain_ms=sum(r["plain_ms"] for r in shapes),
+               topk_ms=sum(r["topk_ms"] for r in shapes),
+               bound_ms=sum(r["bound_ms"] for r in shapes),
+               bf16_bound_ms=sum(r["bf16_bound_ms"] for r in shapes), card=card)
+    out["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in shapes)
                        else "bytes")
     emit("knn_wide", **out)
+    return out
+
+
+LONG_B, LONG_N = 4, 8192  # the long cloud: the flagship served at N = 8192
+LONG_REQUESTS = 3  # requests at N = 8192 (and at k = 40): 1 warm-up + 2 timed
+LONG_K = 40
+# `python -m hpcs_torch.train` on cli.py's synthetic splits (64 / 16 / 16
+# objects) at N = 8192, the flagship's k and widths, batches of 4 (at 16 the
+# hyperbolic loss's 6.5 M triplets of 32 wide do not fit the card's 80 GB):
+# 16 training steps, 4 validation and 4 test batches
+LONG_TRAIN_B = 4
+LONG_TRAIN_FLAGS = ["--dataset", "synthetic", "--fixed_points", str(LONG_N), "--k", str(K),
+                    "--eucl_embedding", str(EUCL), "--hyp_embedding", str(HYP), "--batch",
+                    str(LONG_TRAIN_B), "--epochs", "1", "--log", "logs"]
+
+
+def _served_and_held(system, batches, bf16=False):
+    """The requests through HypHCSystem.embed, counted (_counts) and timed,
+    every output of the expected shape, finite and inside the ball; then
+    request 0 held: its three graphs (recorded) against knn_plain up to
+    near-ties (knn_check), and its output against the plain forward on the
+    card on those graphs, as the forward phase holds it (from the kernels'
+    stage-1 output elementwise, atol 1e-4 / rtol 1e-3; in full within 1e-4 +
+    1e-3 max |ref|), or in bf16 within BF16_FORWARD_SHARE of the output's
+    largest entry (the bf16 phase's rule).  Request 0 is the warm-up: the
+    median ms is the others'."""
+    from hpcs_torch.models import decode_vector_for_batch
+    from hpcs_torch.nn.backbones import vn_dgcnn
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.ops import knn as KN
+
+    k, (b, n) = system.cfg.k, batches[0]["points"].shape[:2]
+    dvs = [decode_vector_for_batch(system.cfg, bt) for bt in batches]
+    outputs, ms = [], []
+    with torch.no_grad():
+        _counts(reset=True)
+        for r, (bt, dv) in enumerate(zip(batches, dvs)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if r == 0:  # the warm-up request, its graphs recorded
+                with recorded_knn() as pairs:
+                    outputs.append(system.embed(bt["points"], dv))
+            else:
+                outputs.append(system.embed(bt["points"], dv))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        launches = _counts()
+        for x_e, x_p in outputs:
+            if x_e.shape != (b, n, system.cfg.eucl_dim) or x_p.shape != (b, n, HYP):
+                fail(f"long_cloud: output shapes {tuple(x_e.shape)}, {tuple(x_p.shape)}")
+            if not (torch.isfinite(x_e).all() and torch.isfinite(x_p).all()
+                    and (x_p.float().norm(dim=-1) < 1).all()):
+                fail("long_cloud: non-finite embeddings or outside the unit ball")
+        near = gap = 0
+        for x, idx in pairs:
+            m, err = knn_check(x, idx, KN.knn_plain(x, k), False)
+            near, gap = near + m, max(gap, err)
+        graphs = tuple(idx for _, idx in pairs)
+        if bf16:
+            stage1 = None
+        else:
+            stage1 = E.edgeconv_infer(pairs[0][0][:, :, None, :].contiguous(), graphs[0],
+                                      *request_weights(system)[0])
+
+        def after_stage1(x, idx, *w, n_convs=2):
+            return stage1 if x.shape[2] == 1 else E.edgeconv_infer_plain(x, idx, *w,
+                                                                         n_convs=n_convs)
+
+        try:
+            vn_dgcnn.knn, vn_dgcnn.edgeconv_infer = KN.knn_plain, E.edgeconv_infer_plain
+            ref_full = system.embed(batches[0]["points"], dvs[0], idx_override=graphs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            system.embed(batches[0]["points"], dvs[0])
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            if not bf16:
+                vn_dgcnn.edgeconv_infer = after_stage1
+                ref_after1 = system.embed(batches[0]["points"], dvs[0], idx_override=graphs)
+        finally:
+            vn_dgcnn.knn, vn_dgcnn.edgeconv_infer = KN.knn, E.edgeconv_infer
+    out = dict(B=b, N=n, k=k, requests=len(batches), launches=launches, forward_ms_all=ms,
+               forward_ms_median=float(np.median(ms[1:])), plain_forward_ms=plain_ms,
+               graph_entries_differing_at_near_ties=near, graph_max_score_gap=gap)
+    if bf16:
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(outputs[0], ref_full))
+        share = err / max(float(w.float().abs().max()) for w in ref_full)
+        if not share <= BF16_FORWARD_SHARE:
+            fail(f"long_cloud: the bf16 forward is {share:.3e} of its largest entry from the "
+                 "plain bf16 forward")
+        out.update(max_abs_err_vs_plain_gpu=err, max_abs_err_share_vs_plain_gpu=share)
+        return out
+    after1_err, after1_bad = forward_diff(outputs[0], ref_after1)
+    if after1_bad:
+        fail(f"long_cloud: the forward differs from the plain forward run from the kernels' "
+             f"stage-1 output: {after1_bad} outputs beyond atol 1e-4 / rtol 1e-3, max "
+             f"{after1_err:.3e}")
+    full_err, full_bad = forward_diff(outputs[0], ref_full, scale_tol=True)
+    out.update(max_abs_err_vs_plain_gpu_from_stage1=after1_err, max_abs_err_vs_plain_gpu=full_err,
+               outputs_beyond_elementwise_tol_vs_plain_gpu=full_bad)
+    return out
+
+
+def long_cloud_phase(card):
+    """The flagship served where B1 does not reach, through the wide route
+    (eucl = hyp = 32, 16 categories, 50 classes, random weights and
+    BatchNorm statistics from SEED; backbone_system): (a) LONG_REQUESTS
+    requests of LONG_B synthetic clouds of LONG_N = 8192 points (k = 20),
+    3 wide and 3 B2 launches each, and two in bf16 (3 wide and 3 B2
+    launches on bf16 each); (b) LONG_REQUESTS requests of the flagship's B = 16
+    clouds of N = 1024 at k = LONG_K = 40, 3 wide and 3 B2 (at K = 40)
+    launches each; each held by _served_and_held; the wide route's
+    selection work per row on the long cloud's stage inputs; (c)
+    `python -m hpcs_torch.train --dataset synthetic --fixed_points 8192`
+    (LONG_TRAIN_FLAGS) in a temporary working directory: 3 wide launches a
+    training step, a validation and a test batch, 3 B2 launches a
+    validation and a test batch.  The point-sharded forward at N = 8192 is
+    the parallel phase's.  Emits the `long_cloud` line; its `launches` sum
+    every run's (_counts)."""
+    import tempfile
+
+    from hpcs_torch import train
+    from hpcs_torch.data import SyntheticPartDataset
+    from hpcs_torch.testing import knn_stream_work
+
+    t0 = time.time()
+    long = [_synthetic(LONG_B, LONG_N, seed=7 + r) for r in range(LONG_REQUESTS)]
+    system = backbone_system(dict(eucl_dim=EUCL))
+    served = _served_and_held(system, long)
+    want = _launches(knn=3 * LONG_REQUESTS, edgeconv=3 * LONG_REQUESTS, wide=3 * LONG_REQUESTS)
+    if served["launches"] != want:
+        fail(f"long_cloud: N = {LONG_N} launched {served['launches']}, expected {want}")
+    stages = request_stages(system, long[0]["points"])
+    served["selection_work_per_row"] = {
+        name: dict(zip(("merges", "insertions"), knn_stream_work(x, K, row_step=LONG_N // 16)))
+        for name, x in (("points_d3", stages[0]), ("stage2_d63", stages[4]),
+                        ("stage3_d63", stages[7]))}
+    del stages, system
+
+    bf16_system = backbone_system(dict(eucl_dim=EUCL, bf16=True))
+    bf16 = _served_and_held(bf16_system, long[:2], bf16=True)
+    want = _launches(knn=6, edgeconv=6, wide=6, bf16=True)
+    if bf16["launches"] != want:
+        fail(f"long_cloud: bf16 at N = {LONG_N} launched {bf16['launches']}, expected {want}")
+    del bf16_system
+
+    data = SyntheticPartDataset(num_objects=B * LONG_REQUESTS, npoints=N,
+                                num_categories=CATEGORIES, seed=SEED)
+    wide_k = [dict(zip(("points", "category", "labels"), data.batch(r * B, B)))
+              for r in range(LONG_REQUESTS)]
+    k40 = _served_and_held(backbone_system(dict(eucl_dim=EUCL, k=LONG_K)), wide_k)
+    want = _launches(knn=3 * LONG_REQUESTS, edgeconv=3 * LONG_REQUESTS, wide=3 * LONG_REQUESTS)
+    if k40["launches"] != want:
+        fail(f"long_cloud: k = {LONG_K} launched {k40['launches']}, expected {want}")
+
+    cwd = os.getcwd()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        os.chdir(tmp.name)
+        _counts(reset=True)
+        t = time.perf_counter()
+        _, results = train.main(LONG_TRAIN_FLAGS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        train_launches = _counts()
+        with open(os.path.join("logs", "synthetic_vn_dgcnn_partseg", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    finally:
+        os.chdir(cwd)
+        tmp.cleanup()
+    steps, val, test = 64 // LONG_TRAIN_B, 16 // LONG_TRAIN_B, -(-16 // LONG_TRAIN_B)
+    want = _launches(knn=3 * (steps + val + test), edgeconv=3 * (val + test),
+                     wide=3 * (steps + val + test))
+    if train_launches != want:
+        fail(f"long_cloud: train --fixed_points {LONG_N} launched {train_launches}, "
+             f"expected {want}")
+    if not all(np.isfinite(v) for v in results.values() if isinstance(v, float)):
+        fail(f"long_cloud: train's test results are not finite: {results}")
+    runs = (served["launches"], bf16["launches"], k40["launches"], train_launches)
+    out = dict(long_cloud=served, long_cloud_bf16=bf16, k40=k40,
+               train=dict(flags=LONG_TRAIN_FLAGS, steps=steps, val_batches=val,
+                          test_batches=test, launches=train_launches, seconds=train_s,
+                          test_results=results, records=records),
+               launches={c: sum(r[c] for r in runs) for c in COUNTERS},
+               seconds=time.time() - t0, card=card)
+    emit("long_cloud", **out)
     return out
 
 
@@ -3003,10 +3327,11 @@ def _counts(reset=False):
     return out
 
 
-def _launches(knn=0, edgeconv=0, knn_rows=0, edgeconv_rows=0, bf16=False):
-    """A _counts dict: B1 and B2 launches, of which knn_rows and
-    edgeconv_rows over a row range, all on bf16 features with bf16."""
-    return {"knn": knn, "knn_wide": 0, "knn_bf16": knn if bf16 else 0, "knn_rows": knn_rows,
+def _launches(knn=0, edgeconv=0, knn_rows=0, edgeconv_rows=0, bf16=False, wide=0):
+    """A _counts dict: kNN and B2 launches, of which knn_rows and
+    edgeconv_rows over a row range and `wide` kNN launches on the wide
+    route, all on bf16 features with bf16."""
+    return {"knn": knn, "knn_wide": wide, "knn_bf16": knn if bf16 else 0, "knn_rows": knn_rows,
             "edgeconv": edgeconv, "edgeconv_bf16": edgeconv if bf16 else 0,
             "edgeconv_rows": edgeconv_rows}
 
@@ -3352,6 +3677,25 @@ def _parallel_gloo():
                unsharded_forward_ms=host_ms(lambda: system.embed(
                    long["points"], decode_vector_for_batch(system.cfg, long)), 5))
 
+    # (d) the same at the long-cloud phase's first request, B=4, N=8192: the
+    # wide route over each rank's rows
+    longer = _synthetic(LONG_B, LONG_N, seed=7)
+    part = shard_points_batch(points_mesh, longer)
+    dv = decode_vector_for_batch(system.cfg, part)
+    _counts(reset=True)
+    _, x_p = forward(part["points"], dv)
+    launches["point_forward_long"] = _counts()
+    gathered = collectives.gather_slots(x_p, 1)
+    _, want = system.embed(longer["points"], decode_vector_for_batch(system.cfg, longer))
+    err = (gathered - want).abs()
+    if not bool((err <= 1e-4 + 1e-3 * want.abs()).all()):
+        fail(f"parallel: the point-sharded forward at N = {LONG_N} is {float(err.max()):.3e} "
+             "from the unsharded")
+    out.update(point_forward_long_max_abs_err=float(err.max()),
+               point_forward_long_ms=host_ms(lambda: forward(part["points"], dv), 3),
+               unsharded_forward_long_ms=host_ms(lambda: system.embed(
+                   longer["points"], decode_vector_for_batch(system.cfg, longer)), 3))
+
     # (d) the point-sharded training step, B=2, N=256 (one generator seed on
     # every rank): in fp32 its loss against the unsharded step's and its
     # ranks equal; in float64 (dropout 0, no rotation, knn_plain's graphs:
@@ -3420,13 +3764,17 @@ def parallel_phase(card):
         list(r["launches"].values())
         + [c for cfg in r["configurations"].values() for c in cfg["launches"].values()])]
     launches = {k: sum(run[k] for run in runs) for k in COUNTERS}
-    # row-range launches by route (a run is all bf16 or all fp32)
+    # row-range launches by route (a run is all bf16 or all fp32, and its
+    # kNN launches all B1's or all the wide route's)
     rows = {f"{kernel}{route}": sum(run[f"{kernel}_rows"] for run in runs
-                                    if bool(run[f"{kernel}_bf16"]) == (route == "_bf16"))
+                                    if bool(run[f"{kernel}_bf16"]) == (route == "_bf16")
+                                    and not (kernel == "knn" and run["knn_wide"]))
             for kernel in ("knn", "edgeconv") for route in ("", "_bf16")}
+    rows["knn_wide"] = sum(run["knn_rows"] for run in runs if run["knn_wide"])
     want = {"train": _launches(knn=3 * (PAR_WARMUP + PAR_TIMED)),
             "test_step": _launches(knn=3, edgeconv=3),
-            "point_forward": _launches(3, 3, 3, 3), "point_train": _launches(3, 0, 3, 0)}
+            "point_forward": _launches(3, 3, 3, 3), "point_train": _launches(3, 0, 3, 0),
+            "point_forward_long": _launches(3, 3, 3, 3, wide=3)}
     if any(r["launches"] != want for r in two) or one["launches"] != want["train"]:
         fail(f"parallel: launch counts {[r['launches'] for r in two]} (ranks), "
              f"{one['launches']} (world size 1), expected {want} a rank")
@@ -3450,6 +3798,11 @@ def parallel_phase(card):
                point_forward_ms={"sharded_2_ranks": r0["point_forward_ms"],
                                  "unsharded": r0["unsharded_forward_ms"], "B": 2,
                                  "N": PAR_LONG_N},
+               point_forward_long_ms={"sharded_2_ranks": r0["point_forward_long_ms"],
+                                      "unsharded": r0["unsharded_forward_long_ms"],
+                                      "B": LONG_B, "N": LONG_N},
+               point_forward_long_max_abs_err=max(r["point_forward_long_max_abs_err"]
+                                                  for r in two),
                point_configurations=configurations,
                world_size_1=one, ranks=two, refused_beyond_visible=refused,
                rule=f"world size 1: every entry within {FACTOR} S, S the largest entry by "
@@ -3485,6 +3838,24 @@ def _launch_counts(reset=False):
         KN.knn.launches = KN.knn.wide_launches = KN.knn.bf16_launches = 0
         E.edgeconv_infer.launches = E.edgeconv_infer.bf16_launches = 0
     return out
+
+
+def _counted_in_child(module, argv, timeout=900):
+    """B1 and B2 launches (`_launch_counts`) of `module`.main(argv) run in a
+    Python process of its own, as `python -m module` runs for a user.  A
+    trace taken late in a process that has traced before can lack the
+    kernel records of its first launches (PERF.md §7): observe's trace is a
+    fresh process's."""
+    code = ("import importlib, json, sys; sys.path.insert(0, sys.argv[1]); import torch; "
+            "import chip_smoke as cs; cs._launch_counts(reset=True); "
+            "importlib.import_module(sys.argv[2]).main(sys.argv[3:]); torch.cuda.synchronize(); "
+            "print(json.dumps(cs._launch_counts()))")
+    proc = subprocess.run([sys.executable, "-c", code, os.path.dirname(os.path.abspath(__file__)),
+                           module, *argv], capture_output=True, text=True, timeout=timeout)
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode:
+        fail(f"{module} {' '.join(argv)} exited with {proc.returncode}: {proc.stdout[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def _trace_events(path):
@@ -3568,7 +3939,8 @@ def _expect_raise(fn, words):
 
 def observe_phase(card):
     """--profile, --debug_nans, --plot_inference and the SO(3) probe on the
-    card: (a) train --profile at the flagship, (b) --debug_nans healthy and
+    card: (a) train --profile at the flagship in a process of its own (the
+    launches counted there), (b) --debug_nans healthy and
     on planted NaNs, (c) --plot_inference, (d) check_invariance."""
     import tempfile
 
@@ -3603,8 +3975,10 @@ def observe_phase(card):
         os.chdir("big")
         prof_dir = os.path.abspath("trace")
         t = time.perf_counter()
-        _, got = counted(train.main, flags + ["--profile", prof_dir])
+        got = _counted_in_child("hpcs_torch.train", flags + ["--profile", prof_dir])
         profile_run_s = time.perf_counter() - t
+        for k, v in got.items():
+            launches[k] += v
         want = {"knn": 3 * (2 + 1 + 1), "knn_bf16": 0, "knn_wide": 0, "edgeconv": 3 * 2,
                 "edgeconv_bf16": 0}
         if got != want:
@@ -3627,8 +4001,13 @@ def observe_phase(card):
         b2 = [around for name, _, around in kernels
               if "edge_kernel" in name or "edge_mean_kernel" in name]
         if len(b1) != want["knn"] or len(b2) != want["edgeconv"]:
+            calls = {e["args"]["correlation"] for e in events
+                     if e.get("cat", "").startswith("cuda_") and "aunch" in e["name"]}
+            records = {e.get("args", {}).get("correlation") for e in events
+                       if e.get("cat") == "kernel"}
             fail(f"observe: the trace holds {len(b1)} B1 and {len(b2)} B2 kernels, expected "
-                 f"{want['knn']} and {want['edgeconv']}")
+                 f"{want['knn']} and {want['edgeconv']}; {len(calls - records)} of its "
+                 f"{len(calls)} launches have no kernel record")
         if not all("knn" in a for a in b1) or not all("edgeconv" in a for a in b2):
             fail("observe: a B1 or B2 kernel was launched outside its span")
         steps = 2 + 1 + 1
@@ -4019,7 +4398,8 @@ def main():
     emit("profile", **profile, card=card)
 
     with torch.no_grad():
-        wide = knn_wide_phase(KN, rng, card)
+        wide = knn_wide_phase(card, rng)
+    long = long_cloud_phase(card)
     decode = decode_phase(system, cfg, batches, card)
     train = train_phase(card)
     entry = entry_phase(card)
@@ -4051,6 +4431,7 @@ def main():
     # 18. summary lines (row_launches: the launches over a row range, all
     # in the parallel phase's point-sharded runs)
     par_rows = par["row_launches"]
+    wide_bf16 = long["long_cloud_bf16"]["launches"]["knn_wide"]  # the only wide route on bf16
     knn_total_ms = knn_ms["d3"] + 2 * knn_ms["d63"]
     knn_plain_total = plain_ms["d3"] + 2 * plain_ms["d63"]
     knn_ops = w3[0] + 2 * w63[0]
@@ -4067,7 +4448,8 @@ def main():
              + backbones["launches"]["knn"] + imp["launches"]["knn"]
              + examples["launches"]["knn"] + notebooks["launches"]["knn"]
              + partnet["launches"]["knn"] + trained["launches_fp32"]["knn"]
-             + par["launches"]["knn"] - par["launches"]["knn_bf16"] + obs["launches"]["knn"],
+             + par["launches"]["knn"] - par["launches"]["knn_bf16"] - par["launches"]["knn_wide"]
+             + obs["launches"]["knn"],
              row_launches=par_rows["knn"],
              max_abs_err=knn_err, ms=knn_total_ms, plain_ms=knn_plain_total,
              bound_ms=bound_ms(knn_ops, knn_bytes)[0], bound_by=bound_ms(knn_ops, knn_bytes)[1],
@@ -4079,10 +4461,23 @@ def main():
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
              + imp["launches"]["knn_wide"] + examples["launches"]["knn_wide"]
              + notebooks["launches"]["knn_wide"] + partnet["launches"]["knn_wide"]
-             + trained["launches"]["knn_wide"]
-             + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"], row_launches=0,
+             + trained["launches"]["knn_wide"] + long["launches"]["knn_wide"] - wide_bf16
+             + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"],
+             row_launches=par_rows["knn_wide"],
              max_abs_err=wide["max_score_gap"], ms=wide["ms"], plain_ms=wide["plain_ms"],
              bound_ms=wide["bound_ms"], bound_by=wide["bound_by"], library_ms=None),
+        dict(name="knn_wide_bf16", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
+             replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49", launches=wide_bf16,
+             row_launches=0, max_abs_err=wide["max_score_gap"], ms=wide["ms_bf16"],
+             plain_ms=wide["plain_ms"], bound_ms=wide["bf16_bound_ms"],
+             bound_by=wide["bound_by"], library_ms=None),
+        dict(name="knn_rowwise", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
+             replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
+             launches=KN.knn.rowwise_launches - wide["rowwise"]["launches_in_phase"],
+             row_launches=0, max_abs_err=wide["rowwise"]["max_score_gap"],
+             ms=wide["rowwise"]["ms"], plain_ms=wide["rowwise"]["plain_ms"],
+             bound_ms=wide["rowwise"]["bound_ms"], bound_by=wide["rowwise"]["bound_by"],
+             library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
@@ -4092,6 +4487,7 @@ def main():
              + notebooks["launches"]["edgeconv"] + partnet["launches"]["edgeconv"]
              + trained["launches_fp32"]["edgeconv"]
              + par["launches"]["edgeconv"] - par["launches"]["edgeconv_bf16"]
+             + long["launches"]["edgeconv"] - long["launches"]["edgeconv_bf16"]
              + obs["launches"]["edgeconv"], row_launches=par_rows["edgeconv"],
              max_abs_err=ec_err,
              ms=sum(s["ms"] for s in ec_rows.values()),
@@ -4110,7 +4506,8 @@ def main():
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
              launches=bf16["launches_main_path"]["edgeconv_bf16"]
              + trained["launches"]["edgeconv_bf16"] + obs["launches"]["edgeconv_bf16"]
-             + par["launches"]["edgeconv_bf16"], row_launches=par_rows["edgeconv_bf16"],
+             + par["launches"]["edgeconv_bf16"] + long["launches"]["edgeconv_bf16"],
+             row_launches=par_rows["edgeconv_bf16"],
              max_abs_err=bf16["edgeconv_max_abs_err"], ms=bf16["edgeconv_ms_per_forward"],
              plain_ms=bf16["edgeconv_plain_ms_per_forward"],
              bound_ms=bf16["edgeconv_bound_ms_per_forward"], bound_by=bf16["edgeconv_bound_by"],

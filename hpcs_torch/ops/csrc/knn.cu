@@ -63,6 +63,10 @@
 // (the point-sharded forward's rows of the gathered cloud): the row tiles
 // then start at the range's first row, and each score and selection is the
 // whole launch's, bit for bit (a score's FMA chain is the same in any tile).
+//
+// The shapes knn_kernel refuses (k > 32, D > 64 or N > 4096) take the wide
+// route below: the same prep, then knn_wide_kernel, row tiles with a
+// streamed selection (or, for k > 256 only, knn_rowwise_kernel).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <algorithm>
@@ -75,7 +79,7 @@ namespace {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-constexpr int THREADS = 256;       // the wide route's block
+constexpr int THREADS = 256;       // knn_rowwise_kernel's block
 constexpr int WARPS = THREADS / 32;
 constexpr int PREP_THREADS = 128;  // knn_prep_kernel's block
 constexpr int PREP_POINTS = 32;    // and its points
@@ -619,9 +623,9 @@ knn_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int* __re
   }
 }
 
-// Lets knn_kernel<L> take up to MAX_SMEM of shared memory: once per
-// instantiation and device.
-template <class L>
+// Lets a kernel (knn_kernel<L>, knn_wide_kernel<L>) take up to MAX_SMEM of
+// shared memory: once per kernel and device.
+template <auto Kernel>
 cudaError_t allow_smem() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -629,7 +633,7 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(knn_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
@@ -691,7 +695,7 @@ int knn_entry(const T* x, int* idx, float* work, int b, int n, int d, int k, int
   if (err != cudaSuccess) return (int)err;
   return (int)with_tile(p.tile, [&](auto tile) {
     using L = decltype(tile);
-    cudaError_t e = allow_smem<L>();
+    cudaError_t e = allow_smem<knn_kernel<L>>();
     if (e != cudaSuccess) return e;
     const dim3 grid((rows + L::TR - 1) / L::TR, b);
     knn_kernel<L><<<grid, L::THREADS, p.smem, s>>>(xp, sq, idx, n, p.dx, k, row_begin, rows);
@@ -702,30 +706,364 @@ int knn_entry(const T* x, int* idx, float* work, int b, int n, int d, int k, int
 // ---------------------------------------------------------------------------
 // The wide route: the shapes knn_kernel refuses (k > 32, D > 64 or N > 4096).
 //
-// The same function as knn_kernel, with the TPU kernel's own selection kept
-// simple: one block of 256 threads per (cloud, row).  The block stages the
-// row in shared memory, scores all N columns into dynamic shared memory
-// (column j read from global memory, i.e. from L2, by thread j mod 256, the
-// score accumulated with fp32 FMAs in dimension order exactly as
-// knn_kernel does), then runs k passes of a block-wide first-argmax: each
-// pass takes the largest score, the smallest index among equal ones, and
-// marks the chosen column NaN so it never ranks again.  NaN scores never
-// rank; a slot no score reached reports -1.  Any D and any k <= N; N + D
-// floats must fit in WIDE_SMEM_BYTES.
+// knn_wide_kernel<L> computes knn_kernel's function, on the same prep and
+// with the same score FMA chains (so the same scores, bit for bit), for any
+// N and D and k <= WIDE_MAX_K, and keeps nothing of size N per row:
+// * Row tiles.  A block takes TR query rows (a Tile<...>, as knn_kernel)
+//   and streams the cloud past them in tiles of TC columns, each cut into
+//   slices of DC dimensions that cp.async brings into a ring of STAGES
+//   buffers: the columns' [TC][DC] and the rows' [TR][DC] (so that D is
+//   unbounded), into knn_kernel's 4 x 8 register tile of FMAs.  The cloud
+//   is read from L2 once per TR rows, not once per row.
+// * A streamed selection.  Each row keeps its best 32 S so far (S = ceil(k
+//   / 32)), sorted, in shared memory; its k-th, T, is the threshold.  A
+//   tile's scores go to shared memory, [TR][TC]; each warp filters its
+//   rows' TC scores against T, one compare a score, and compacts the
+//   survivors by ballot (in column order).  While more than INSERT_MAX
+//   are left, the first 32 are merged in (merge_into: a bitonic sort
+//   across the warp, then a bitonic merge into each 32 of the list in
+//   turn) and the rest filtered again against the raised T; the last few
+//   go in one at a time (insert_one: a ballot finds the place, the list
+//   shifts), each checked against T first.  Until k columns are in, T is
+//   the empty slot (-inf, INT_MAX).  The ranking order (score descending,
+//   then index ascending) is total, so the result does not depend on the
+//   order of the tiles: a block starts at the column tile that holds its
+//   own rows, where a cloud stored near its neighbours has its nearest, so
+//   that T is tight from the first tile on and few later columns pass the
+//   filter.  NaN scores never rank; a slot no score reached reports -1.
+//   tests/test_torch_knn_stream.py replays the selection lane by lane
+//   (hpcs_torch.testing.knn_stream_select).
 //
-// What bounds it: nothing here is tuned.  The scores cost 2 B N^2 D FMAs as
-// in knn_kernel, but every block re-reads the whole cloud (B N^2 D floats
-// from L2 in all), and the selection reads the row's scores k times.
+// What bounds it: the score FMAs, 2 B R N D operations over R query rows,
+// as knn_kernel's, against 67 TFLOP/s; the cloud crosses from L2 to shared
+// memory (1 + TR / TC) R / TR times, B R N D (1 / TR + 1 / TC) 4 bytes
+// (2.4 GB at B = 4, N = 8192, D = 63), against some 5-6 TB/s.  At D <= 4
+// the scores cost little and the epilogue's stores and the filter are the
+// work.  Two blocks of 8 warps share an SM.
+//
+// k > WIDE_MAX_K (a row's list would not fit) goes to knn_rowwise_kernel,
+// the wide route's first design: one block of 256 threads per (cloud, row)
+// scores all N columns of the prep's copy into shared memory, then takes k
+// block-wide first-argmax passes, each marking its column NaN.  N + D
+// floats must fit in ROWWISE_SMEM_BYTES.  It is untuned: every block reads
+// the whole cloud, and the selection reads the row k times.
 
-constexpr int WIDE_SMEM_BYTES = 192 * 1024;
+constexpr int WIDE_MAX_K = 256;
+// a tile's survivors of a row up to which they go in one at a time: an
+// insertion costs S ballots and a shift, a merge of 32 some 26 steps of
+// shuffles (the sort and the merge)
+constexpr int INSERT_MAX = 8;
+constexpr int WIDE_MAX_N = 1 << 30;  // int32 indices, with room for a tile past the end
+constexpr int WIDE_MAX_D = 1 << 20;
+constexpr int ROWWISE_SMEM_BYTES = 192 * 1024;
 
-__host__ inline size_t wide_smem_bytes(int n, int d) {
+// knn_wide_kernel's shared memory for Tile L: the ring ([STAGES][TC + TR][S]:
+// columns, then rows), the tile's scores ([TR][SS], SS = TC + CTW: the
+// epilogue's RTW x CTW lanes hit 32 banks), the rows' lists ([TR][slots]
+// scores, then indices; slots = 32 S) and each warp's survivors' offsets
+// ([WARPS][TC] bytes).
+template <class L>
+struct Wide {
+  static constexpr int SS = L::TC + L::CTW;
+  static constexpr int RPW = L::TR / L::WARPS;  // rows a warp selects
+  static constexpr int STAGE = (L::TC + L::TR) * L::S;
+  static_assert(L::TR % L::WARPS == 0, "a warp selects whole rows");
+  static_assert(L::TC % 32 == 0 && L::TC <= 256, "a survivor's offset in the tile is a byte");
+  static_assert(L::TR * L::DC / 4 <= L::THREADS, "a slice of the rows is one copy a thread");
+  __host__ static size_t smem(int slots) {
+    return sizeof(float) * ((size_t)L::STAGES * STAGE + (size_t)L::TR * SS) +
+           (sizeof(float) + sizeof(int)) * (size_t)L::TR * slots + (size_t)L::WARPS * L::TC;
+  }
+};
+
+using WideTile0 = Tile<4, 4, 2, 4>;   // D <= 4: one slice a tile
+using WideTile1 = Tile<4, 16, 2, 3>;  // D > 4: 3 slices of 16 in flight
+using WideTile2 = Tile<4, 16, 2, 2>;  // D > 4, larger k: 2
+constexpr int WIDE_TILES = 3;
+
+template <class F>
+auto with_wide_tile(int t, F&& f) {
+  switch (t) {
+    case 0: return f(WideTile0{});
+    case 1: return f(WideTile1{});
+    default: return f(WideTile2{});
+  }
+}
+
+// Sorts the 32 (cs, ci) across the warp and merges them into a row's
+// sorted list (ls, li: `chunks` x 32 in shared memory), which keeps its
+// best: chunk q of the list against the carry (the chunk reversed against
+// the carry, lane by lane, splits the best 32 of the two from the worst 32,
+// both bitonic; a half-cleaner cascade sorts each), the best 32 stored,
+// the worst carried on to chunk q + 1 (past the last chunk they drop, and
+// are not sorted).  Out of line, as merge_chunk.
+__device__ __noinline__ void merge_into(float* ls, int* li, int chunks, float cs, int ci,
+                                        int lane) {
+  float s[1] = {cs};
+  int i[1] = {ci};
+  warp_sort<1>(s, i, lane);
+  cs = s[0];
+  ci = i[0];
+  for (int q = 0; q < chunks; ++q) {
+    float hs = ls[32 * q + lane];
+    int hi = li[32 * q + lane];
+    const float rs = __shfl_sync(FULL, cs, 31 - lane);
+    const int ri = __shfl_sync(FULL, ci, 31 - lane);
+    const bool take = above(rs, ri, hs, hi);
+    cs = take ? hs : rs;  // the worse of the pair
+    ci = take ? hi : ri;
+    hs = take ? rs : hs;  // the better
+    hi = take ? ri : hi;
+    const bool carried = q + 1 < chunks;  // the last chunk's worst 32 drop out unsorted
+#pragma unroll
+    for (int stride = 16; stride > 0; stride /= 2) {
+      const bool low = (lane & stride) == 0;  // the lower lane of a pair keeps the better
+      const float os = __shfl_xor_sync(FULL, hs, stride);
+      const int oi = __shfl_xor_sync(FULL, hi, stride);
+      if (low ? above(os, oi, hs, hi) : above(hs, hi, os, oi)) {
+        hs = os;
+        hi = oi;
+      }
+      if (carried) {
+        const float ws = __shfl_xor_sync(FULL, cs, stride);
+        const int wi = __shfl_xor_sync(FULL, ci, stride);
+        if (low ? above(ws, wi, cs, ci) : above(cs, ci, ws, wi)) {
+          cs = ws;
+          ci = wi;
+        }
+      }
+    }
+    ls[32 * q + lane] = hs;
+    li[32 * q + lane] = hi;
+  }
+  __syncwarp();
+}
+
+// Inserts (v, c), which ranks above the list's k-th, into a row's sorted
+// list (ls, li: `chunks` x 32 in shared memory): its place p is the count
+// of entries above it (a ballot a chunk), and the entries from p on move
+// down one slot, the chunks from the last, the last slot dropping.
+__device__ __noinline__ void insert_one(float* ls, int* li, int chunks, float v, int c,
+                                        int lane) {
+  int p = 0;
+  for (int q = 0; q < chunks; ++q)
+    p += __popc(__ballot_sync(FULL, above(ls[32 * q + lane], li[32 * q + lane], v, c)));
+  for (int q = chunks - 1; q >= p / 32; --q) {
+    const int pos = 32 * q + lane;
+    const float ps = pos > 0 ? ls[pos - 1] : 0.f;  // (chunk q - 1 is not moved yet)
+    const int pi = pos > 0 ? li[pos - 1] : 0;
+    __syncwarp();
+    if (pos >= p) {
+      ls[pos] = pos == p ? v : ps;
+      li[pos] = pos == p ? c : pi;
+    }
+    __syncwarp();
+  }
+}
+
+template <class L>
+__global__ void __launch_bounds__(L::THREADS, 2)
+knn_wide_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int* __restrict__ idx,
+                int n, int dx, int k, int row_begin, int rows) {
+  using W = Wide<L>;
+  constexpr int DC = L::DC, STAGES = L::STAGES, TR = L::TR, TC = L::TC, RPW = W::RPW;
+  extern __shared__ float4 smem4[];
+  const int slots = round_up(k, 32);
+  float* ring = reinterpret_cast<float*>(smem4);  // [STAGES][TC + TR][S]
+  float* scores = ring + STAGES * W::STAGE;       // [TR][SS]
+  float* ls = scores + TR * W::SS;                // [TR][slots], best first
+  int* li = reinterpret_cast<int*>(ls + TR * slots);
+  unsigned char* offs = reinterpret_cast<unsigned char*>(li + TR * slots);  // [WARPS][TC]
+
+  const int b = blockIdx.y;
+  const int row0 = row_begin + blockIdx.x * TR;
+  const int row_end = row_begin + rows;
+  const float* xb = xp + (size_t)b * n * dx;
+  const float* sqb = sq + (size_t)b * n;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rt = warp / 4 * L::RTW + lane / L::CTW;     // rows rt + RT i
+  const int ct = warp % 4 * L::CTW + lane % L::CTW;     // columns ct + CT j
+  const unsigned below_lane = (1u << lane) - 1u;
+
+  for (int q = tid; q < TR * slots; q += L::THREADS) {  // every list empty
+    ls[q] = -INFINITY;
+    li[q] = INT_MAX;
+  }
+  // column tile t of the sweep is the cloud's tile (t0 + t) mod ntiles
+  const int ntiles = (n + TC - 1) / TC;
+  const int t0 = (row0 / TC) % ntiles;
+  auto tile_c0 = [&](int t) { return (t0 + t) % ntiles * TC; };
+  // slice s of the sweep: column tile s / nslices, dimensions DC (s % nslices) ..
+  const int nslices = dx / DC;
+  const long long total = (long long)ntiles * nslices;
+  auto load_slice = [&](long long s) {
+    if (s < total) {
+      float* dst = ring + (int)(s % STAGES) * W::STAGE;
+      const int c0 = tile_c0((int)(s / nslices)), d0 = (int)(s % nslices) * DC;
+#pragma unroll
+      for (int m = 0; m < L::CHUNKS; ++m) {
+        const int q = tid + m * L::THREADS;
+        const int col = q / (DC / 4), part = q % (DC / 4);
+        const bool valid = c0 + col < n;
+        cp_async16(dst + col * L::S + part * 4,
+                   valid ? xb + (size_t)(c0 + col) * dx + d0 + part * 4 : xb, valid);
+      }
+      if (tid < TR * (DC / 4)) {
+        const int r = tid / (DC / 4), part = tid % (DC / 4);
+        const bool valid = row0 + r < row_end;
+        cp_async16(dst + (TC + r) * L::S + part * 4,
+                   valid ? xb + (size_t)(row0 + r) * dx + d0 + part * 4 : xb, valid);
+      }
+    }
+    cp_async_commit();  // (an empty group past the end keeps the count)
+  };
+  float acc[4][8], sqv[8], sqn[8];  // |x_j|^2 of this tile's and the next tile's columns
+  auto load_sq = [&](int c0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + ct + L::CT * j;
+      sqn[j] = c < n ? __ldg(sqb + c) : 0.f;
+    }
+  };
+
+  // a tile's selection: warp w takes rows w RPW .. w RPW + RPW - 1 of the tile
+  auto select = [&](int c0) {
+    unsigned char* off = offs + warp * TC;
+#pragma unroll 1
+    for (int r = 0; r < RPW; ++r) {
+      const int lr = warp * RPW + r;
+      if (row0 + lr >= row_end) break;
+      float* rs = ls + lr * slots;
+      int* ri = li + lr * slots;
+      const float ts = rs[k - 1];
+      const int ti = ri[k - 1];
+      const float* srow = scores + lr * W::SS;
+      unsigned bal[TC / 32];
+      int count = 0;
+#pragma unroll
+      for (int m = 0; m < TC / 32; ++m) {
+        const int c = c0 + 32 * m + lane;
+        const bool keep = (c < n) & above(srow[32 * m + lane], c, ts, ti);
+        bal[m] = __ballot_sync(FULL, keep);
+        count += __popc(bal[m]);
+      }
+      if (count == 0) continue;
+      // the survivors' offsets in the tile, in column order
+      int base = 0;
+#pragma unroll
+      for (int m = 0; m < TC / 32; ++m) {
+        if (bal[m] >> lane & 1u) off[base + __popc(bal[m] & below_lane)] = 32 * m + lane;
+        base += __popc(bal[m]);
+      }
+      __syncwarp();
+      while (count > INSERT_MAX) {
+        // the first 32 merged; the rest filtered again against the raised
+        // T and compacted to the front (writes land below the reads)
+        merge_into(rs, ri, slots / 32, lane < count ? srow[off[lane]] : -INFINITY,
+                   lane < count ? c0 + off[lane] : INT_MAX, lane);
+        const float ts2 = rs[k - 1];
+        const int ti2 = ri[k - 1];
+        int kept = 0;
+        for (int g = 32; g < count; g += 32) {
+          const bool has = g + lane < count;
+          const int u = has ? off[g + lane] : 0;
+          const bool keep = has && above(srow[u], c0 + u, ts2, ti2);
+          const unsigned kb = __ballot_sync(FULL, keep);
+          if (keep) off[kept + __popc(kb & below_lane)] = u;
+          kept += __popc(kb);
+        }
+        __syncwarp();
+        count = kept;
+      }
+      for (int j = 0; j < count; ++j) {  // a few: one at a time, each against T
+        const int u = off[j];
+        if (above(srow[u], c0 + u, rs[k - 1], ri[k - 1]))
+          insert_one(rs, ri, slots / 32, srow[u], c0 + u, lane);
+      }
+      __syncwarp();  // off is the next row's
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_slice(s);
+  load_sq(tile_c0(0));
+  int tile = 0, slice = 0;
+  for (long long s = 0; s < total; ++s) {
+    cp_async_wait<STAGES - 2>();  // slice s has landed
+    __syncthreads();              // for every thread; and slice s - 1 is consumed
+    load_slice(s + STAGES - 1);   // into slice s - 1's buffer
+    if (slice == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sqv[j] = sqn[j];
+      if (tile + 1 < ntiles) load_sq(tile_c0(tile + 1));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    const float* st = ring + (int)(s % STAGES) * W::STAGE;
+#pragma unroll
+    for (int q = 0; q < DC / 4; ++q) {
+      float4 a[4], v[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(st + (TC + rt + L::RT * i) * L::S + 4 * q);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = *reinterpret_cast<const float4*>(st + (ct + L::CT * j) * L::S + 4 * q);
+      // 4 dimensions of the 4 x 8 sums, each sum's chain in dimension order
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].x, v[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].y, v[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].z, v[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].w, v[j].w, acc[i][j]);
+    }
+    if (++slice == nslices) {
+      // the tile's scores, 2 x_i.x_j - |x_j|^2, then its selection (the
+      // next tile's epilogue is past the next iteration's barrier)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          scores[(rt + L::RT * i) * W::SS + ct + L::CT * j] =
+              __fsub_rn(__fmul_rn(2.f, acc[i][j]), sqv[j]);
+      __syncthreads();
+      select(tile_c0(tile));
+      slice = 0;
+      ++tile;
+    }
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+  // lane q < k of row r: the q-th best (rows of this warp only: its lists)
+#pragma unroll 1
+  for (int r = 0; r < RPW; ++r) {
+    const int row = row0 + warp * RPW + r;
+    if (row >= row_end) break;
+    const int* ri = li + (warp * RPW + r) * slots;
+    int* out = idx + ((size_t)b * rows + row - row_begin) * k;
+    for (int q = lane; q < k; q += 32) out[q] = ri[q] < n ? ri[q] : -1;
+  }
+}
+
+__host__ inline size_t rowwise_smem_bytes(int n, int d) {
   return sizeof(float) * ((size_t)n + d) + (sizeof(float) + sizeof(int)) * WARPS;
 }
 
 __global__ void __launch_bounds__(THREADS)
-knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d, int k,
-                int row_begin, int rows) {
+knn_rowwise_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
+                   int* __restrict__ idx, int n, int d, int dx, int k, int row_begin, int rows) {
   extern __shared__ float4 smem4[];
   float* scores = reinterpret_cast<float*>(smem4);  // [n]
   float* xi = scores + n;                           // [d]
@@ -734,22 +1072,19 @@ knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d
 
   const int row = row_begin + blockIdx.x;
   const int b = blockIdx.y;
-  const float* xb = x + (size_t)b * n * d;
+  const float* xb = xp + (size_t)b * n * dx;
+  const float* sqb = sq + (size_t)b * n;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  for (int dd = tid; dd < d; dd += THREADS) xi[dd] = xb[(size_t)row * d + dd];
+  for (int dd = tid; dd < d; dd += THREADS) xi[dd] = xb[(size_t)row * dx + dd];
   __syncthreads();
   for (int j = tid; j < n; j += THREADS) {
-    const float* xj = xb + (size_t)j * d;
-    float acc = 0.f, sq = 0.f;
-    for (int dd = 0; dd < d; ++dd) {
-      const float v = xj[dd];
-      acc = fmaf(xi[dd], v, acc);
-      sq = fmaf(v, v, sq);
-    }
-    scores[j] = 2.f * acc - sq;
+    const float* xj = xb + (size_t)j * dx;
+    float acc = 0.f;
+    for (int dd = 0; dd < d; ++dd) acc = fmaf(xi[dd], xj[dd], acc);
+    scores[j] = __fsub_rn(__fmul_rn(2.f, acc), sqb[j]);
   }
   __syncthreads();
 
@@ -765,8 +1100,8 @@ knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d
       }
     }
     for (int off = 16; off > 0; off /= 2) {
-      const float os = __shfl_down_sync(0xffffffffu, bs, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+      const float os = __shfl_down_sync(FULL, bs, off);
+      const int oi = __shfl_down_sync(FULL, bi, off);
       if (os > bs || (os == bs && oi < bi)) {
         bs = os;
         bi = oi;
@@ -789,6 +1124,99 @@ knn_wide_kernel(const float* __restrict__ x, int* __restrict__ idx, int n, int d
     }
     __syncthreads();
   }
+}
+
+// The wide route's prep for D > MAX_D (knn_prep_kernel stages 64 values a
+// point): one warp a point, 32 values at a time, coalesced; |x_j|^2 the same
+// FMA chain in dimension order (each value broadcast by a shuffle).
+template <typename T>
+__global__ void __launch_bounds__(PREP_THREADS)
+knn_prep_wide_kernel(const T* __restrict__ x, float* __restrict__ xp, float* __restrict__ sq,
+                     int points, int d, int dx) {
+  const int p = blockIdx.x * (PREP_THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (p >= points) return;
+  float s = 0.f;
+  for (int q0 = 0; q0 < dx; q0 += 32) {
+    const int q = q0 + lane;
+    const float v = q < d ? to_float(x[(size_t)p * d + q]) : 0.f;
+    if (q < dx) xp[(size_t)p * dx + q] = v;
+    const int m = min(32, d - q0);
+    for (int j = 0; j < m; ++j) {
+      const float u = __shfl_sync(FULL, v, j);
+      s = fmaf(u, u, s);
+    }
+  }
+  if (lane == 0) sq[p] = s;
+}
+
+// The wide launch plan: of the tiles for this D, the one whose blocks keep
+// the most rows resident on an SM by shared memory and threads (the first,
+// with more slices in flight, on a tie); the padded width dx (a multiple
+// of its DC), the list's slots (32 S) and the shared bytes.  tile -1: the
+// one-row kernel (k > WIDE_MAX_K), dx = round_up(d, 16).
+__host__ inline Plan wide_plan_of(int d, int k) {
+  Plan best{-1, round_up(d, 16), 0};
+  if (k > WIDE_MAX_K) return best;
+  int best_rows = 0;
+  for (int t = d <= 4 ? 0 : 1; t < (d <= 4 ? 1 : WIDE_TILES); ++t) {
+    with_wide_tile(t, [&](auto tile) {
+      using L = decltype(tile);
+      const size_t smem = Wide<L>::smem(round_up(k, 32));
+      if (smem > (size_t)MAX_SMEM) return 0;
+      const int blocks = std::min((int)(SM_SMEM / (smem + 1024)), SM_THREADS / L::THREADS);
+      if (blocks * L::TR > best_rows) {
+        best_rows = blocks * L::TR;
+        best = Plan{t, round_up(d, L::DC), smem};
+      }
+      return 0;
+    });
+  }
+  return best;
+}
+
+__host__ inline bool wide_in_domain(int b, int n, int d, int k) {
+  return b >= 1 && b <= 65535 && n >= 1 && n <= WIDE_MAX_N && (long long)b * n <= INT_MAX &&
+         d >= 1 && d <= WIDE_MAX_D && k >= 1 && k <= n &&
+         (k <= WIDE_MAX_K || rowwise_smem_bytes(n, d) <= (size_t)ROWWISE_SMEM_BYTES);
+}
+
+// The wide route on x [b, n, d] of element type T, for rows row_begin ..
+// row_begin + rows - 1; work holds n (round_up(d, 16) + 1) floats per cloud.
+template <typename T>
+int knn_wide_entry(const T* x, int* idx, float* work, int b, int n, int d, int k, int row_begin,
+                   int rows, void* stream) {
+  if (!wide_in_domain(b, n, d, k) || !valid_rows(n, row_begin, rows))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan p = wide_plan_of(d, k);
+  float* xp = work;
+  float* sq = work + (size_t)b * n * p.dx;
+  const int points = b * n;
+  if (d <= MAX_D)
+    knn_prep_kernel<T><<<(points + PREP_POINTS - 1) / PREP_POINTS, PREP_THREADS, 0, s>>>(
+        x, xp, sq, points, d, p.dx);
+  else
+    knn_prep_wide_kernel<T><<<(points + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32),
+                              PREP_THREADS, 0, s>>>(x, xp, sq, points, d, p.dx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (p.tile < 0) {
+    const size_t smem = rowwise_smem_bytes(n, d);
+    err = cudaFuncSetAttribute(knn_rowwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    knn_rowwise_kernel<<<dim3(rows, b), THREADS, smem, s>>>(xp, sq, idx, n, d, p.dx, k,
+                                                            row_begin, rows);
+    return (int)cudaGetLastError();
+  }
+  return (int)with_wide_tile(p.tile, [&](auto tile) {
+    using L = decltype(tile);
+    cudaError_t e = allow_smem<knn_wide_kernel<L>>();
+    if (e != cudaSuccess) return e;
+    const dim3 grid((rows + L::TR - 1) / L::TR, b);
+    knn_wide_kernel<L><<<grid, L::THREADS, p.smem, s>>>(xp, sq, idx, n, p.dx, k, row_begin, rows);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -819,7 +1247,7 @@ extern "C" int hpcs_knn_geometry(int b, int n, int d, int k, int rows, int* out)
   const Plan p = plan_of(n, d);
   return (int)with_tile(p.tile, [&](auto tile) {
     using L = decltype(tile);
-    cudaError_t err = allow_smem<L>();
+    cudaError_t err = allow_smem<knn_kernel<L>>();
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, knn_kernel<L>);
@@ -837,18 +1265,62 @@ extern "C" int hpcs_knn_geometry(int b, int n, int d, int k, int rows, int* out)
 }
 
 // The wide route: x [b, n, d] fp32 and idx [b, rows, k] int32, both
-// contiguous on the device, rows as hpcs_knn's; any d, any k <= n, n + d
-// floats within WIDE_SMEM_BYTES.  Returns the cudaError_t of the launch.
-extern "C" int hpcs_knn_wide(const float* x, int* idx, int b, int n, int d, int k,
+// contiguous on the device, work and rows as hpcs_knn's; any n <= 2^30 (b n
+// <= 2^31 - 1), d <= 2^20 and k <= n, and for k > 256 n + d floats within
+// ROWWISE_SMEM_BYTES.  Returns the cudaError_t of the launches.
+extern "C" int hpcs_knn_wide(const float* x, int* idx, float* work, int b, int n, int d, int k,
                              int row_begin, int rows, void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || d < 1 || k < 1 || k > n ||
-      !valid_rows(n, row_begin, rows) || wide_smem_bytes(n, d) > (size_t)WIDE_SMEM_BYTES)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = wide_smem_bytes(n, d);
-  cudaError_t err = cudaFuncSetAttribute(knn_wide_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  knn_wide_kernel<<<dim3(rows, b), THREADS, smem, s>>>(x, idx, n, d, k, row_begin, rows);
-  return (int)cudaGetLastError();
+  return knn_wide_entry(x, idx, work, b, n, d, k, row_begin, rows, stream);
+}
+
+// The same for x [b, n, d] bf16.
+extern "C" int hpcs_knn_wide_bf16(const __nv_bfloat16* x, int* idx, float* work, int b, int n,
+                                  int d, int k, int row_begin, int rows, void* stream) {
+  return knn_wide_entry(x, idx, work, b, n, d, k, row_begin, rows, stream);
+}
+
+// The launch geometry of hpcs_knn_wide at (b, n, d, k) over `rows` rows,
+// into out[14]: the kernel's grid x and y, threads, dynamic shared bytes,
+// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// registers, local (spill) bytes a thread, rows and columns of its tile,
+// the padded row width dx, the prep kernel's blocks, the ring's stages,
+// a row list's slots (32 S), and 1 for knn_rowwise_kernel (k > 256; its
+// tile one row by n columns, no ring, no list), else 0.  Returns a
+// cudaError_t.
+extern "C" int hpcs_knn_wide_geometry(int b, int n, int d, int k, int rows, int* out) {
+  if (!wide_in_domain(b, n, d, k) || !valid_rows(n, 0, rows)) return (int)cudaErrorInvalidValue;
+  const Plan p = wide_plan_of(d, k);
+  const int prep = d <= MAX_D ? (b * n + PREP_POINTS - 1) / PREP_POINTS
+                              : (b * n + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32);
+  cudaFuncAttributes attr;
+  int resident = 0;
+  cudaError_t err;
+  if (p.tile < 0) {
+    const size_t smem = rowwise_smem_bytes(n, d);
+    err = cudaFuncSetAttribute(knn_rowwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, knn_rowwise_kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, knn_rowwise_kernel, THREADS,
+                                                          smem);
+    if (err != cudaSuccess) return (int)err;
+    const int values[] = {rows, b, THREADS, (int)smem, resident, attr.numRegs,
+                          (int)attr.localSizeBytes, 1, n, p.dx, prep, 0, 0, 1};
+    for (int q = 0; q < 14; ++q) out[q] = values[q];
+    return cudaSuccess;
+  }
+  return (int)with_wide_tile(p.tile, [&](auto tile) {
+    using L = decltype(tile);
+    cudaError_t e = allow_smem<knn_wide_kernel<L>>();
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, knn_wide_kernel<L>);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, knn_wide_kernel<L>,
+                                                        L::THREADS, p.smem);
+    if (e != cudaSuccess) return e;
+    const int values[] = {(rows + L::TR - 1) / L::TR, b, L::THREADS, (int)p.smem, resident,
+                          attr.numRegs, (int)attr.localSizeBytes, L::TR, L::TC, p.dx, prep,
+                          L::STAGES, round_up(k, 32), 0};
+    for (int q = 0; q < 14; ++q) out[q] = values[q];
+    return cudaSuccess;
+  });
 }

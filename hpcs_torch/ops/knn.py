@@ -1,11 +1,13 @@
 """k-nearest-neighbour graphs and neighbour gathers.
 
 `knn` is the dispatching wrapper: a CPU tensor goes to `knn_plain`, a CUDA
-tensor to one of two hand-written kernels in `csrc/knn.cu`, chosen by shape:
-`knn_kernel` (kernel B1, after `knn_prep_kernel` has made its padded fp32
-copy of x and |x_j|^2 in scratch the wrapper allocates) for D <= 64, k <= 32
-and N <= 4096, and `knn_wide_kernel` for every other shape, up to N + D =
-WIDE_MAX_FLOATS.
+tensor to hand-written kernels in `csrc/knn.cu`, chosen by shape.  Both
+routes first run a prep kernel, which makes a padded fp32 copy of x and
+|x_j|^2 in scratch the wrapper allocates; then kernel B1, `knn_kernel`, for
+D <= 64, k <= 32 and N <= 4096, and the wide route for every other shape
+(N <= WIDE_MAX_N, D <= WIDE_MAX_D): `knn_wide_kernel`, row tiles with a
+streamed selection, for k <= WIDE_MAX_K, and `knn_rowwise_kernel`, one
+block per row, for larger k, up to N + D = ROWWISE_MAX_FLOATS.
 Each takes a range of query rows (`rows`), ranked against every point: the
 point-sharded forward's rows of the gathered cloud.  All rank by the exact
 fp32 score 2 x_i.x_j - |x_j|^2 (the row's own -|x_i|^2 cannot change the
@@ -13,10 +15,9 @@ order), include the point itself, return nearest first, and break ties
 toward the smallest index.
 
 x may be float32 or bfloat16.  bf16 features are ranked by their fp32
-values (bf16 to fp32 is exact), as the TPU kernel upcasts them: B1 reads
-bf16 in its prep kernel and converts each value on load, so its bf16 route
-is its fp32 route on x.float(), bit for bit; the wide route, which no
-configuration takes, gets x.float() from the wrapper.
+values (bf16 to fp32 is exact), as the TPU kernel upcasts them: the prep
+kernels read bf16 and convert each value on load, so each bf16 route is its
+fp32 route on x.float(), bit for bit.
 """
 import contextlib
 import ctypes
@@ -29,18 +30,25 @@ from . import _build
 MAX_D = 64
 MAX_K = 32
 MAX_N = 4096
-# the wide kernel keeps a row's N scores and the row's D values in shared memory
-WIDE_MAX_FLOATS = 192 * 1024 // 4 - 16
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_B1_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# B1's scratch at most (256 MiB); a larger batch goes through in groups of clouds
+# the wide route: int32 indices (with a tile's room past N), and a row's
+# list of its best ceil(k / 32) 32 in shared memory up to WIDE_MAX_K
+WIDE_MAX_N = 1 << 30
+WIDE_MAX_D = 1 << 20
+WIDE_MAX_K = 256
+# knn_rowwise_kernel (k > WIDE_MAX_K) keeps a row's N scores and D values in
+# shared memory
+ROWWISE_MAX_FLOATS = 192 * 1024 // 4 - 16
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the routes' scratch at most (256 MiB); a larger batch goes through in
+# groups of clouds
 WORK_FLOATS = 1 << 26
-_B1_ENTRIES = {}  # B1's C entry points, bound at first use
+_ENTRIES = {}  # the C entry points, bound at first use
 
 
 def _work_floats(n, d):
-    """B1's scratch per cloud, at least what hpcs_knn takes: the copy padded
-    to a width of D rounded up to 4, 8 or 16, and the squared norms."""
+    """The scratch per cloud, at least what hpcs_knn and hpcs_knn_wide
+    take: the copy padded to a width of D rounded up to 4, 8 or 16, and the
+    squared norms."""
     return n * (-(-d // 16) * 16 + 1)
 
 
@@ -83,35 +91,20 @@ def _check_input(x, what):
 
 
 def _launch(symbol, x, k, rows):
+    """idx [B, r1 - r0, k] from the C entry `symbol` (or its _bf16 twin) of
+    csrc/knn.cu, in groups of clouds whose scratch fits WORK_FLOATS, on
+    the current stream; counts the launch in knn.launches and, where they
+    apply, in row_launches and bf16_launches."""
     B, N, D = x.shape
     r0, r1 = _row_range(rows, N)
     idx = torch.empty((B, r1 - r0, k), dtype=torch.int32, device=x.device)
     if B == 0:
         return idx
-    fn = _build.function("knn", symbol, _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), idx.data_ptr(), B, N, D, k, r0, r1 - r0, _build.stream_of(x))
-    _build.check(err, symbol)
-    knn.launches += 1
-    if rows is not None:
-        knn.row_launches += 1
-    return idx
-
-
-def _knn_cuda(x, k, rows=None):
-    _check_input(x, "knn kernel")
-    B, N, D = x.shape
-    if not (1 <= D <= MAX_D and 1 <= k <= min(MAX_K, N) and N <= MAX_N):
-        raise ValueError(f"knn kernel takes D <= {MAX_D}, k <= {MAX_K}, k <= N <= "
-                         f"{MAX_N}; got D={D}, k={k}, N={N}")
-    r0, r1 = _row_range(rows, N)
-    idx = torch.empty((B, r1 - r0, k), dtype=torch.int32, device=x.device)
-    if B == 0:
-        return idx
-    symbol = "hpcs_knn_bf16" if x.dtype == torch.bfloat16 else "hpcs_knn"
-    fn = _B1_ENTRIES.get(symbol)
+    if x.dtype == torch.bfloat16:
+        symbol += "_bf16"
+    fn = _ENTRIES.get(symbol)
     if fn is None:
-        fn = _B1_ENTRIES[symbol] = _build.function("knn", symbol, _B1_ARGTYPES)
+        fn = _ENTRIES[symbol] = _build.function("knn", symbol, _ARGTYPES)
     per_cloud = _work_floats(N, D)
     group = max(1, min(B, WORK_FLOATS // per_cloud))
     work = torch.empty(group * per_cloud, dtype=torch.float32, device=x.device)
@@ -135,17 +128,31 @@ def _knn_cuda(x, k, rows=None):
     return idx
 
 
+def _knn_cuda(x, k, rows=None):
+    _check_input(x, "knn kernel")
+    B, N, D = x.shape
+    if not (1 <= D <= MAX_D and 1 <= k <= min(MAX_K, N) and N <= MAX_N):
+        raise ValueError(f"knn kernel takes D <= {MAX_D}, k <= {MAX_K}, k <= N <= "
+                         f"{MAX_N}; got D={D}, k={k}, N={N}")
+    return _launch("hpcs_knn", x, k, rows)
+
+
 def _knn_wide_cuda(x, k, rows=None):
     _check_input(x, "wide knn kernel")
-    x = x.float()  # the wide route reads fp32: bf16 features are upcast here
     B, N, D = x.shape
-    if not (D >= 1 and 1 <= k <= N and N + D <= WIDE_MAX_FLOATS):
-        raise ValueError(f"wide knn kernel keeps a row's N scores and D values in 192 KiB of "
-                         f"shared memory: it takes k <= N and N + D <= {WIDE_MAX_FLOATS}; "
-                         f"got D={D}, k={k}, N={N}")
+    if not (1 <= D <= WIDE_MAX_D and 1 <= k <= N <= WIDE_MAX_N):
+        raise ValueError(f"wide knn kernel takes k <= N <= {WIDE_MAX_N} and D <= "
+                         f"{WIDE_MAX_D}; got D={D}, k={k}, N={N}")
+    if k > WIDE_MAX_K and N + D > ROWWISE_MAX_FLOATS:
+        raise ValueError(f"wide knn kernel keeps a row's list of up to {WIDE_MAX_K}; beyond it "
+                         f"the one-row kernel keeps a row's N scores and D values in 192 KiB of "
+                         f"shared memory: for k > {WIDE_MAX_K} it takes N + D <= "
+                         f"{ROWWISE_MAX_FLOATS}; got D={D}, k={k}, N={N}")
     idx = _launch("hpcs_knn_wide", x, k, rows)
     if B:
         knn.wide_launches += 1
+        if k > WIDE_MAX_K:
+            knn.rowwise_launches += 1
     return idx
 
 
@@ -155,9 +162,10 @@ def knn(x, k, rows=None):
     included; global indices, equal to knn(x, k)[:, r0:r1].
 
     A CUDA tensor goes to kernel B1 where it takes the shape, else to the
-    wide kernel; both count in `knn.launches`, the wide one also in
-    `knn.wide_launches`, B1 on bf16 also in `knn.bf16_launches`, a launch
-    over a row range also in `knn.row_launches`.  The call is the span
+    wide route; both count in `knn.launches`, the wide route also in
+    `knn.wide_launches` (its one-row kernel, k > WIDE_MAX_K, also in
+    `knn.rowwise_launches`), a launch on bf16 also in `knn.bf16_launches`,
+    a launch over a row range also in `knn.row_launches`.  The call is the span
     `knn` (utils.profiling).  Under NaN debugging a CUDA call first checks
     its rows' scores: a NaN score leaves the selection undefined, and the
     kernel's indices cannot show it.
@@ -178,6 +186,7 @@ def knn(x, k, rows=None):
 
 knn.launches = 0
 knn.wide_launches = 0
+knn.rowwise_launches = 0
 knn.bf16_launches = 0
 knn.row_launches = 0
 

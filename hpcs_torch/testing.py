@@ -1,6 +1,7 @@
 """Checks of the port's kernels against their plain versions, of the
 card's training step and of the packed optimizer against the
-per-parameter one, the test data and probes of the entry points' checks,
+per-parameter one, a CPU replay of the wide kNN route's selection
+(`knn_stream_select`), the test data and probes of the entry points' checks,
 the fp32 / bf16 serving of a trained checkpoint (`fp32_bf16_quality`),
 writers of the JAX package's two checkpoint formats (`write_flax_checkpoint`,
 `write_orbax_checkpoint`), and of chunked, deflated HDF5 files
@@ -261,6 +262,143 @@ def knn_queue_insertions(x, k, row_step=1):
         ahead = ((sb[:, None, :] >= sb[:, :, None]) & earlier).sum(-1)  # [R, c]
         total += int(((ahead < k) & ~torch.isnan(sb)).sum())
     return total / (s.shape[0] * s.shape[1])
+
+
+_WARP = 32
+_LANES = np.arange(_WARP)
+_INT_MAX = 2 ** 31 - 1
+WIDE_TILE_ROWS, WIDE_TILE_COLUMNS = 32, 256  # knn_wide_kernel's row and column tiles
+
+
+def ranks_above(s, i, s2, i2):
+    """knn.cu's `above`: (s, i) ranks above (s2, i2), a higher score or an
+    equal score and a smaller index; false whenever s is NaN."""
+    return (s > s2) | ((s == s2) & (i < i2))
+
+
+def warp_sort(s, i):
+    """knn.cu's warp_sort: a bitonic network over the 32 lanes, best first."""
+    size = 2
+    while size <= _WARP:
+        stride = size // 2
+        while stride:
+            os_, oi = s[_LANES ^ stride], i[_LANES ^ stride]
+            keep_better = ((_LANES & size) == 0) == ((_LANES & stride) == 0)
+            take = np.where(keep_better, ranks_above(os_, oi, s, i), ranks_above(s, i, os_, oi))
+            s, i = np.where(take, os_, s), np.where(take, oi, i)
+            stride //= 2
+        size *= 2
+    return s, i
+
+
+def _half_clean(s, i):
+    """A half-cleaner cascade across the warp: a bitonic 32 sorted, best
+    first (the lower lane of each pair keeps the better)."""
+    stride = _WARP // 2
+    while stride:
+        os_, oi = s[_LANES ^ stride], i[_LANES ^ stride]
+        low = (_LANES & stride) == 0
+        take = np.where(low, ranks_above(os_, oi, s, i), ranks_above(s, i, os_, oi))
+        s, i = np.where(take, os_, s), np.where(take, oi, i)
+        stride //= 2
+    return s, i
+
+
+def _merge_into(ls, li, cs, ci):
+    """knn.cu's merge_into: the 32 (cs, ci) sorted across the warp, then
+    merged into the row's sorted list (ls, li: [chunks, 32], in place)
+    chunk by chunk: the carry reversed against the chunk splits the best 32
+    of the two from the worst 32; the best stay, the worst are carried on
+    (past the last chunk they drop)."""
+    cs, ci = warp_sort(cs, ci)
+    for q in range(ls.shape[0]):
+        rs, ri = cs[_WARP - 1 - _LANES], ci[_WARP - 1 - _LANES]
+        take = ranks_above(rs, ri, ls[q], li[q])
+        cs, ci = np.where(take, ls[q], rs), np.where(take, li[q], ri)
+        ls[q], li[q] = _half_clean(np.where(take, rs, ls[q]), np.where(take, ri, li[q]))
+        if q + 1 < ls.shape[0]:  # the last chunk's worst 32 drop out unsorted
+            cs, ci = _half_clean(cs, ci)
+
+
+def _insert_one(ls, li, v, c):
+    """knn.cu's insert_one: (v, c) into the sorted list (ls, li, in place)
+    at the count of entries above it, the entries from there moving down
+    one slot, the last dropping."""
+    fs, fi = ls.reshape(-1), li.reshape(-1)
+    p = int(np.count_nonzero(ranks_above(fs, fi, v, c)))
+    fs[p + 1:], fi[p + 1:] = fs[p:-1].copy(), fi[p:-1].copy()
+    fs[p], fi[p] = v, c
+
+
+WIDE_INSERT_MAX = 8  # knn.cu's INSERT_MAX
+
+
+def knn_stream_select(row, k, chunk=WIDE_TILE_COLUMNS, first=0):
+    """The wide route's streamed selection (knn_wide_kernel in knn.cu),
+    replayed lane by lane on one row of fp32 scores: (indices [k], -1 for a
+    slot no score reached; the merges of 32 and the single insertions it
+    made).
+
+    The row keeps its best 32 ceil(k / 32), sorted, empty slots (-inf,
+    INT_MAX) at first; T is its k-th.  The columns come in chunks of
+    `chunk`, starting at chunk `first` and wrapping around (the kernel's
+    column tiles, from its row tile's own); a chunk's columns that rank
+    above T are kept in column order (the ballot's compaction).  While more
+    than WIDE_INSERT_MAX are kept, the first 32 are sorted and merged into
+    the list (merge_into) and the rest filtered again against the raised
+    T; the last few go in one at a time (insert_one), each that still
+    ranks above T.
+    """
+    row = np.asarray(row, np.float32)
+    n = row.shape[0]
+    ls = np.full((-(-k // _WARP), _WARP), -np.inf, np.float32)
+    li = np.full(ls.shape, _INT_MAX, np.int64)
+    chunks, merges, insertions = -(-n // chunk), 0, 0
+
+    def above_t(cols):
+        return ranks_above(row[cols], cols, ls.flat[k - 1], li.flat[k - 1])
+
+    for t in range(chunks):
+        c0 = (first + t) % chunks * chunk
+        kept = np.arange(c0, min(n, c0 + chunk))
+        kept = kept[above_t(kept)]
+        while len(kept) > WIDE_INSERT_MAX:
+            group = kept[:_WARP]
+            cs = np.full(_WARP, -np.inf, np.float32)
+            ci = np.full(_WARP, _INT_MAX, np.int64)
+            cs[:len(group)], ci[:len(group)] = row[group], group
+            _merge_into(ls, li, cs, ci)
+            merges += 1
+            kept = kept[_WARP:][above_t(kept[_WARP:])]
+        for c in kept:
+            if above_t(np.array([c]))[0]:
+                _insert_one(ls, li, row[c], c)
+                insertions += 1
+    out = li.reshape(-1)[:k]
+    return np.where(out < n, out, -1), merges, insertions
+
+
+def wide_first_chunk(row, n, row_begin=0):
+    """The column tile at which knn_wide_kernel starts for query `row` of
+    a launch over rows row_begin.. of an n-point cloud: its row tile's."""
+    row0 = row_begin + (row - row_begin) // WIDE_TILE_ROWS * WIDE_TILE_ROWS
+    return row0 // WIDE_TILE_COLUMNS % -(-n // WIDE_TILE_COLUMNS)
+
+
+def knn_stream_work(x, k, row_step=1):
+    """Mean merges of 32 and single insertions per row of the wide route's
+    selection on x [B, N, D] (knn_stream_select from each row's own first
+    tile), over rows 0, row_step, 2 row_step, ... of each cloud: its
+    data-dependent work."""
+    n, merges, insertions, count = x.shape[1], 0, 0, 0
+    for b in range(x.shape[0]):
+        xb = x[b].float()
+        # knn_scores' arithmetic, on the sampled rows only
+        scores = 2.0 * (xb[::row_step] @ xb.T) - torch.sum(xb * xb, dim=-1)[None, :]
+        for i, s in zip(range(0, n, row_step), scores.cpu().numpy()):
+            _, m, ins = knn_stream_select(s, k, first=wide_first_chunk(i, n))
+            merges, insertions, count = merges + m, insertions + ins, count + 1
+    return merges / count, insertions / count
 
 
 NEAR_TIE = 1e-3  # |sim(a,p) - sim(a,n)| below which two fp32 'easy' masks may differ

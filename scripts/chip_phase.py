@@ -1,7 +1,11 @@
 """Run one phase of chip_smoke.py alone on one GPU, after building the
 kernels: `knn` (kernel B1 against knn_plain at the flagship: exactness,
-times, selection work, launch geometry, half clouds), `observe`
-(--profile, --debug_nans, --plot_inference and the SO(3) probe),
+times, selection work, launch geometry, half clouds), `knn_wide` (B1's
+wide route at the shapes B1 refuses, N = 65,536 included: exactness,
+bf16, times beside the bound, launch geometry, the 4096 / 4097 edge),
+`long_cloud` (the flagship served at N = 8192 and at k = 40 through the
+wide route, and `python -m hpcs_torch.train --fixed_points 8192`),
+`observe` (--profile, --debug_nans, --plot_inference and the SO(3) probe),
 `parallel` (hpcs_torch.parallel: data-parallel steps, the sharded
 test_step, every configuration point-sharded), `examples`
 (examples/api_tour_torch.py and eval_noise_torch.py on an orbax
@@ -14,7 +18,7 @@ and evaluated through examples/partnet_eval_torch.ipynb); see each
 phase's docstring.  Prints the card, then the phase's JSON line; with a path,
 also writes that line there.
 
-    python3 scripts/chip_phase.py knn|observe|parallel|examples|notebooks|partnet [out.json]
+    python3 scripts/chip_phase.py PHASE [out.json]    # PHASE: one of the names above
 """
 import json
 import os
@@ -26,7 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from hpcs_torch.ops import _build  # noqa: E402
 
-PHASES = {"knn": cs.knn_phase, "observe": cs.observe_phase, "parallel": cs.parallel_phase,
+PHASES = {"knn": cs.knn_phase, "knn_wide": cs.knn_wide_phase, "long_cloud": cs.long_cloud_phase,
+          "observe": cs.observe_phase, "parallel": cs.parallel_phase,
           "examples": cs.examples_phase, "notebooks": cs.notebooks_phase,
           "partnet": cs.partnet_phase}
 

@@ -81,7 +81,7 @@ def main():
                    capture_output=True)
     lib = ctypes.CDLL(lib_path)
     entry = lib.hpcs_knn
-    entry.argtypes, entry.restype = KN._B1_ARGTYPES, ctypes.c_int
+    entry.argtypes, entry.restype = KN._ARGTYPES, ctypes.c_int
     B, N, k = 16, 1024, 20
     rng = np.random.default_rng(0)
     line = torch.zeros(B, N, 3, device="cuda")

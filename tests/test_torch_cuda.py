@@ -33,8 +33,13 @@ def test_knn_kernel_rejects_shapes_it_does_not_take():
 
 
 def test_wide_knn_kernel_rejects_shapes_it_does_not_take():
+    # shapes past the limits, on the meta device: refused before any memory
+    with pytest.raises(ValueError, match="N <= 1073741824"):
+        K._knn_wide_cuda(torch.empty(1, 2 ** 30 + 1, 3, device="meta"), 4)
+    with pytest.raises(ValueError, match="D <= 1048576"):
+        K._knn_wide_cuda(torch.empty(1, 16, 2 ** 20 + 1, device="meta"), 4)
     with pytest.raises(ValueError, match="N \\+ D <= 49136"):
-        K._knn_wide_cuda(torch.zeros(1, 49100, 40), 4)
+        K._knn_wide_cuda(torch.zeros(1, 49100, 40), 257)
     with pytest.raises(ValueError, match="k <= N"):
         K._knn_wide_cuda(torch.zeros(1, 30, 3), 31)
     with pytest.raises(ValueError, match="float32"):
@@ -394,7 +399,8 @@ def _exact_cloud(kind, B, N, D):
 
 
 _WIDE_SHAPES = [(1024, 3, 33), (1024, 3, 40), (4097, 3, 20), (4097, 63, 20), (1024, 128, 20),
-                (37, 5, 37)]
+                (37, 5, 37), (1024, 63, 64), (700, 3, 256), (8192, 63, 20), (300, 200, 40),
+                (600, 3, 300)]
 
 
 @pytest.mark.cuda
@@ -415,6 +421,89 @@ def test_wide_knn_kernel_matches_plain(kind, N, D, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,D,k", [(1024, 3, 33), (4097, 63, 40), (8192, 3, 20), (8192, 63, 20),
+                                   (1024, 128, 64), (600, 3, 300)])
+@pytest.mark.parametrize("rows", ["whole", (0, 16), "mid_tiles", "last_rows"])
+def test_wide_knn_kernel_bf16_equals_its_fp32_route(N, D, k, rows):
+    """The wide route reads bf16 through its prep kernel, converting on
+    load: index for index its route on x.float(), whole and over row
+    ranges (one that starts and ends inside row and column tiles)."""
+    require_cuda()
+    rows = {"whole": None, "mid_tiles": (N // 3 + 5, N // 3 + 301),
+            "last_rows": (N - 40, N)}.get(rows, rows)
+    x = torch.from_numpy(np.random.default_rng(N + D).standard_normal((2, N, D))
+                         .astype(np.float32)).cuda().bfloat16()
+    before = K.knn.bf16_launches, K.knn.wide_launches
+    got = K._knn_wide_cuda(x, k, rows=rows)
+    torch.cuda.synchronize()
+    assert (K.knn.bf16_launches - before[0], K.knn.wide_launches - before[1]) == (1, 1)
+    torch.testing.assert_close(got, K._knn_wide_cuda(x.float(), k, rows=rows), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,k", [(8192, 63, 20), (8192, 3, 40), (4097, 128, 20)])
+@pytest.mark.parametrize("rows", [(0, 1), (31, 33), (255, 513), (4000, 4097), (4096, 4097)])
+def test_wide_knn_row_ranges_equal_the_whole_launch(N, D, k, rows):
+    """The wide route over rows r0..r1-1 of a long cloud (row tiles that
+    start inside the cloud's tiles, the last row alone): the whole launch's
+    rows index for index, counted as a row-range launch."""
+    require_cuda()
+    x = torch.from_numpy(np.random.default_rng(D + k).standard_normal((2, N, D))
+                         .astype(np.float32)).cuda()
+    counts = K.knn.row_launches, K.knn.wide_launches
+    got = K.knn(x, k, rows=rows)
+    torch.cuda.synchronize()
+    assert (K.knn.row_launches - counts[0], K.knn.wide_launches - counts[1]) == (1, 1)
+    torch.testing.assert_close(got, K.knn(x, k)[:, rows[0]:rows[1]], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 63, 128])
+def test_wide_knn_kernel_at_65536_points(D):
+    """N = 65,536 (one cloud): rows at the start, in the middle and at the
+    end against knn_plain over those rows (its [rows, N] scores only), up to
+    near-ties; each range launched alone equals the whole launch's rows."""
+    require_cuda()
+    N = 65536
+    x = torch.from_numpy(np.random.default_rng(D).standard_normal((1, N, D))
+                         .astype(np.float32)).cuda()
+    whole = K.knn(x, 20)
+    for rows in ((0, 256), (30000, 30300), (N - 256, N)):
+        got = K.knn(x, 20, rows=rows)
+        torch.testing.assert_close(got, whole[:, rows[0]:rows[1]], rtol=0, atol=0)
+        assert (got == K.knn_plain(x, 20, rows=rows)).float().mean() > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 63, 64])
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_wide_knn_kernel_equals_b1_where_both_take_the_shape(D, kind):
+    """On shapes B1 takes, the wide route's indices are B1's: the same prep,
+    the same score FMA chains, and a total order for the selection."""
+    require_cuda()
+    rng = np.random.default_rng(D)
+    x = (rng.standard_normal((3, 1000, D)).astype(np.float32) if kind == "random"
+         else np.round(tie_cloud(rng, 3, 1000, D) * 2))
+    x = torch.from_numpy(x).cuda()
+    for k in (1, 20, 32):
+        torch.testing.assert_close(K._knn_wide_cuda(x, k), K._knn_cuda(x, k), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_wide_knn_one_row_kernel_serves_k_past_256_only():
+    """k > 256 goes to the one-row kernel, counted apart; k = 256 does not."""
+    require_cuda()
+    x = torch.randn(2, 600, 3, device="cuda")
+    for k, rowwise in ((256, 0), (257, 1), (600, 1)):
+        before = K.knn.rowwise_launches, K.knn.wide_launches
+        got = K.knn(x, k)
+        torch.cuda.synchronize()
+        assert (K.knn.rowwise_launches - before[0], K.knn.wide_launches - before[1]) == (
+            rowwise, 1)
+        assert (got == K.knn_plain(x, k)).float().mean() > 0.999
+
+
+@pytest.mark.cuda
 def test_wide_knn_kernel_near_ties_only_on_random_clouds():
     require_cuda()
     x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 4200, 3))
@@ -426,7 +515,9 @@ def test_wide_knn_kernel_near_ties_only_on_random_clouds():
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,k,wide", [(1024, 3, 20, False), (4096, 64, 32, False),
                                         (1024, 3, 33, True), (4097, 3, 20, True),
-                                        (256, 65, 8, True)])
+                                        (256, 65, 8, True), (4096, 3, 20, False),
+                                        (4096, 63, 20, False), (4097, 63, 20, True),
+                                        (4097, 64, 32, True)])
 def test_knn_routes_by_shape(N, D, k, wide):
     require_cuda()
     x = torch.randn(1, N, D, device="cuda")

@@ -20,33 +20,11 @@ import torch
 
 from _torch_port import adjacent_dup_cloud, lattice_cloud, line_cloud, tie_cloud
 from hpcs_torch.ops import knn as K
-from hpcs_torch.testing import knn_candidates, knn_queue_insertions
+from hpcs_torch.testing import knn_candidates, knn_queue_insertions, ranks_above, warp_sort
 
 WARP = 32
 INT_MAX = 2 ** 31 - 1
 LANES = np.arange(WARP)
-
-
-def ranks_above(s, i, s2, i2):
-    """(s, i) ranks above (s2, i2): a higher score, or an equal score and a
-    smaller index.  False whenever s is NaN."""
-    return (s > s2) | ((s == s2) & (i < i2))
-
-
-def warp_sort(s, i):
-    """The kernel's warp_sort: a bitonic network over the 32 lanes, best
-    first."""
-    size = 2
-    while size <= WARP:
-        stride = size // 2
-        while stride:
-            os, oi = s[LANES ^ stride], i[LANES ^ stride]
-            keep_better = ((LANES & size) == 0) == ((LANES & stride) == 0)
-            take = np.where(keep_better, ranks_above(os, oi, s, i), ranks_above(s, i, os, oi))
-            s, i = np.where(take, os, s), np.where(take, oi, i)
-            stride //= 2
-        size *= 2
-    return s, i
 
 
 def warp_merge(qs, qi, cs, ci):
