@@ -47,14 +47,18 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    row (merges of 32, single insertions); holds
    one cloud of N = 65,536 (D = 3 and 63) on three ranges of rows; times
    B1 at N = 4096 beside the wide route at 4097 (per score pair); holds
-   and times the one-row kernel at k = 300 (k > 256); over half of the rows
+   and times its radix route (k > 256: knn_keys_kernel + knn_radix_kernel)
+   at k = 300 on N = 1024 clouds and N = 65,536, beside the wide kernel at
+   the k = 256 / 257 edge, with its geometry and passes a row; over half
+   of the rows
    of three shapes it equals the whole launch's rows, timed beside it
    (knn_wide_phase; alone: python3 scripts/chip_phase.py knn_wide); and
    checks that the forward's requests made no wide launch;
 5b. serves the flagship where B1 does not reach (phase long_cloud; alone:
    python3 scripts/chip_phase.py long_cloud): 3 requests of 4 synthetic
    clouds of N = 8192 (k = 20) and 2 in bf16, 3 of 16 clouds of 1024 at
-   k = 40, each request 3 wide launches and 3 B2 launches, its graphs
+   k = 40 and 3 at k = 300 (3 of them on the radix route), each request 3
+   wide launches and 3 B2 launches, its graphs
    against knn_plain and its output against the plain forward on the card
    on those graphs (as step 4 holds the main path; bf16 as step 10), and
    `python -m hpcs_torch.train --dataset synthetic --fixed_points 8192` at
@@ -266,7 +270,7 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    bf16 (its verdict must be PASS), with each stage's graph agreement;
 18. prints one JSON line of the kernels (each with its row-range
    launches: B1, the wide route, B2, each on bf16 too, and the wide route's
-   one-row kernel), the card's name and power limit, and last {"ok": true,
+   radix route), the card's name and power limit, and last {"ok": true,
    "device": {...}}.
 
 Every phase prints one JSON line; any failure raises and exits non-zero
@@ -650,7 +654,10 @@ def request_stages(system, points):
 KNN_GEOMETRY = ("grid_x", "grid_y", "threads", "smem_bytes", "resident_blocks_per_sm",
                 "registers", "local_bytes", "tile_rows", "tile_columns", "padded_d",
                 "prep_blocks")
-WIDE_GEOMETRY = KNN_GEOMETRY + ("stages", "list_slots", "rowwise")
+WIDE_GEOMETRY = KNN_GEOMETRY + ("stages", "list_slots", "radix", "column_chunks", "group_rows",
+                                 "groups", "select_threads", "select_smem_bytes",
+                                 "select_resident_blocks_per_sm", "select_registers",
+                                 "select_local_bytes")
 
 
 def knn_geometry(b, n, d, k, rows=None, wide=False):
@@ -660,7 +667,12 @@ def knn_geometry(b, n, d, k, rows=None, wide=False):
     and local (spill) bytes a thread, its tile, and the waves of blocks over
     the card's SMs; knn_prep_kernel's blocks (of the same threads).  With
     `wide`, the wide route's (hpcs_knn_wide_geometry), which adds the ring's
-    stages, a row list's slots and whether the one-row kernel takes it."""
+    stages, a row list's slots and whether the radix route takes it (k >
+    256), and for it: the score sweep's (knn_keys_kernel's) column chunks
+    and its rows a group (grid_x is a group's row tiles, blocks and waves a
+    group's), the groups, and knn_radix_kernel's threads, shared bytes,
+    resident blocks, registers and spills (its grid: a group's rows by the
+    clouds)."""
     import ctypes
 
     from hpcs_torch.ops import _build
@@ -672,8 +684,8 @@ def knn_geometry(b, n, d, k, rows=None, wide=False):
     _build.check(fn(b, n, d, k, n if rows is None else rows, out), symbol)
     g = dict(zip(fields, out))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    g.update(sms=sms, blocks=g["grid_x"] * g["grid_y"],
-             waves=g["grid_x"] * g["grid_y"] / (g["resident_blocks_per_sm"] * sms))
+    blocks = g["grid_x"] * g["grid_y"] * g.get("column_chunks", 1)
+    g.update(sms=sms, blocks=blocks, waves=blocks / (g["resident_blocks_per_sm"] * sms))
     return g
 
 
@@ -777,7 +789,10 @@ WIDE_SHAPES = [(B, 1024, 3, 33), (B, 1024, 3, 40), (4, 4097, 3, 20), (4, 4097, 6
 # one cloud of 65,536 points, held against knn_plain on these rows
 WIDE_LONG = [(1, 65536, 3, 20), (1, 65536, 63, 20)]
 WIDE_LONG_ROWS = ((0, 512), (32668, 33180), (65024, 65536))
-WIDE_ROWWISE = (2, 1024, 3, 300)  # k > 256: knn_rowwise_kernel
+# k > 256: the radix route (knn_keys_kernel, then knn_radix_kernel), timed
+# at WIDE_RADIX and at N = 65,536 (held on WIDE_LONG_ROWS)
+WIDE_RADIX = (2, 1024, 3, 300)
+WIDE_LONG_RADIX = [(1, 65536, 3, 300), (1, 65536, 63, 300)]
 
 
 def knn_wide_phase(card, rng=None):
@@ -797,13 +812,21 @@ def knn_wide_phase(card, rng=None):
     (testing.knn_stream_work, its data-dependent work).  At N = 65,536 (WIDE_LONG) a Gaussian and an
     integer cloud, whole, against knn_plain on WIDE_LONG_ROWS, each range
     also launched alone; the cap's edge: B1 at (4, 4096, D, 20) beside the
-    wide route at (4, 4097, D, 20), per score pair; the one-row kernel at
-    WIDE_ROWWISE (k > 256); and half of the rows of three shapes, equal to
-    the whole launch's rows, timed beside it.  Emits the `knn_wide` line.
+    wide route at (4, 4097, D, 20), per score pair; and half of the rows of
+    three shapes, equal to the whole launch's rows, timed beside it.  For
+    k > 256, the radix route (`radix`, its own seconds): at WIDE_RADIX the
+    exact-score clouds index for index, the Gaussian one up to near-ties,
+    each on bf16 equal to the route on x.float(); the Gaussian cloud timed
+    in fp32 and bf16 beside the bound, knn_plain and the topk composition,
+    with its geometry and the selection's passes a row over its keys and
+    over its copied candidates (testing.knn_radix_work); at N = 65,536
+    (WIDE_LONG_RADIX) a Gaussian and an integer cloud as the k = 20 ones
+    above, timed; and the k = 256 / 257 edge, the wide kernel beside the
+    radix route on one cloud.  Emits the `knn_wide` line.
     """
     from hpcs_torch.ops import knn as KN
     from hpcs_torch.ops.knn import pairwise_neg_sqdist
-    from hpcs_torch.testing import knn_stream_work
+    from hpcs_torch.testing import knn_radix_work, knn_stream_work
 
     rng = np.random.default_rng(SEED) if rng is None else rng
 
@@ -816,20 +839,25 @@ def knn_wide_phase(card, rng=None):
     def gauss(b, n, d):
         return torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32)).cuda()
 
-    def wide(x, k, rows=None, rowwise=0):
-        """KN.knn(x, k, rows), which must be one wide launch (of the one-row
-        kernel with rowwise)."""
-        before = KN.knn.launches, KN.knn.wide_launches, KN.knn.rowwise_launches
+    def wide(x, k, rows=None):
+        """KN.knn(x, k, rows), which must be one wide launch (on the radix
+        route for k > 256)."""
+        before = KN.knn.launches, KN.knn.wide_launches, KN.knn.radix_launches
         got = KN.knn(x, k, rows=rows)
         torch.cuda.synchronize()
         if (KN.knn.launches - before[0], KN.knn.wide_launches - before[1],
-                KN.knn.rowwise_launches - before[2]) != (1, 1, rowwise):
+                KN.knn.radix_launches - before[2]) != (1, 1, int(k > KN.WIDE_MAX_K)):
             fail(f"knn_wide: {tuple(x.shape)}, k={k} did not make one wide launch")
         return got
 
-    def same_bf16(x, k, rows=None, rowwise=0):
+    def line_cloud(b, n, d):
+        line = torch.zeros(b, n, d, device="cuda")
+        line[:, :, 0] = torch.arange(n, device="cuda", dtype=torch.float32)
+        return line
+
+    def same_bf16(x, k, rows=None):
         xb = x.bfloat16()
-        if not torch.equal(wide(xb, k, rows, rowwise),
+        if not torch.equal(wide(xb, k, rows),
                            KN._knn_wide_cuda(xb.float(), k, rows=rows)):
             fail(f"knn_wide: bf16 {tuple(x.shape)}, k={k}, rows {rows} differs from the "
                  "route on x.float()")
@@ -841,9 +869,7 @@ def knn_wide_phase(card, rng=None):
                   "equal": (torch.full((b, n, d), 0.5, device="cuda"), True),
                   "gauss": (gauss(b, n, d), False)}
         if n <= 2048:
-            line = torch.zeros(b, n, d, device="cuda")
-            line[:, :, 0] = torch.arange(n, device="cuda", dtype=torch.float32)
-            clouds["line"] = (line, True)
+            clouds["line"] = (line_cloud(b, n, d), True)
         cases = {}
         for name, (x, exact) in clouds.items():
             near, err = knn_check(x, wide(x, k), KN.knn_plain(x, k), exact)
@@ -866,28 +892,38 @@ def knn_wide_phase(card, rng=None):
             cases=cases))
 
     # N = 65,536: whole launches, held on row ranges (knn_plain's [rows, N] scores)
-    long = {}
-    for b, n, d, k in WIDE_LONG:
-        x, ties = gauss(b, n, d), lattice(b, n, d, False)
-        whole, whole_ties = wide(x, k), wide(ties, k)
-        checked = []
-        for rows in WIDE_LONG_ROWS:
-            got = wide(x, k, rows)
-            if not (torch.equal(got, whole[:, rows[0]:rows[1]])
-                    and torch.equal(wide(ties, k, rows), whole_ties[:, rows[0]:rows[1]])):
-                fail(f"knn_wide: rows {rows} of {(b, n, d, k)} differ from the whole launch's")
-            near, err = knn_check(x, got, KN.knn_plain(x, k, rows), False, row0=rows[0])
-            knn_check(ties, whole_ties[:, rows[0]:rows[1]], KN.knn_plain(ties, k, rows), True,
-                      row0=rows[0])
-            gap = max(gap, err)
-            checked.append(dict(rows=list(rows), differing_near_ties=near, max_score_gap=err))
-        same_bf16(x, k, WIDE_LONG_ROWS[1])
-        ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 3)
-        bound, by = bound_ms(*knn_work(b, n, d, k))
-        long[f"{b}x{n}x{d}_k{k}"] = dict(
-            ms=ms, ms_bf16=cuda_ms(lambda: KN._knn_wide_cuda(x.bfloat16(), k), 3), bound_ms=bound,
-            bound_by=by, roofline_share=bound / ms, geometry=knn_geometry(b, n, d, k, wide=True),
-            rows_checked=checked, bf16_equal_on_rows=list(WIDE_LONG_ROWS[1]))
+    def held_on_rows(shapes):
+        nonlocal gap
+        long = {}
+        for b, n, d, k in shapes:
+            x, ties = gauss(b, n, d), lattice(b, n, d, False)
+            whole, whole_ties = wide(x, k), wide(ties, k)
+            checked = []
+            for rows in WIDE_LONG_ROWS:
+                got = wide(x, k, rows)
+                if not (torch.equal(got, whole[:, rows[0]:rows[1]])
+                        and torch.equal(wide(ties, k, rows), whole_ties[:, rows[0]:rows[1]])):
+                    fail(f"knn_wide: rows {rows} of {(b, n, d, k)} differ from the whole "
+                         "launch's")
+                near, err = knn_check(x, got, KN.knn_plain(x, k, rows), False, row0=rows[0])
+                knn_check(ties, whole_ties[:, rows[0]:rows[1]], KN.knn_plain(ties, k, rows), True,
+                          row0=rows[0])
+                gap = max(gap, err)
+                checked.append(dict(rows=list(rows), differing_near_ties=near, max_score_gap=err))
+            same_bf16(x, k, WIDE_LONG_ROWS[1])
+            ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 3)
+            bound, by = bound_ms(*knn_work(b, n, d, k))
+            long[f"{b}x{n}x{d}_k{k}"] = dict(
+                ms=ms, ms_bf16=cuda_ms(lambda: KN._knn_wide_cuda(x.bfloat16(), k), 3),
+                bound_ms=bound, bound_by=by, roofline_share=bound / ms,
+                geometry=knn_geometry(b, n, d, k, wide=True), rows_checked=checked,
+                bf16_equal_on_rows=list(WIDE_LONG_ROWS[1]))
+            if k > KN.WIDE_MAX_K:
+                long[f"{b}x{n}x{d}_k{k}"]["selection_work_per_row"] = dict(zip(
+                    ("row_passes", "candidate_passes"), knn_radix_work(x, k, row_step=n // 16)))
+        return long
+
+    long = held_on_rows(WIDE_LONG)
 
     # the cap's edge: B1 at N = 4096 beside the wide route at 4097, per score pair
     edge = {}
@@ -898,22 +934,44 @@ def knn_wide_phase(card, rng=None):
         edge[f"d{d}"] = dict(b1_4096_ms=b1, wide_4097_ms=w,
                              wide_per_pair_over_b1=(w / 4097 ** 2) / (b1 / 4096 ** 2))
 
-    # k > 256: the one-row kernel
-    b, n, d, k = WIDE_ROWWISE
+    # k > 256: the radix route
+    t_radix = time.perf_counter()
+    radix_before, radix_gap = KN.knn.radix_launches, 0.0
+    b, n, d, k = WIDE_RADIX
     x = gauss(b, n, d)
-    rowwise_before = KN.knn.rowwise_launches
-    near, err = knn_check(x, wide(x, k, rowwise=1), KN.knn_plain(x, k), False)
-    gap = max(gap, err)
-    same_bf16(x, k, rowwise=1)
-    ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 3)
+    clouds = {"ties": (lattice(b, n, d, False), True), "adjacent": (lattice(b, n, d, True), True),
+              "equal": (torch.full((b, n, d), 0.5, device="cuda"), True),
+              "line": (line_cloud(b, n, d), True), "gauss": (x, False)}
+    cases = {}
+    for name, (xc, exact) in clouds.items():
+        near, err = knn_check(xc, wide(xc, k), KN.knn_plain(xc, k), exact)
+        same_bf16(xc, k)
+        radix_gap = max(radix_gap, err)
+        cases[name] = dict(differing_near_ties=near, max_score_gap=err, bf16_equal=True)
+    ms = cuda_ms(lambda: KN._knn_wide_cuda(x, k), 10)
     bound, by = bound_ms(*knn_work(b, n, d, k))
-    rowwise = dict(B=b, N=n, D=d, k=k, ms=ms, plain_ms=cuda_ms(lambda: KN.knn_plain(x, k), 2),
-                   topk_ms=cuda_ms(lambda: torch.topk(pairwise_neg_sqdist(x), k), 2),
-                   bound_ms=bound, bound_by=by, roofline_share=bound / ms,
-                   differing_near_ties=near, max_score_gap=err,
-                   geometry=knn_geometry(b, n, d, k, wide=True))
-    # (timed launches included: the kernels line counts the others)
-    rowwise["launches_in_phase"] = KN.knn.rowwise_launches - rowwise_before
+    radix = dict(B=b, N=n, D=d, k=k, ms=ms,
+                 ms_bf16=cuda_ms(lambda: KN._knn_wide_cuda(x.bfloat16(), k), 10),
+                 plain_ms=cuda_ms(lambda: KN.knn_plain(x, k), 5),
+                 topk_ms=cuda_ms(lambda: torch.topk(pairwise_neg_sqdist(x), k), 5),
+                 bound_ms=bound, bound_by=by, roofline_share=bound / ms, cases=cases,
+                 geometry=knn_geometry(b, n, d, k, wide=True),
+                 selection_work_per_row=dict(zip(("row_passes", "candidate_passes"),
+                                                 knn_radix_work(x, k, row_step=n // 16))))
+    gap_before, gap = gap, 0.0
+    radix["long"] = held_on_rows(WIDE_LONG_RADIX)
+    radix_gap, gap = max(radix_gap, gap), gap_before  # (the k <= 256 kernel's gap apart)
+    # the k = 256 / 257 edge: the wide kernel beside the radix route, one cloud each D
+    radix["edge_256_257"] = {}
+    for d in (3, 63):
+        x = gauss(2, 1024, d)
+        w = cuda_ms(lambda: KN._knn_wide_cuda(x, 256), 10)
+        r = cuda_ms(lambda: KN._knn_wide_cuda(x, 257), 10)
+        radix["edge_256_257"][f"2x1024x{d}"] = dict(wide_k256_ms=w, radix_k257_ms=r,
+                                                     radix_over_wide=r / w)
+    radix.update(max_score_gap=radix_gap, seconds=time.perf_counter() - t_radix,
+                 # (timed launches included: the kernels line counts the main path's)
+                 launches_in_phase=KN.knn.radix_launches - radix_before)
 
     # half of each cloud's rows, index for index the whole launch's, timed beside it
     halves = {}
@@ -928,7 +986,7 @@ def knn_wide_phase(card, rng=None):
         halves[f"{b}x{n}x{d}_k{k}"] = dict(rows=[n // 2, n], equal_to_whole=True, ms=ms,
                                           whole_ms=cuda_ms(lambda: KN._knn_wide_cuda(x, k), 10),
                                           bound_ms=bound, bound_by=by)
-    out = dict(shapes=shapes, long=long, edge_4096_4097=edge, rowwise=rowwise,
+    out = dict(shapes=shapes, long=long, edge_4096_4097=edge, radix=radix,
                half_cloud=halves, max_score_gap=gap, ms=sum(r["ms"] for r in shapes),
                ms_bf16=sum(r["ms_bf16"] for r in shapes),
                plain_ms=sum(r["plain_ms"] for r in shapes),
@@ -944,6 +1002,7 @@ def knn_wide_phase(card, rng=None):
 LONG_B, LONG_N = 4, 8192  # the long cloud: the flagship served at N = 8192
 LONG_REQUESTS = 3  # requests at N = 8192 (and at k = 40): 1 warm-up + 2 timed
 LONG_K = 40
+LONG_RADIX_K = 300  # the flagship at k > 256: the wide route's radix route
 # `python -m hpcs_torch.train` on cli.py's synthetic splits (64 / 16 / 16
 # objects) at N = 8192, the flagship's k and widths, batches of 4 (at 16 the
 # hyperbolic loss's 6.5 M triplets of 32 wide do not fit the card's 80 GB):
@@ -1049,8 +1108,10 @@ def long_cloud_phase(card):
     3 wide and 3 B2 launches each, and two in bf16 (3 wide and 3 B2
     launches on bf16 each); (b) LONG_REQUESTS requests of the flagship's B = 16
     clouds of N = 1024 at k = LONG_K = 40, 3 wide and 3 B2 (at K = 40)
-    launches each; each held by _served_and_held; the wide route's
-    selection work per row on the long cloud's stage inputs; (c)
+    launches each; (c) the same requests at k = LONG_RADIX_K = 300, 3
+    wide launches on the radix route and 3 B2 (at K = 300) each; each held
+    by _served_and_held; the wide route's selection work per row on the
+    long cloud's stage inputs; (d)
     `python -m hpcs_torch.train --dataset synthetic --fixed_points 8192`
     (LONG_TRAIN_FLAGS) in a temporary working directory: 3 wide launches a
     training step, a validation and a test batch, 3 B2 launches a
@@ -1092,6 +1153,11 @@ def long_cloud_phase(card):
     want = _launches(knn=3 * LONG_REQUESTS, edgeconv=3 * LONG_REQUESTS, wide=3 * LONG_REQUESTS)
     if k40["launches"] != want:
         fail(f"long_cloud: k = {LONG_K} launched {k40['launches']}, expected {want}")
+    k300 = _served_and_held(backbone_system(dict(eucl_dim=EUCL, k=LONG_RADIX_K)), wide_k)
+    want = _launches(knn=3 * LONG_REQUESTS, edgeconv=3 * LONG_REQUESTS, wide=3 * LONG_REQUESTS,
+                     radix=3 * LONG_REQUESTS)
+    if k300["launches"] != want:
+        fail(f"long_cloud: k = {LONG_RADIX_K} launched {k300['launches']}, expected {want}")
 
     cwd = os.getcwd()
     tmp = tempfile.TemporaryDirectory()
@@ -1116,8 +1182,9 @@ def long_cloud_phase(card):
              f"expected {want}")
     if not all(np.isfinite(v) for v in results.values() if isinstance(v, float)):
         fail(f"long_cloud: train's test results are not finite: {results}")
-    runs = (served["launches"], bf16["launches"], k40["launches"], train_launches)
-    out = dict(long_cloud=served, long_cloud_bf16=bf16, k40=k40,
+    runs = (served["launches"], bf16["launches"], k40["launches"], k300["launches"],
+            train_launches)
+    out = dict(long_cloud=served, long_cloud_bf16=bf16, k40=k40, k300=k300,
                train=dict(flags=LONG_TRAIN_FLAGS, steps=steps, val_batches=val,
                           test_batches=test, launches=train_launches, seconds=train_s,
                           test_results=results, records=records),
@@ -3306,6 +3373,7 @@ def _synthetic(b, n, categories=8, seed=5):
 
 
 COUNTERS = {"knn": ("knn", "launches"), "knn_wide": ("knn", "wide_launches"),
+            "knn_radix": ("knn", "radix_launches"),
             "knn_bf16": ("knn", "bf16_launches"), "knn_rows": ("knn", "row_launches"),
             "edgeconv": ("edgeconv_infer", "launches"),
             "edgeconv_bf16": ("edgeconv_infer", "bf16_launches"),
@@ -3314,8 +3382,8 @@ COUNTERS = {"knn": ("knn", "launches"), "knn_wide": ("knn", "wide_launches"),
 
 def _counts(reset=False):
     """The kernels' launch counts in this process (COUNTERS: every launch,
-    the wide route's, those on bf16 features and those over a row range;
-    zeroed with reset)."""
+    the wide route's, its radix route's (k > 256), those on bf16 features
+    and those over a row range; zeroed with reset)."""
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
 
@@ -3327,11 +3395,13 @@ def _counts(reset=False):
     return out
 
 
-def _launches(knn=0, edgeconv=0, knn_rows=0, edgeconv_rows=0, bf16=False, wide=0):
+def _launches(knn=0, edgeconv=0, knn_rows=0, edgeconv_rows=0, bf16=False, wide=0, radix=0):
     """A _counts dict: kNN and B2 launches, of which knn_rows and
     edgeconv_rows over a row range and `wide` kNN launches on the wide
-    route, all on bf16 features with bf16."""
-    return {"knn": knn, "knn_wide": wide, "knn_bf16": knn if bf16 else 0, "knn_rows": knn_rows,
+    route (`radix` of them on its radix route), all on bf16 features with
+    bf16."""
+    return {"knn": knn, "knn_wide": wide, "knn_radix": radix, "knn_bf16": knn if bf16 else 0,
+            "knn_rows": knn_rows,
             "edgeconv": edgeconv, "edgeconv_bf16": edgeconv if bf16 else 0,
             "edgeconv_rows": edgeconv_rows}
 
@@ -4471,13 +4541,12 @@ def main():
              row_launches=0, max_abs_err=wide["max_score_gap"], ms=wide["ms_bf16"],
              plain_ms=wide["plain_ms"], bound_ms=wide["bf16_bound_ms"],
              bound_by=wide["bound_by"], library_ms=None),
-        dict(name="knn_rowwise", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
+        dict(name="knn_radix", route="cuda", source="hpcs_torch/ops/csrc/knn.cu",
              replaces="hpcs_tpu/ops/pallas/knn_pallas.py:49",
-             launches=KN.knn.rowwise_launches - wide["rowwise"]["launches_in_phase"],
-             row_launches=0, max_abs_err=wide["rowwise"]["max_score_gap"],
-             ms=wide["rowwise"]["ms"], plain_ms=wide["rowwise"]["plain_ms"],
-             bound_ms=wide["rowwise"]["bound_ms"], bound_by=wide["rowwise"]["bound_by"],
-             library_ms=None),
+             launches=long["launches"]["knn_radix"], row_launches=0,
+             max_abs_err=wide["radix"]["max_score_gap"], ms=wide["radix"]["ms"],
+             plain_ms=wide["radix"]["plain_ms"], bound_ms=wide["radix"]["bound_ms"],
+             bound_by=wide["radix"]["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]

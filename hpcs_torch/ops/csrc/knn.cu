@@ -66,21 +66,21 @@
 //
 // The shapes knn_kernel refuses (k > 32, D > 64 or N > 4096) take the wide
 // route below: the same prep, then knn_wide_kernel, row tiles with a
-// streamed selection (or, for k > 256 only, knn_rowwise_kernel).
+// streamed selection, or, for k > 256, the radix route: the same score
+// sweep's keys stored a group of rows at a time, then a radix select a row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <algorithm>
 #include <atomic>
 #include <climits>
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-constexpr int THREADS = 256;       // knn_rowwise_kernel's block
-constexpr int WARPS = THREADS / 32;
 constexpr int PREP_THREADS = 128;  // knn_prep_kernel's block
 constexpr int PREP_POINTS = 32;    // and its points
 constexpr int MAX_D = 64;
@@ -713,8 +713,8 @@ int knn_entry(const T* x, int* idx, float* work, int b, int n, int d, int k, int
 //   and streams the cloud past them in tiles of TC columns, each cut into
 //   slices of DC dimensions that cp.async brings into a ring of STAGES
 //   buffers: the columns' [TC][DC] and the rows' [TR][DC] (so that D is
-//   unbounded), into knn_kernel's 4 x 8 register tile of FMAs.  The cloud
-//   is read from L2 once per TR rows, not once per row.
+//   unbounded), into knn_kernel's 4 x 8 register tile of FMAs (wide_sweep).
+//   The cloud is read from L2 once per TR rows, not once per row.
 // * A streamed selection.  Each row keeps its best 32 S so far (S = ceil(k
 //   / 32)), sorted, in shared memory; its k-th, T, is the threshold.  A
 //   tile's scores go to shared memory, [TR][TC]; each warp filters its
@@ -741,12 +741,44 @@ int knn_entry(const T* x, int* idx, float* work, int b, int n, int d, int k, int
 // the scores cost little and the epilogue's stores and the filter are the
 // work.  Two blocks of 8 warps share an SM.
 //
-// k > WIDE_MAX_K (a row's list would not fit) goes to knn_rowwise_kernel,
-// the wide route's first design: one block of 256 threads per (cloud, row)
-// scores all N columns of the prep's copy into shared memory, then takes k
-// block-wide first-argmax passes, each marking its column NaN.  N + D
-// floats must fit in ROWWISE_SMEM_BYTES.  It is untuned: every block reads
-// the whole cloud, and the selection reads the row k times.
+// k > WIDE_MAX_K (a row's list would not fit beside its tile) takes the
+// radix route, whose selection reads a row a fixed number of times whatever
+// k and the order of the columns, and which keeps nothing of size N per row
+// in shared memory, for every k <= N:
+// * knn_keys_kernel<L> runs knn_wide_kernel's score sweep (wide_sweep: the
+//   same ring, tile and FMA chains, so the same scores) over a group of
+//   query rows, each block over a chunk of column tiles (KEYS_BLOCKS_PER_SM
+//   blocks an SM), and stores each score as its order-preserving uint32
+//   key (score_key: -0.0 as +0.0, NaN as 0, below -inf) to a global
+//   scratch [group][N], coalesced.  A group's keys take GROUP_WORDS (128
+//   MiB: on an H100 80GB HBM3 at 700 W, at N = 65,536, groups of 32 MiB,
+//   held in L2, took 2 ms more over four times the launches); the rows go
+//   through group by group.
+// * knn_radix_kernel, one block a row, selects on the composite (key << 32
+//   | ~column): distinct for every column, and larger exactly when the
+//   column ranks above (score descending, then index ascending), so the k
+//   largest composites are the result.  A radix select on digits of 11, 11
+//   and 10 bits from the top (the key's, then the index's): a pass counts
+//   the columns still in play by their digit (a histogram in shared
+//   memory), a block scan finds the bucket of the need-th largest, and the
+//   next pass emits the columns of larger digits while it counts the
+//   bucket's by their next digit, until a bucket holds exactly what is
+//   still needed, which is emitted whole.  Ties at the k-th score are
+//   split by the index digits.  Once a bucket holds at most CAND_CAP
+//   columns they are copied to shared memory and the row is not read again
+//   (on Gaussian clouds after the first digit: the row is read twice).
+//   The r = min(k, non-NaN columns) emitted composites are then put in
+//   order, largest first: up to one a thread each goes to the count of
+//   larger ones (every thread reads each slot: no barrier), past it through
+//   a bitonic network over 2^m >= r slots (in shared memory up to SORT_CAP,
+//   else in the row's scratch).  Slot q of the output gets the q-th column,
+//   -1 past r.
+//   tests/test_torch_knn_large_k.py replays it (hpcs_torch.testing
+//   .knn_radix_route).
+// What bounds it: the score FMAs, as the wide route's; past them, per
+// score a 4-byte key stored and read twice, and one or two shared atomic
+// adds.  On the card the selection kernel takes far longer than those
+// bytes and atomics (PERF.md §6; scripts/knn_radix_variants.py).
 
 constexpr int WIDE_MAX_K = 256;
 // a tile's survivors of a row up to which they go in one at a time: an
@@ -755,7 +787,17 @@ constexpr int WIDE_MAX_K = 256;
 constexpr int INSERT_MAX = 8;
 constexpr int WIDE_MAX_N = 1 << 30;  // int32 indices, with room for a tile past the end
 constexpr int WIDE_MAX_D = 1 << 20;
-constexpr int ROWWISE_SMEM_BYTES = 192 * 1024;
+// the radix route (k > WIDE_MAX_K)
+// knn_radix_kernel's block: 256 threads, or for rows of LONG_ROW keys or
+// more 1024 (one block a row: more loads in flight an SM)
+constexpr int RADIX_THREADS = 256, RADIX_THREADS_LONG = 1024;
+constexpr int LONG_ROW = 8192;
+constexpr int RADIX_MAX_WARPS = RADIX_THREADS_LONG / 32;
+constexpr int RADIX_BINS = 2048;    // the widest digit, 11 bits
+constexpr int CAND_CAP = 2048;      // a bucket's columns copied to shared memory
+constexpr int SORT_CAP = 4096;      // composites sorted in shared memory (a power of two)
+constexpr long long GROUP_WORDS = 1LL << 25;  // a group's keys, 128 MiB
+constexpr int KEYS_BLOCKS_PER_SM = 4;         // knn_keys_kernel's blocks over the card
 
 // knn_wide_kernel's shared memory for Tile L: the ring ([STAGES][TC + TR][S]:
 // columns, then rows), the tile's scores ([TR][SS], SS = TC + CTW: the
@@ -861,41 +903,27 @@ __device__ __noinline__ void insert_one(float* ls, int* li, int chunks, float v,
   }
 }
 
-template <class L>
-__global__ void __launch_bounds__(L::THREADS, 2)
-knn_wide_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int* __restrict__ idx,
-                int n, int dx, int k, int row_begin, int rows) {
+// The wide route's score sweep (knn_wide_kernel's and knn_keys_kernel's):
+// the block's TR query rows row0 .. (rows at or past row_end read as zero)
+// against `count` column tiles, tile t starting at column tile_c0(t), each
+// streamed in slices of DC dimensions through the ring (the columns'
+// [TC][DC], then the rows' [TR][DC]) into the 4 x 8 register tile, each
+// sum's FMA chain in dimension order.  After each tile its scores,
+// 2 x_i.x_j - |x_j|^2, lie in scores [TR][SS] for every thread and
+// on_tile(c0) runs; the next tile's scores are stored past the next
+// slice's barrier.
+template <class L, class C0, class F>
+__device__ __forceinline__ void wide_sweep(float* ring, float* scores, const float* __restrict__ xb,
+                                           const float* __restrict__ sqb, int n, int dx, int row0,
+                                           int row_end, int count, C0 tile_c0, F on_tile) {
   using W = Wide<L>;
-  constexpr int DC = L::DC, STAGES = L::STAGES, TR = L::TR, TC = L::TC, RPW = W::RPW;
-  extern __shared__ float4 smem4[];
-  const int slots = round_up(k, 32);
-  float* ring = reinterpret_cast<float*>(smem4);  // [STAGES][TC + TR][S]
-  float* scores = ring + STAGES * W::STAGE;       // [TR][SS]
-  float* ls = scores + TR * W::SS;                // [TR][slots], best first
-  int* li = reinterpret_cast<int*>(ls + TR * slots);
-  unsigned char* offs = reinterpret_cast<unsigned char*>(li + TR * slots);  // [WARPS][TC]
-
-  const int b = blockIdx.y;
-  const int row0 = row_begin + blockIdx.x * TR;
-  const int row_end = row_begin + rows;
-  const float* xb = xp + (size_t)b * n * dx;
-  const float* sqb = sq + (size_t)b * n;
+  constexpr int DC = L::DC, STAGES = L::STAGES, TC = L::TC;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rt = warp / 4 * L::RTW + lane / L::CTW;     // rows rt + RT i
   const int ct = warp % 4 * L::CTW + lane % L::CTW;     // columns ct + CT j
-  const unsigned below_lane = (1u << lane) - 1u;
-
-  for (int q = tid; q < TR * slots; q += L::THREADS) {  // every list empty
-    ls[q] = -INFINITY;
-    li[q] = INT_MAX;
-  }
-  // column tile t of the sweep is the cloud's tile (t0 + t) mod ntiles
-  const int ntiles = (n + TC - 1) / TC;
-  const int t0 = (row0 / TC) % ntiles;
-  auto tile_c0 = [&](int t) { return (t0 + t) % ntiles * TC; };
   // slice s of the sweep: column tile s / nslices, dimensions DC (s % nslices) ..
   const int nslices = dx / DC;
-  const long long total = (long long)ntiles * nslices;
+  const long long total = (long long)count * nslices;
   auto load_slice = [&](long long s) {
     if (s < total) {
       float* dst = ring + (int)(s % STAGES) * W::STAGE;
@@ -908,7 +936,7 @@ knn_wide_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int*
         cp_async16(dst + col * L::S + part * 4,
                    valid ? xb + (size_t)(c0 + col) * dx + d0 + part * 4 : xb, valid);
       }
-      if (tid < TR * (DC / 4)) {
+      if (tid < L::TR * (DC / 4)) {
         const int r = tid / (DC / 4), part = tid % (DC / 4);
         const bool valid = row0 + r < row_end;
         cp_async16(dst + (TC + r) * L::S + part * 4,
@@ -925,6 +953,99 @@ knn_wide_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int*
       sqn[j] = c < n ? __ldg(sqb + c) : 0.f;
     }
   };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_slice(s);
+  load_sq(tile_c0(0));
+  int tile = 0, slice = 0;
+  for (long long s = 0; s < total; ++s) {
+    cp_async_wait<STAGES - 2>();  // slice s has landed
+    __syncthreads();              // for every thread; and slice s - 1 is consumed
+    load_slice(s + STAGES - 1);   // into slice s - 1's buffer
+    if (slice == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sqv[j] = sqn[j];
+      if (tile + 1 < count) load_sq(tile_c0(tile + 1));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    const float* st = ring + (int)(s % STAGES) * W::STAGE;
+#pragma unroll
+    for (int q = 0; q < DC / 4; ++q) {
+      float4 a[4], v[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(st + (TC + rt + L::RT * i) * L::S + 4 * q);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = *reinterpret_cast<const float4*>(st + (ct + L::CT * j) * L::S + 4 * q);
+      // 4 dimensions of the 4 x 8 sums, each sum's chain in dimension order
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].x, v[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].y, v[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].z, v[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].w, v[j].w, acc[i][j]);
+    }
+    if (++slice == nslices) {
+      // the tile's scores, 2 x_i.x_j - |x_j|^2, then on_tile (the next
+      // tile's epilogue is past the next iteration's barrier)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          scores[(rt + L::RT * i) * W::SS + ct + L::CT * j] =
+              __fsub_rn(__fmul_rn(2.f, acc[i][j]), sqv[j]);
+      __syncthreads();
+      on_tile(tile_c0(tile));
+      slice = 0;
+      ++tile;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <class L>
+__global__ void __launch_bounds__(L::THREADS, 2)
+knn_wide_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int* __restrict__ idx,
+                int n, int dx, int k, int row_begin, int rows) {
+  using W = Wide<L>;
+  constexpr int STAGES = L::STAGES, TR = L::TR, TC = L::TC, RPW = W::RPW;
+  extern __shared__ float4 smem4[];
+  const int slots = round_up(k, 32);
+  float* ring = reinterpret_cast<float*>(smem4);  // [STAGES][TC + TR][S]
+  float* scores = ring + STAGES * W::STAGE;       // [TR][SS]
+  float* ls = scores + TR * W::SS;                // [TR][slots], best first
+  int* li = reinterpret_cast<int*>(ls + TR * slots);
+  unsigned char* offs = reinterpret_cast<unsigned char*>(li + TR * slots);  // [WARPS][TC]
+
+  const int b = blockIdx.y;
+  const int row0 = row_begin + blockIdx.x * TR;
+  const int row_end = row_begin + rows;
+  const float* xb = xp + (size_t)b * n * dx;
+  const float* sqb = sq + (size_t)b * n;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const unsigned below_lane = (1u << lane) - 1u;
+
+  for (int q = tid; q < TR * slots; q += L::THREADS) {  // every list empty
+    ls[q] = -INFINITY;
+    li[q] = INT_MAX;
+  }
+  // column tile t of the sweep is the cloud's tile (t0 + t) mod ntiles
+  const int ntiles = (n + TC - 1) / TC;
+  const int t0 = (row0 / TC) % ntiles;
 
   // a tile's selection: warp w takes rows w RPW .. w RPW + RPW - 1 of the tile
   auto select = [&](int c0) {
@@ -983,68 +1104,8 @@ knn_wide_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int*
       __syncwarp();  // off is the next row's
     }
   };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load_slice(s);
-  load_sq(tile_c0(0));
-  int tile = 0, slice = 0;
-  for (long long s = 0; s < total; ++s) {
-    cp_async_wait<STAGES - 2>();  // slice s has landed
-    __syncthreads();              // for every thread; and slice s - 1 is consumed
-    load_slice(s + STAGES - 1);   // into slice s - 1's buffer
-    if (slice == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sqv[j] = sqn[j];
-      if (tile + 1 < ntiles) load_sq(tile_c0(tile + 1));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-    const float* st = ring + (int)(s % STAGES) * W::STAGE;
-#pragma unroll
-    for (int q = 0; q < DC / 4; ++q) {
-      float4 a[4], v[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(st + (TC + rt + L::RT * i) * L::S + 4 * q);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[j] = *reinterpret_cast<const float4*>(st + (ct + L::CT * j) * L::S + 4 * q);
-      // 4 dimensions of the 4 x 8 sums, each sum's chain in dimension order
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].x, v[j].x, acc[i][j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].y, v[j].y, acc[i][j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].z, v[j].z, acc[i][j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].w, v[j].w, acc[i][j]);
-    }
-    if (++slice == nslices) {
-      // the tile's scores, 2 x_i.x_j - |x_j|^2, then its selection (the
-      // next tile's epilogue is past the next iteration's barrier)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          scores[(rt + L::RT * i) * W::SS + ct + L::CT * j] =
-              __fsub_rn(__fmul_rn(2.f, acc[i][j]), sqv[j]);
-      __syncthreads();
-      select(tile_c0(tile));
-      slice = 0;
-      ++tile;
-    }
-  }
-  cp_async_wait<0>();
+  wide_sweep<L>(ring, scores, xb, sqb, n, dx, row0, row_end, ntiles,
+                [&](int t) { return (t0 + t) % ntiles * TC; }, select);
   __syncwarp();
   // lane q < k of row r: the q-th best (rows of this warp only: its lists)
 #pragma unroll 1
@@ -1057,73 +1118,254 @@ knn_wide_kernel(const float* __restrict__ xp, const float* __restrict__ sq, int*
   }
 }
 
-__host__ inline size_t rowwise_smem_bytes(int n, int d) {
-  return sizeof(float) * ((size_t)n + d) + (sizeof(float) + sizeof(int)) * WARPS;
+// The order-preserving key of a score: larger exactly when the score ranks
+// above; -0.0 the key of +0.0 (knn_plain's sort holds them equal); NaN 0,
+// below -inf's 0x007fffff, so that a NaN never ranks.
+__device__ __forceinline__ unsigned score_key(float v) {
+  unsigned u = __float_as_uint(v);
+  if (v != v) return 0u;
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__global__ void __launch_bounds__(THREADS)
-knn_rowwise_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
-                   int* __restrict__ idx, int n, int d, int dx, int k, int row_begin, int rows) {
+// The radix route's scores: rows row_first .. row_first + group_rows - 1 of
+// cloud blockIdx.z, a block's TR of them (blockIdx.x) against its chunk of
+// chunk_tiles column tiles (blockIdx.y), as keys into keys [b][group_rows]
+// [stride] (a row's n keys first).  Warp w stores rows w RPW .. of each
+// tile, 32 consecutive keys a store.
+template <class L>
+__global__ void __launch_bounds__(L::THREADS, 2)
+knn_keys_kernel(const float* __restrict__ xp, const float* __restrict__ sq,
+                unsigned* __restrict__ keys, long long stride, int n, int dx, int row_first,
+                int group_rows, int chunk_tiles) {
+  using W = Wide<L>;
+  constexpr int TC = L::TC, RPW = W::RPW;
   extern __shared__ float4 smem4[];
-  float* scores = reinterpret_cast<float*>(smem4);  // [n]
-  float* xi = scores + n;                           // [d]
-  float* red_s = xi + d;                            // [WARPS]
-  int* red_i = reinterpret_cast<int*>(red_s + WARPS);  // [WARPS]
+  float* ring = reinterpret_cast<float*>(smem4);  // [STAGES][TC + TR][S]
+  float* scores = ring + L::STAGES * W::STAGE;    // [TR][SS]
 
-  const int row = row_begin + blockIdx.x;
-  const int b = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = row_first + blockIdx.x * L::TR;
+  const int row_end = row_first + group_rows;
   const float* xb = xp + (size_t)b * n * dx;
   const float* sqb = sq + (size_t)b * n;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ntiles = (n + TC - 1) / TC;
+  const int t_first = blockIdx.y * chunk_tiles;
+  unsigned* kb = keys + (size_t)b * group_rows * stride;
+  auto store = [&](int c0) {
+#pragma unroll 1
+    for (int r = 0; r < RPW; ++r) {
+      const int lr = warp * RPW + r;
+      if (row0 + lr >= row_end) break;
+      const float* srow = scores + lr * W::SS;
+      unsigned* krow = kb + (size_t)(row0 + lr - row_first) * stride + c0;
+#pragma unroll
+      for (int m = 0; m < TC / 32; ++m)
+        if (c0 + 32 * m + lane < n) krow[32 * m + lane] = score_key(srow[32 * m + lane]);
+    }
+  };
+  wide_sweep<L>(ring, scores, xb, sqb, n, dx, row0, row_end, min(chunk_tiles, ntiles - t_first),
+                [&](int t) { return (t_first + t) * TC; }, store);
+}
 
-  for (int dd = tid; dd < d; dd += THREADS) xi[dd] = xb[(size_t)row * dx + dd];
+__host__ __device__ inline int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+// An exclusive sum over the block's T threads (warp sums in ws[T / 32]);
+// ends past a barrier.
+template <int T>
+__device__ __forceinline__ int block_exclusive_sum(int v, int* ws) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const int t = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) ws[warp] = incl;
   __syncthreads();
-  for (int j = tid; j < n; j += THREADS) {
-    const float* xj = xb + (size_t)j * dx;
-    float acc = 0.f;
-    for (int dd = 0; dd < d; ++dd) acc = fmaf(xi[dd], xj[dd], acc);
-    scores[j] = __fsub_rn(__fmul_rn(2.f, acc), sqb[j]);
+  int before = 0;
+#pragma unroll
+  for (int w = 0; w < T / 32; ++w) before += w < warp ? ws[w] : 0;
+  return before + incl - v;
+}
+
+// Of `bins` digits (hist: the columns still in play counted by digit), the
+// one whose bucket holds the need-th largest: above < need <= above +
+// hist[d], above the count in larger digits.  found[0..2] = (d, above,
+// hist[d]), for every thread past the closing barrier.  Thread t scans
+// digits bins - 1 - per t down, so the scan runs from the largest digit.
+template <int T>
+__device__ __forceinline__ void find_bucket(const int* hist, int bins, int need, int* ws,
+                                            int* found) {
+  const int per = bins / T;
+  const int hi = bins - 1 - per * threadIdx.x;
+  int s = 0;
+  for (int j = 0; j < per; ++j) s += hist[hi - j];
+  int acc = block_exclusive_sum<T>(s, ws);
+  for (int j = 0; j < per; ++j) {
+    const int h = hist[hi - j];
+    if (acc < need && need <= acc + h) {  // one thread, one digit
+      found[0] = hi - j;
+      found[1] = acc;
+      found[2] = h;
+    }
+    acc += h;
   }
   __syncthreads();
+}
 
-  int* out = idx + ((size_t)b * rows + blockIdx.x) * k;
-  for (int q = 0; q < k; ++q) {
-    float bs = -INFINITY;
-    int bi = INT_MAX;
-    for (int j = tid; j < n; j += THREADS) {
-      const float v = scores[j];
-      if (v > bs || (v == bs && j < bi)) {  // false for NaN
-        bs = v;
-        bi = j;
-      }
+// f(key, column) over a row of n keys: a thread takes 4 consecutive columns
+// a step (one 16-byte load; the row is 16-byte aligned), the block's steps
+// 4 T apart, four steps' loads in flight before their keys are used.
+template <int T, class F>
+__device__ __forceinline__ void for_row(const unsigned* row, int n, F f) {
+  constexpr int STEP = 4 * T;
+  int c = 4 * threadIdx.x;
+  for (; c + 3 * STEP + 4 <= n; c += 4 * STEP) {
+    uint4 v[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) v[m] = __ldcg(reinterpret_cast<const uint4*>(row + c + m * STEP));
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      f(v[m].x, c + m * STEP);
+      f(v[m].y, c + m * STEP + 1);
+      f(v[m].z, c + m * STEP + 2);
+      f(v[m].w, c + m * STEP + 3);
     }
-    for (int off = 16; off > 0; off /= 2) {
-      const float os = __shfl_down_sync(FULL, bs, off);
-      const int oi = __shfl_down_sync(FULL, bi, off);
-      if (os > bs || (os == bs && oi < bi)) {
-        bs = os;
-        bi = oi;
-      }
+  }
+  for (; c < n; c += STEP) {
+    if (c + 4 <= n) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + c);
+      f(v.x, c);
+      f(v.y, c + 1);
+      f(v.z, c + 2);
+      f(v.w, c + 3);
+    } else {
+      for (int j = c; j < n; ++j) f(row[j], j);
     }
-    if (lane == 0) {
-      red_s[warp] = bs;
-      red_i[warp] = bi;
-    }
+  }
+}
+
+// The radix route's selection, one block a row: row g of the group (its
+// keys at keys [b][group_rows][stride]) into output row out_row0 + g of
+// idx [b][out_rows][k].  Shared memory: the sort's 2^m composites (where
+// they fit SORT_CAP), CAND_CAP candidates, RADIX_BINS counts, the scan's
+// warp sums, find_bucket's result and two counters.  T threads.
+template <int T>
+__global__ void __launch_bounds__(T)
+knn_radix_kernel(unsigned* __restrict__ keys, long long stride, int* __restrict__ idx, int n,
+                 int k, int group_rows, int out_rows, int out_row0) {
+  using u64 = unsigned long long;
+  extern __shared__ u64 sm8[];
+  const int tid = threadIdx.x;
+  const int g = blockIdx.x, b = blockIdx.y;
+  unsigned* row = keys + ((size_t)b * group_rows + g) * stride;
+  int* out = idx + ((size_t)b * out_rows + out_row0 + g) * k;
+  const int p2k = pow2_at_least(k);
+  const bool shared_sort = p2k <= SORT_CAP;
+  u64* sorted = shared_sort ? sm8 : reinterpret_cast<u64*>(row + round_up(n, 4));
+  u64* cand = sm8 + (shared_sort ? p2k : 0);
+  int* hist = reinterpret_cast<int*>(cand + CAND_CAP);
+  int* ws = hist + RADIX_BINS;
+  int* found = ws + RADIX_MAX_WARPS;
+  int* counter = found + 3;  // [0] emitted, [1] candidates copied
+
+  // the first digit, the key's top 11 bits (NaN's key 0 alone in digit 0)
+  for (int q = tid; q < RADIX_BINS; q += T) hist[q] = 0;
+  if (tid < 2) counter[tid] = 0;
+  __syncthreads();
+  for_row<T>(row, n, [&](unsigned key, int) { atomicAdd(&hist[key >> 21], 1); });
+  __syncthreads();
+  const int r = min(k, n - hist[0]);  // the columns to emit: every non-NaN one up to k
+  if (r == 0) {
+    for (int q = tid; q < k; q += T) out[q] = -1;
+    return;
+  }
+  find_bucket<T>(hist, RADIX_BINS, r, ws, found);
+  // the columns in play share the composite's top 64 - shp bits, `pre`; this
+  // level's digit is the next w bits, of which d holds the need-th largest
+  int d = found[0], above = found[1], cnt = found[2], need = r;
+  int shp = 64, w = 11, ncand = 0;
+  u64 pre = 0;
+  bool from_row = true;
+  while (true) {
+    const int need_in = need - above;  // still needed from bucket d
+    const int sh = shp - w;
+    const bool take_all = cnt == need_in || sh == 0;  // (the last digit's bucket: one column)
+    const int wn = take_all ? 0 : (sh % 32 == 10 ? 10 : 11);  // digits 11, 11, 10 a word
+    const bool compact = !take_all && from_row && cnt <= CAND_CAP;
+    __syncthreads();  // every thread has read found and hist
+    if (!take_all)
+      for (int q = tid; q < (1 << wn); q += T) hist[q] = 0;
     __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < WARPS; ++w) {
-        if (red_s[w] > bs || (red_s[w] == bs && red_i[w] < bi)) {
-          bs = red_s[w];
-          bi = red_i[w];
+    const unsigned dmask = (1u << w) - 1u, nmask = (1u << wn) - 1u;
+    auto visit = [&](u64 comp) {
+      if (shp < 64 && (comp >> shp) != pre) return;
+      const unsigned dig = (unsigned)(comp >> sh) & dmask;
+      if (dig > (unsigned)d || (take_all && dig == (unsigned)d)) {
+        sorted[atomicAdd(&counter[0], 1)] = comp;
+      } else if (dig == (unsigned)d) {
+        atomicAdd(&hist[(unsigned)(comp >> (sh - wn)) & nmask], 1);
+        if (compact) cand[atomicAdd(&counter[1], 1)] = comp;
+      }
+    };
+    if (from_row)
+      for_row<T>(row, n, [&](unsigned key, int c) { visit((u64)key << 32 | (unsigned)~c); });
+    else
+      for (int q = tid; q < ncand; q += T) visit(cand[q]);
+    __syncthreads();
+    if (take_all) break;
+    if (compact) {
+      from_row = false;
+      ncand = cnt;
+    }
+    pre = shp == 64 ? (u64)d : (pre << w) | (u64)d;
+    shp = sh;
+    w = wn;
+    need = need_in;
+    find_bucket<T>(hist, 1 << w, need, ws, found);
+    d = found[0];
+    above = found[1];
+    cnt = found[2];
+  }
+  // the r emitted composites, largest first.  Up to one a thread: each
+  // one's place is the count of larger ones (distinct: a permutation), no
+  // barrier
+  if (r <= T) {
+    for (int q = tid; q < r; q += T) {
+      const u64 v = sorted[q];
+      int place = 0;
+#pragma unroll 8
+      for (int j = 0; j < r; ++j) place += sorted[j] > v;  // (every thread reads slot j)
+      out[place] = (int)~(unsigned)v;
+    }
+    for (int q = r + tid; q < k; q += T) out[q] = -1;
+    return;
+  }
+  // past it, a bitonic network over p2 >= r slots, the empty ones 0 (below
+  // every column's)
+  const int p2 = pow2_at_least(r);
+  for (int q = r + tid; q < p2; q += T) sorted[q] = 0;
+  __syncthreads();
+  for (int size = 2; size <= p2; size *= 2) {
+    for (int half = size / 2; half > 0; half /= 2) {
+      for (int q = tid; q < p2 / 2; q += T) {
+        const int i = 2 * q - (q & (half - 1)), j = i + half;  // the pair's lower slot
+        const u64 a = sorted[i], c = sorted[j];
+        if ((a < c) == ((i & size) == 0)) {  // blocks of `size` alternate direction
+          sorted[i] = c;
+          sorted[j] = a;
         }
       }
-      out[q] = bi < n ? bi : -1;
-      if (bi < n) scores[bi] = NAN;
+      __syncthreads();
     }
-    __syncthreads();
   }
+  for (int q = tid; q < k; q += T) out[q] = q < r ? (int)~(unsigned)sorted[q] : -1;
 }
 
 // The wide route's prep for D > MAX_D (knn_prep_kernel stages 64 values a
@@ -1152,16 +1394,16 @@ knn_prep_wide_kernel(const T* __restrict__ x, float* __restrict__ xp, float* __r
 // The wide launch plan: of the tiles for this D, the one whose blocks keep
 // the most rows resident on an SM by shared memory and threads (the first,
 // with more slices in flight, on a tie); the padded width dx (a multiple
-// of its DC), the list's slots (32 S) and the shared bytes.  tile -1: the
-// one-row kernel (k > WIDE_MAX_K), dx = round_up(d, 16).
+// of its DC) and the shared bytes, with a row list of 32 ceil(k / 32) slots
+// (knn_wide_kernel) or, for k > WIDE_MAX_K, none (knn_keys_kernel).
 __host__ inline Plan wide_plan_of(int d, int k) {
-  Plan best{-1, round_up(d, 16), 0};
-  if (k > WIDE_MAX_K) return best;
+  const int slots = k > WIDE_MAX_K ? 0 : round_up(k, 32);
+  Plan best{-1, 0, 0};
   int best_rows = 0;
   for (int t = d <= 4 ? 0 : 1; t < (d <= 4 ? 1 : WIDE_TILES); ++t) {
     with_wide_tile(t, [&](auto tile) {
       using L = decltype(tile);
-      const size_t smem = Wide<L>::smem(round_up(k, 32));
+      const size_t smem = Wide<L>::smem(slots);
       if (smem > (size_t)MAX_SMEM) return 0;
       const int blocks = std::min((int)(SM_SMEM / (smem + 1024)), SM_THREADS / L::THREADS);
       if (blocks * L::TR > best_rows) {
@@ -1176,12 +1418,109 @@ __host__ inline Plan wide_plan_of(int d, int k) {
 
 __host__ inline bool wide_in_domain(int b, int n, int d, int k) {
   return b >= 1 && b <= 65535 && n >= 1 && n <= WIDE_MAX_N && (long long)b * n <= INT_MAX &&
-         d >= 1 && d <= WIDE_MAX_D && k >= 1 && k <= n &&
-         (k <= WIDE_MAX_K || rowwise_smem_bytes(n, d) <= (size_t)ROWWISE_SMEM_BYTES);
+         d >= 1 && d <= WIDE_MAX_D && k >= 1 && k <= n;
+}
+
+// The radix route's scratch: a row's stride in words (its n keys, rounded
+// to 16 bytes, then, where 2^m >= k passes SORT_CAP, its sort's 2^m
+// composites), the rows of a group (GROUP_WORDS over the b clouds, at least
+// one), and knn_radix_kernel's shared bytes.
+__host__ inline long long radix_stride(int n, int k) {
+  const int p2 = pow2_at_least(k);
+  return round_up(n, 4) + (p2 > SORT_CAP ? 2LL * p2 : 0LL);
+}
+
+__host__ inline int radix_group(int b, int n, int k, int rows) {
+  const long long g = GROUP_WORDS / ((long long)b * radix_stride(n, k));
+  return (int)std::max(1LL, std::min((long long)rows, g));
+}
+
+__host__ inline size_t radix_smem(int k) {
+  const int p2 = pow2_at_least(k);
+  return sizeof(unsigned long long) * ((p2 <= SORT_CAP ? p2 : 0) + CAND_CAP) +
+         sizeof(int) * (RADIX_BINS + RADIX_MAX_WARPS + 3 + 2);
+}
+
+// A wide launch's scratch in floats: the prep's copy and norms (n
+// (round_up(d, 16) + 1) a cloud) and, for k > WIDE_MAX_K, a group's keys
+// after them, 16-byte aligned.
+__host__ inline long long wide_work_floats(int b, int n, int d, int k, int rows) {
+  const long long prep = (long long)b * n * (round_up(d, 16) + 1);
+  if (k <= WIDE_MAX_K) return prep;
+  return (prep + 3) / 4 * 4 + (long long)b * radix_group(b, n, k, rows) * radix_stride(n, k);
+}
+
+// knn_keys_kernel's column chunks over a group: whole tiles, enough chunks
+// that the group's row tiles and clouds make about KEYS_BLOCKS_PER_SM blocks
+// an SM (at most 65,535: the grid's y).
+struct Chunks {
+  int tiles, count;
+};
+
+__host__ inline Chunks key_chunks(int ntiles, int row_tiles, int b, int sms) {
+  const long long have = (long long)row_tiles * b;
+  const long long want = (long long)KEYS_BLOCKS_PER_SM * sms;
+  const int count = (int)std::min<long long>(std::min(ntiles, 65535),
+                                             std::max(1LL, (want + have - 1) / have));
+  const int tiles = (ntiles + count - 1) / count;
+  return Chunks{tiles, (ntiles + tiles - 1) / tiles};
+}
+
+// f(std::integral_constant<int, T>) for knn_radix_kernel's block at n keys a row.
+template <class F>
+auto with_radix_block(int n, F&& f) {
+  if (n >= LONG_ROW) return f(std::integral_constant<int, RADIX_THREADS_LONG>{});
+  return f(std::integral_constant<int, RADIX_THREADS>{});
+}
+
+__host__ inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The radix route after the prep (plan p): for each group of rows, the key
+// sweep, then one selection block a row.  The keys follow the prep's copy
+// and norms in work.
+__host__ inline cudaError_t radix_launch(const float* xp, const float* sq, int* idx, float* work,
+                                         int b, int n, const Plan& p, int k, int row_begin,
+                                         int rows, cudaStream_t s) {
+  unsigned* keys = reinterpret_cast<unsigned*>(work) +
+                   ((size_t)b * n * p.dx + (size_t)b * n + 3) / 4 * 4;
+  const long long stride = radix_stride(n, k);
+  const int group = radix_group(b, n, k, rows);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  return with_wide_tile(p.tile, [&](auto tile) {
+    using L = decltype(tile);
+    return with_radix_block(n, [&](auto threads) {
+      constexpr int T = decltype(threads)::value;
+      cudaError_t e = allow_smem<knn_keys_kernel<L>>();
+      if (e == cudaSuccess) e = allow_smem<knn_radix_kernel<T>>();
+      if (e != cudaSuccess) return e;
+      const int ntiles = (n + L::TC - 1) / L::TC;
+      for (int g0 = 0; g0 < rows; g0 += group) {
+        const int gr = std::min(group, rows - g0);
+        const int row_tiles = (gr + L::TR - 1) / L::TR;
+        const Chunks ch = key_chunks(ntiles, row_tiles, b, sms);
+        knn_keys_kernel<L><<<dim3(row_tiles, ch.count, b), L::THREADS, p.smem, s>>>(
+            xp, sq, keys, stride, n, p.dx, row_begin + g0, gr, ch.tiles);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+        knn_radix_kernel<T><<<dim3(gr, b), T, radix_smem(k), s>>>(keys, stride, idx, n, k, gr,
+                                                                  rows, g0);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+      }
+      return cudaSuccess;
+    });
+  });
 }
 
 // The wide route on x [b, n, d] of element type T, for rows row_begin ..
-// row_begin + rows - 1; work holds n (round_up(d, 16) + 1) floats per cloud.
+// row_begin + rows - 1; work holds wide_work_floats(b, n, d, k, rows).
 template <typename T>
 int knn_wide_entry(const T* x, int* idx, float* work, int b, int n, int d, int k, int row_begin,
                    int rows, void* stream) {
@@ -1200,15 +1539,7 @@ int knn_wide_entry(const T* x, int* idx, float* work, int b, int n, int d, int k
                               PREP_THREADS, 0, s>>>(x, xp, sq, points, d, p.dx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (p.tile < 0) {
-    const size_t smem = rowwise_smem_bytes(n, d);
-    err = cudaFuncSetAttribute(knn_rowwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    knn_rowwise_kernel<<<dim3(rows, b), THREADS, smem, s>>>(xp, sq, idx, n, d, p.dx, k,
-                                                            row_begin, rows);
-    return (int)cudaGetLastError();
-  }
+  if (k > WIDE_MAX_K) return (int)radix_launch(xp, sq, idx, work, b, n, p, k, row_begin, rows, s);
   return (int)with_wide_tile(p.tile, [&](auto tile) {
     using L = decltype(tile);
     cudaError_t e = allow_smem<knn_wide_kernel<L>>();
@@ -1265,9 +1596,9 @@ extern "C" int hpcs_knn_geometry(int b, int n, int d, int k, int rows, int* out)
 }
 
 // The wide route: x [b, n, d] fp32 and idx [b, rows, k] int32, both
-// contiguous on the device, work and rows as hpcs_knn's; any n <= 2^30 (b n
-// <= 2^31 - 1), d <= 2^20 and k <= n, and for k > 256 n + d floats within
-// ROWWISE_SMEM_BYTES.  Returns the cudaError_t of the launches.
+// contiguous on the device, rows as hpcs_knn's and work, scratch of
+// hpcs_knn_wide_work(b, n, d, k, rows) floats; any n <= 2^30 (b n <= 2^31 -
+// 1), d <= 2^20 and k <= n.  Returns the cudaError_t of the launches.
 extern "C" int hpcs_knn_wide(const float* x, int* idx, float* work, int b, int n, int d, int k,
                              int row_begin, int rows, void* stream) {
   return knn_wide_entry(x, idx, work, b, n, d, k, row_begin, rows, stream);
@@ -1279,48 +1610,77 @@ extern "C" int hpcs_knn_wide_bf16(const __nv_bfloat16* x, int* idx, float* work,
   return knn_wide_entry(x, idx, work, b, n, d, k, row_begin, rows, stream);
 }
 
+// The floats of scratch hpcs_knn_wide takes at (b, n, d, k) over `rows`
+// rows, into out[0]: n (round_up(d, 16) + 1) a cloud and, for k > 256, the
+// radix route's keys of a group of rows.  Returns a cudaError_t.
+extern "C" int hpcs_knn_wide_work(int b, int n, int d, int k, int rows, long long* out) {
+  if (!wide_in_domain(b, n, d, k) || !valid_rows(n, 0, rows)) return (int)cudaErrorInvalidValue;
+  *out = wide_work_floats(b, n, d, k, rows);
+  return cudaSuccess;
+}
+
 // The launch geometry of hpcs_knn_wide at (b, n, d, k) over `rows` rows,
-// into out[14]: the kernel's grid x and y, threads, dynamic shared bytes,
-// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// into out[22]: the score kernel's grid x and y, threads, dynamic shared
+// bytes, resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // registers, local (spill) bytes a thread, rows and columns of its tile,
-// the padded row width dx, the prep kernel's blocks, the ring's stages,
-// a row list's slots (32 S), and 1 for knn_rowwise_kernel (k > 256; its
-// tile one row by n columns, no ring, no list), else 0.  Returns a
+// the padded row width dx, the prep kernel's blocks, the ring's stages and
+// a row list's slots (32 S; 0 on the radix route); then 1 for the radix
+// route (k > 256), else 0, and for it: knn_keys_kernel's column chunks (its
+// grid's y; the clouds its z), the rows of a group (grid x above: their row
+// tiles), the groups, and knn_radix_kernel's threads, shared bytes,
+// resident blocks per SM, registers and local bytes (its grid: a group's
+// rows by b).  The
+// wide kernel reports 1 chunk, one group of all rows and zeros.  Returns a
 // cudaError_t.
 extern "C" int hpcs_knn_wide_geometry(int b, int n, int d, int k, int rows, int* out) {
   if (!wide_in_domain(b, n, d, k) || !valid_rows(n, 0, rows)) return (int)cudaErrorInvalidValue;
   const Plan p = wide_plan_of(d, k);
   const int prep = d <= MAX_D ? (b * n + PREP_POINTS - 1) / PREP_POINTS
                               : (b * n + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32);
-  cudaFuncAttributes attr;
-  int resident = 0;
-  cudaError_t err;
-  if (p.tile < 0) {
-    const size_t smem = rowwise_smem_bytes(n, d);
-    err = cudaFuncSetAttribute(knn_rowwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, knn_rowwise_kernel);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, knn_rowwise_kernel, THREADS,
-                                                          smem);
+  const bool radix = k > WIDE_MAX_K;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  int sel[5] = {0, 0, 0, 0, 0};
+  if (radix) {
+    err = with_radix_block(n, [&](auto threads) {
+      constexpr int T = decltype(threads)::value;
+      cudaFuncAttributes attr;
+      const size_t smem = radix_smem(k);
+      cudaError_t e = allow_smem<knn_radix_kernel<T>>();
+      if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, knn_radix_kernel<T>);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&sel[2], knn_radix_kernel<T>, T, smem);
+      sel[0] = T;
+      sel[1] = (int)smem;
+      sel[3] = attr.numRegs;
+      sel[4] = (int)attr.localSizeBytes;
+      return e;
+    });
     if (err != cudaSuccess) return (int)err;
-    const int values[] = {rows, b, THREADS, (int)smem, resident, attr.numRegs,
-                          (int)attr.localSizeBytes, 1, n, p.dx, prep, 0, 0, 1};
-    for (int q = 0; q < 14; ++q) out[q] = values[q];
-    return cudaSuccess;
   }
   return (int)with_wide_tile(p.tile, [&](auto tile) {
     using L = decltype(tile);
-    cudaError_t e = allow_smem<knn_wide_kernel<L>>();
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, knn_wide_kernel<L>);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, knn_wide_kernel<L>,
-                                                        L::THREADS, p.smem);
+    cudaFuncAttributes attr;
+    int resident = 0;
+    auto query = [&](auto kernel, cudaError_t allowed) {
+      cudaError_t q = allowed;
+      if (q == cudaSuccess) q = cudaFuncGetAttributes(&attr, kernel);
+      if (q == cudaSuccess)
+        q = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, L::THREADS, p.smem);
+      return q;
+    };
+    const cudaError_t e = radix ? query(knn_keys_kernel<L>, allow_smem<knn_keys_kernel<L>>())
+                                : query(knn_wide_kernel<L>, allow_smem<knn_wide_kernel<L>>());
     if (e != cudaSuccess) return e;
-    const int values[] = {(rows + L::TR - 1) / L::TR, b, L::THREADS, (int)p.smem, resident,
-                          attr.numRegs, (int)attr.localSizeBytes, L::TR, L::TC, p.dx, prep,
-                          L::STAGES, round_up(k, 32), 0};
-    for (int q = 0; q < 14; ++q) out[q] = values[q];
+    const int group = radix ? radix_group(b, n, k, rows) : rows;
+    const int row_tiles = (group + L::TR - 1) / L::TR;
+    const int chunks = radix ? key_chunks((n + L::TC - 1) / L::TC, row_tiles, b, sms).count : 1;
+    const int values[] = {row_tiles, b, L::THREADS, (int)p.smem, resident, attr.numRegs,
+                          (int)attr.localSizeBytes, L::TR, L::TC, p.dx, prep, L::STAGES,
+                          radix ? 0 : round_up(k, 32), radix ? 1 : 0, chunks, group,
+                          (rows + group - 1) / group, sel[0], sel[1], sel[2], sel[3], sel[4]};
+    for (int q = 0; q < 22; ++q) out[q] = values[q];
     return cudaSuccess;
   });
 }

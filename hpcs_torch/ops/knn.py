@@ -5,9 +5,11 @@ tensor to hand-written kernels in `csrc/knn.cu`, chosen by shape.  Both
 routes first run a prep kernel, which makes a padded fp32 copy of x and
 |x_j|^2 in scratch the wrapper allocates; then kernel B1, `knn_kernel`, for
 D <= 64, k <= 32 and N <= 4096, and the wide route for every other shape
-(N <= WIDE_MAX_N, D <= WIDE_MAX_D): `knn_wide_kernel`, row tiles with a
-streamed selection, for k <= WIDE_MAX_K, and `knn_rowwise_kernel`, one
-block per row, for larger k, up to N + D = ROWWISE_MAX_FLOATS.
+(N <= WIDE_MAX_N, D <= WIDE_MAX_D, any k <= N): `knn_wide_kernel`, row tiles
+with a streamed selection, for k <= WIDE_MAX_K, and for larger k the radix
+route, `knn_keys_kernel` (the same score sweep, its scores stored as
+order-preserving keys for a group of rows at a time) then
+`knn_radix_kernel` (a radix select and a sort, one block a row).
 Each takes a range of query rows (`rows`), ranked against every point: the
 point-sharded forward's rows of the gathered cloud.  All rank by the exact
 fp32 score 2 x_i.x_j - |x_j|^2 (the row's own -|x_i|^2 cannot change the
@@ -31,16 +33,14 @@ MAX_D = 64
 MAX_K = 32
 MAX_N = 4096
 # the wide route: int32 indices (with a tile's room past N), and a row's
-# list of its best ceil(k / 32) 32 in shared memory up to WIDE_MAX_K
+# list of its best ceil(k / 32) 32 in shared memory up to WIDE_MAX_K; past
+# it the radix route
 WIDE_MAX_N = 1 << 30
 WIDE_MAX_D = 1 << 20
 WIDE_MAX_K = 256
-# knn_rowwise_kernel (k > WIDE_MAX_K) keeps a row's N scores and D values in
-# shared memory
-ROWWISE_MAX_FLOATS = 192 * 1024 // 4 - 16
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# the routes' scratch at most (256 MiB); a larger batch goes through in
-# groups of clouds
+# the routes' scratch at most (256 MiB; the radix route's keys take 128
+# MiB of it); a larger batch goes through in groups of clouds
 WORK_FLOATS = 1 << 26
 _ENTRIES = {}  # the C entry points, bound at first use
 
@@ -90,11 +90,28 @@ def _check_input(x, what):
                          f"got {x.dtype} {tuple(x.shape)}")
 
 
-def _launch(symbol, x, k, rows):
+def _entry(symbol, argtypes=_ARGTYPES):
+    fn = _ENTRIES.get(symbol)
+    if fn is None:
+        fn = _ENTRIES[symbol] = _build.function("knn", symbol, argtypes)
+    return fn
+
+
+def _radix_work(b, n, d, k, rows):
+    """The floats of scratch the radix route takes for b clouds (knn.cu's
+    hpcs_knn_wide_work: the prep's, then a group of rows' keys)."""
+    out = ctypes.c_longlong()
+    fn = _entry("hpcs_knn_wide_work", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    _build.check(fn(b, n, d, k, rows, ctypes.addressof(out)), "hpcs_knn_wide_work")
+    return out.value
+
+
+def _launch(symbol, x, k, rows, radix=False):
     """idx [B, r1 - r0, k] from the C entry `symbol` (or its _bf16 twin) of
-    csrc/knn.cu, in groups of clouds whose scratch fits WORK_FLOATS, on
-    the current stream; counts the launch in knn.launches and, where they
-    apply, in row_launches and bf16_launches."""
+    csrc/knn.cu, in groups of clouds whose scratch fits WORK_FLOATS (with
+    `radix`, the radix route's, from knn.cu), on the current stream; counts
+    the launch in knn.launches and, where they apply, in row_launches and
+    bf16_launches."""
     B, N, D = x.shape
     r0, r1 = _row_range(rows, N)
     idx = torch.empty((B, r1 - r0, k), dtype=torch.int32, device=x.device)
@@ -102,12 +119,17 @@ def _launch(symbol, x, k, rows):
         return idx
     if x.dtype == torch.bfloat16:
         symbol += "_bf16"
-    fn = _ENTRIES.get(symbol)
-    if fn is None:
-        fn = _ENTRIES[symbol] = _build.function("knn", symbol, _ARGTYPES)
-    per_cloud = _work_floats(N, D)
-    group = max(1, min(B, WORK_FLOATS // per_cloud))
-    work = torch.empty(group * per_cloud, dtype=torch.float32, device=x.device)
+    fn = _entry(symbol)
+    if radix:
+        group = B  # halved until the scratch fits
+        while group > 1 and _radix_work(group, N, D, k, r1 - r0) > WORK_FLOATS:
+            group = (group + 1) // 2
+        # (a smaller last group may get a row more a cloud: the larger scratch)
+        floats = max(_radix_work(g, N, D, k, r1 - r0) for g in {group, B % group or group})
+    else:
+        group = max(1, min(B, WORK_FLOATS // _work_floats(N, D)))
+        floats = group * _work_floats(N, D)
+    work = torch.empty(floats, dtype=torch.float32, device=x.device)
     current = x.device.index == torch.cuda.current_device()
     with contextlib.nullcontext() if current else torch.cuda.device(x.device):
         # the current stream's raw handle (torch.cuda.current_stream(...)
@@ -143,16 +165,11 @@ def _knn_wide_cuda(x, k, rows=None):
     if not (1 <= D <= WIDE_MAX_D and 1 <= k <= N <= WIDE_MAX_N):
         raise ValueError(f"wide knn kernel takes k <= N <= {WIDE_MAX_N} and D <= "
                          f"{WIDE_MAX_D}; got D={D}, k={k}, N={N}")
-    if k > WIDE_MAX_K and N + D > ROWWISE_MAX_FLOATS:
-        raise ValueError(f"wide knn kernel keeps a row's list of up to {WIDE_MAX_K}; beyond it "
-                         f"the one-row kernel keeps a row's N scores and D values in 192 KiB of "
-                         f"shared memory: for k > {WIDE_MAX_K} it takes N + D <= "
-                         f"{ROWWISE_MAX_FLOATS}; got D={D}, k={k}, N={N}")
-    idx = _launch("hpcs_knn_wide", x, k, rows)
+    idx = _launch("hpcs_knn_wide", x, k, rows, radix=k > WIDE_MAX_K)
     if B:
         knn.wide_launches += 1
         if k > WIDE_MAX_K:
-            knn.rowwise_launches += 1
+            knn.radix_launches += 1
     return idx
 
 
@@ -163,8 +180,8 @@ def knn(x, k, rows=None):
 
     A CUDA tensor goes to kernel B1 where it takes the shape, else to the
     wide route; both count in `knn.launches`, the wide route also in
-    `knn.wide_launches` (its one-row kernel, k > WIDE_MAX_K, also in
-    `knn.rowwise_launches`), a launch on bf16 also in `knn.bf16_launches`,
+    `knn.wide_launches` (its radix route, k > WIDE_MAX_K, also in
+    `knn.radix_launches`), a launch on bf16 also in `knn.bf16_launches`,
     a launch over a row range also in `knn.row_launches`.  The call is the span
     `knn` (utils.profiling).  Under NaN debugging a CUDA call first checks
     its rows' scores: a NaN score leaves the selection undefined, and the
@@ -186,7 +203,7 @@ def knn(x, k, rows=None):
 
 knn.launches = 0
 knn.wide_launches = 0
-knn.rowwise_launches = 0
+knn.radix_launches = 0
 knn.bf16_launches = 0
 knn.row_launches = 0
 

@@ -401,6 +401,150 @@ def knn_stream_work(x, k, row_step=1):
     return merges / count, insertions / count
 
 
+RADIX_CAND_CAP = 2048  # knn.cu's CAND_CAP: a bucket's columns copied to shared memory
+
+
+def radix_score_keys(scores):
+    """knn.cu's score_key on fp32 scores: uint32 keys, larger exactly when
+    the score ranks above; -0.0 the key of +0.0, NaN 0 (below -inf)."""
+    s = np.asarray(scores, np.float32)
+    u = s.view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    keys = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return np.where(np.isnan(s), np.uint32(0), keys).astype(np.uint32)
+
+
+def _radix_bucket(hist, need):
+    """knn.cu's find_bucket: the digit d whose bucket holds the need-th
+    largest, the count above it and its own count."""
+    rev = np.asarray(hist, np.int64)[::-1]
+    j = int(np.searchsorted(np.cumsum(rev), need))
+    return len(rev) - 1 - j, int(rev[:j].sum()), int(rev[j])
+
+
+def _radix_sorted(comp):
+    """knn.cu's bitonic network over 2^m >= len(comp) slots (the empty ones
+    0), largest first, pair by pair as the kernel's threads take them."""
+    p2 = 1
+    while p2 < len(comp):
+        p2 *= 2
+    a = np.zeros(p2, np.uint64)
+    a[:len(comp)] = comp
+    q = np.arange(p2 // 2)
+    size = 2
+    while size <= p2:
+        half = size // 2
+        while half:
+            i = 2 * q - (q & (half - 1))
+            j = i + half
+            lo, hi = a[i], a[j]
+            swap = (lo < hi) == ((i & size) == 0)
+            a[i], a[j] = np.where(swap, hi, lo), np.where(swap, lo, hi)
+            half //= 2
+        size *= 2
+    return a
+
+
+def knn_radix_select(keys, k, cand_cap=RADIX_CAND_CAP, threads=None):
+    """knn_radix_kernel (knn.cu) replayed on one row's uint32 keys
+    (radix_score_keys): (indices [k], -1 past the row's non-NaN columns; the
+    passes over the row; the passes over its copied candidates).
+
+    The composite (key << 32 | ~column) is distinct for every column and
+    larger exactly when the column ranks above (score descending, then
+    index ascending).  A radix select on digits of 11, 11 and 10 bits a
+    32-bit word, from the top: a pass counts the columns still in play by
+    their digit; the bucket of the need-th largest is found; the next pass
+    emits the columns of larger digits and counts the bucket's by their next
+    digit, until a bucket holds exactly what is still needed (emitted
+    whole).  The first bucket of at most cand_cap columns met on a pass over
+    the row is copied aside, and later passes read only the copy.  Up to
+    `threads` (the kernel's block; None: its choice, 1024 from 8192
+    columns, else 256) emitted composites each go to the count of larger
+    ones, more through the kernel's bitonic network.
+    """
+    keys = np.asarray(keys, np.uint32)
+    n = keys.shape[0]
+    src = (keys.astype(np.uint64) << np.uint64(32)) | (~np.arange(n, dtype=np.uint32)).astype(
+        np.uint64)
+    hist = np.bincount(keys >> 21, minlength=2048)
+    row_passes, cand_passes = 1, 0
+    r = min(k, n - int(hist[0]))
+    if r == 0:
+        return np.full(k, -1, np.int64), row_passes, cand_passes
+    d, above, cnt = _radix_bucket(hist, r)
+    need, shp, w, pre, from_row, emitted = r, 64, 11, 0, True, []
+    while True:
+        need_in = need - above
+        sh = shp - w
+        take_all = cnt == need_in or sh == 0  # (the last digit's bucket: one column)
+        wn = 0 if take_all else (10 if sh % 32 == 10 else 11)
+        compact = not take_all and from_row and cnt <= cand_cap
+        play = src if shp == 64 else src[(src >> np.uint64(shp)) == np.uint64(pre)]
+        dig = (play >> np.uint64(sh)) & np.uint64((1 << w) - 1)
+        emitted.append(play[(dig > d) | (take_all & (dig == d))])
+        row_passes, cand_passes = row_passes + from_row, cand_passes + (not from_row)
+        if take_all:
+            break
+        bucket = play[dig == d]
+        hist = np.bincount(((bucket >> np.uint64(sh - wn)) & np.uint64((1 << wn) - 1))
+                           .astype(np.int64), minlength=1 << wn)
+        if compact:
+            src, from_row = bucket, False
+        pre = d if shp == 64 else (pre << w) | d
+        shp, w, need = sh, wn, need_in
+        d, above, cnt = _radix_bucket(hist, need)
+    comp = np.concatenate(emitted)
+    assert len(comp) == r
+    if r <= (threads or (1024 if n >= 8192 else 256)):
+        ordered = np.empty_like(comp)
+        ordered[(comp[None, :] > comp[:, None]).sum(1)] = comp  # each at its count of larger
+    else:
+        ordered = _radix_sorted(comp)[:r]
+    cols = (~(ordered & np.uint64(0xFFFFFFFF)).astype(np.uint32)).astype(np.int64)
+    return np.concatenate([cols, np.full(k - r, -1, np.int64)]), row_passes, cand_passes
+
+
+def knn_radix_route(scores, k, tile=WIDE_TILE_COLUMNS, group=None, cand_cap=RADIX_CAND_CAP,
+                    threads=None):
+    """The radix route replayed on the fp32 scores [R, N] of R query rows:
+    the rows in groups of `group` (None: one group),
+    each group's keys stored tile by tile (`tile` columns, as
+    knn_keys_kernel's column tiles) into a scratch [group, N], then each
+    row of the group selected (knn_radix_select, with `threads`).  Returns
+    (indices [R, k]; the mean passes a row over its keys and over its
+    copied candidates)."""
+    scores = np.asarray(scores, np.float32)
+    R, n = scores.shape
+    group = R if group is None else group
+    out = np.empty((R, k), np.int64)
+    passes = np.zeros(2)
+    for g0 in range(0, R, group):
+        rows = min(group, R - g0)
+        scratch = np.zeros((rows, n), np.uint32)
+        for c0 in range(0, n, tile):
+            scratch[:, c0:c0 + tile] = radix_score_keys(scores[g0:g0 + rows, c0:c0 + tile])
+        for r in range(rows):
+            out[g0 + r], *p = knn_radix_select(scratch[r], k, cand_cap, threads)
+            passes += p
+    return out, *(passes / R)
+
+
+def knn_radix_work(x, k, row_step=1):
+    """Mean passes a row over its keys and over its copied candidates of
+    the radix route's selection on x [B, N, D], over rows 0, row_step,
+    2 row_step, ... of each cloud: its data-dependent work."""
+    passes, count = np.zeros(2), 0
+    for b in range(x.shape[0]):
+        xb = x[b].float()
+        # knn_scores' arithmetic, on the sampled rows only
+        scores = 2.0 * (xb[::row_step] @ xb.T) - torch.sum(xb * xb, dim=-1)[None, :]
+        for s in scores.cpu().numpy():
+            passes += knn_radix_select(radix_score_keys(s), k)[1:]
+            count += 1
+    return tuple(passes / count)
+
+
 NEAR_TIE = 1e-3  # |sim(a,p) - sim(a,n)| below which two fp32 'easy' masks may differ
 
 

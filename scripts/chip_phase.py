@@ -2,9 +2,10 @@
 kernels: `knn` (kernel B1 against knn_plain at the flagship: exactness,
 times, selection work, launch geometry, half clouds), `knn_wide` (B1's
 wide route at the shapes B1 refuses, N = 65,536 included: exactness,
-bf16, times beside the bound, launch geometry, the 4096 / 4097 edge),
-`long_cloud` (the flagship served at N = 8192 and at k = 40 through the
-wide route, and `python -m hpcs_torch.train --fixed_points 8192`),
+bf16, times beside the bound, launch geometry, the 4096 / 4097 edge; its
+radix route for k > 256 and the 256 / 257 edge), `long_cloud` (the
+flagship served at N = 8192 and at k = 40 and 300 through the wide route,
+and `python -m hpcs_torch.train --fixed_points 8192`),
 `observe` (--profile, --debug_nans, --plot_inference and the SO(3) probe),
 `parallel` (hpcs_torch.parallel: data-parallel steps, the sharded
 test_step, every configuration point-sharded), `examples`

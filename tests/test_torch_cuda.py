@@ -38,8 +38,6 @@ def test_wide_knn_kernel_rejects_shapes_it_does_not_take():
         K._knn_wide_cuda(torch.empty(1, 2 ** 30 + 1, 3, device="meta"), 4)
     with pytest.raises(ValueError, match="D <= 1048576"):
         K._knn_wide_cuda(torch.empty(1, 16, 2 ** 20 + 1, device="meta"), 4)
-    with pytest.raises(ValueError, match="N \\+ D <= 49136"):
-        K._knn_wide_cuda(torch.zeros(1, 49100, 40), 257)
     with pytest.raises(ValueError, match="k <= N"):
         K._knn_wide_cuda(torch.zeros(1, 30, 3), 31)
     with pytest.raises(ValueError, match="float32"):
@@ -198,11 +196,13 @@ def _ranked_without_nan(x, k, rows=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D,k,nan_points", [(40, 3, 20, 30), (1024, 63, 20, 5),
-                                              (33, 64, 32, 33)])
+                                              (33, 64, 32, 33), (600, 3, 300, 400),
+                                              (9000, 5, 300, 8800)])
 def test_knn_kernel_nan_rows_and_fewer_than_k_real_scores(N, D, k, nan_points, dtype):
     """Points with a NaN coordinate: their rows' scores are all NaN (every
     slot -1) and their columns NaN in every row; with 30 of 40 points NaN a
-    row has 10 real scores for k = 20."""
+    row has 10 real scores for k = 20 (on the radix route, k = 300: 200 and
+    200 real scores)."""
     require_cuda()
     rng = np.random.default_rng(N + nan_points)
     x = rng.integers(-3, 4, size=(2, N, D)).astype(np.float32)
@@ -491,16 +491,96 @@ def test_wide_knn_kernel_equals_b1_where_both_take_the_shape(D, kind):
 
 @pytest.mark.cuda
 def test_wide_knn_one_row_kernel_serves_k_past_256_only():
-    """k > 256 goes to the one-row kernel, counted apart; k = 256 does not."""
+    """k > 256 goes to the radix route (which took the one-row kernel's
+    place), counted apart in knn.radix_launches at each launch, whole or
+    over rows; k = 256 does not."""
     require_cuda()
     x = torch.randn(2, 600, 3, device="cuda")
-    for k, rowwise in ((256, 0), (257, 1), (600, 1)):
-        before = K.knn.rowwise_launches, K.knn.wide_launches
-        got = K.knn(x, k)
+    for k, rows, radix in ((256, None, 0), (257, None, 1), (600, None, 1), (300, (5, 77), 1)):
+        before = K.knn.radix_launches, K.knn.wide_launches
+        got = K.knn(x, k, rows=rows)
         torch.cuda.synchronize()
-        assert (K.knn.rowwise_launches - before[0], K.knn.wide_launches - before[1]) == (
-            rowwise, 1)
-        assert (got == K.knn_plain(x, k)).float().mean() > 0.999
+        assert (K.knn.radix_launches - before[0], K.knn.wide_launches - before[1]) == (radix, 1)
+        assert (got == K.knn_plain(x, k, rows=rows)).float().mean() > 0.999
+
+
+_RADIX_SHAPES = [(1024, 3, 257), (1024, 3, 300), (1024, 63, 600), (1100, 3, 1024), (1100, 3, 1100),
+                 (300, 130, 300), (9000, 3, 4096), (9000, 5, 4097)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,D,k", [(kind, *shape) for kind in ("ties", "adjacent", "line",
+                                                                     "equal")
+                                        for shape in _RADIX_SHAPES
+                                        if kind != "line" or shape[0] <= 2048])
+def test_radix_route_matches_plain(kind, N, D, k):
+    """The radix route (k > 256) on clouds whose scores are exact: knn_plain
+    index for index, at k in {257, 300, 600, 1024, N}, through each of its
+    branches: 256-thread selection blocks (N < 8192) and 1024-thread ones,
+    the sort in shared memory (k <= 4096) and in the rows' scratch (k >
+    4096), the candidates copied (most clouds) or every pass over the row
+    (equal points past 2048 columns); the line only where N <= 2048 keeps
+    its scores exact."""
+    require_cuda()
+    x = _exact_cloud(kind, 2, N, D)
+    before = K.knn.radix_launches
+    got = K.knn(x, k)
+    torch.cuda.synchronize()
+    assert K.knn.radix_launches - before == 1
+    torch.testing.assert_close(got, K.knn_plain(x, k), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,k", [(49152, 3, 300), (49152, 3, 1024), (50000, 63, 600),
+                                   (49152, 3, 49152)])
+def test_radix_route_past_the_old_cap_on_row_ranges(N, D, k):
+    """N + D > 49,136 (the one-row kernel's old cap): three row ranges of an
+    integer cloud and of a Gaussian one, each launched alone, equal the
+    whole launch's rows index for index; against knn_plain over those rows
+    (its [rows, N] scores) exactly on the integer cloud, up to near-ties
+    on the Gaussian one."""
+    require_cuda()
+    rng = np.random.default_rng(N + k)
+    for exact in (True, False):
+        x = (rng.integers(-8, 9, size=(1, N, D)) if exact else rng.standard_normal((1, N, D)))
+        x = torch.from_numpy(x.astype(np.float32)).cuda()
+        whole = K.knn(x, k)
+        for rows in ((0, 64), (N // 2 - 32, N // 2 + 32), (N - 64, N)):
+            got = K.knn(x, k, rows=rows)
+            torch.testing.assert_close(got, whole[:, rows[0]:rows[1]], rtol=0, atol=0)
+            agree = (got == K.knn_plain(x, k, rows=rows)).float().mean()
+            assert agree == 1 if exact else agree > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,k", [(600, 3, 300), (1024, 63, 512), (9000, 3, 300),
+                                   (8192, 130, 257)])
+@pytest.mark.parametrize("rows", ["whole", (0, 16), "mid", "last_rows"])
+def test_radix_route_bf16_equals_its_fp32_route(N, D, k, rows):
+    """bf16 through the prep kernels: index for index the radix route on
+    x.float(), whole and over row ranges."""
+    require_cuda()
+    rows = {"whole": None, "mid": (N // 3 + 5, N // 3 + 301), "last_rows": (N - 40, N)}.get(
+        rows, rows)
+    x = torch.from_numpy(np.random.default_rng(N + D).standard_normal((2, N, D))
+                         .astype(np.float32)).cuda().bfloat16()
+    before = K.knn.bf16_launches, K.knn.radix_launches
+    got = K.knn(x, k, rows=rows)
+    torch.cuda.synchronize()
+    assert (K.knn.bf16_launches - before[0], K.knn.radix_launches - before[1]) == (1, 1)
+    torch.testing.assert_close(got, K.knn(x.float(), k, rows=rows), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_radix_route_equals_the_wide_kernel_where_both_rank_the_same_rows():
+    """The wide kernel's k = 256 and the radix route's k = 257 share the
+    scores (the same sweep): the first 256 indices are equal, on a Gaussian
+    cloud and a tie cloud."""
+    require_cuda()
+    rng = np.random.default_rng(7)
+    for x in (rng.standard_normal((2, 1500, 63)), np.round(tie_cloud(rng, 2, 1500, 3) * 2)):
+        x = torch.from_numpy(x.astype(np.float32)).cuda()
+        torch.testing.assert_close(K.knn(x, 257)[..., :256], K.knn(x, 256), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
