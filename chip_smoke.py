@@ -197,7 +197,24 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    to hpcs_tpu's 8 seeds (benchmarks/parity_real_format_partnet.json; z >=
    -2); (e) examples/partnet_eval_torch.ipynb's code cells on seed 0's
    checkpoint on the card and on the CPU port, compared as in phase
-   notebooks; B1 and B2 counted in every run;
+   notebooks; B1 and B2 counted in every run; and reads the committed
+   libver="latest" fixtures (tests/fixtures/hdf5_latest, written by
+   tools/make_hdf5_fixtures_torch.py with h5py: a PartNet-shaped file
+   growable along its objects, the extensible array chunk index, and a file
+   of dense link storage and a v2 B-tree chunk index) through
+   hpcs_torch.utils.hdf5 and PartNetDataset, equal to the tool's seeded
+   recipe recomputed on the machine;
+14b. runs the quality-parity experiment (phase parity,
+   tools/parity_experiment_torch.py; alone: python3 scripts/chip_phase.py
+   parity [--seeds 0 1 2 3 4]): its data equal to
+   benchmarks/_parity_data.npz; its decode on the card of hpcs_tpu's
+   stored embeddings of 5 seeds, each seed's mean best-k score within 1e-6
+   of hpcs_tpu's stored one and its mean purity equal; its recipe (40
+   epochs, B=4, N=256, eucl = hyp = 16, k=10, SO(3)) trained on the card
+   from seed 0 while 90 s of phase time last (2 seeds at least), B1 3 a
+   step and an eval batch and B2 3 an eval batch; the mean decode purity and score held at z >= -2
+   against hpcs_tpu's 5 seeds, tools/parity_experiment.py's verdicts
+   against the reference's 5 seeds printed, with each seed's seconds;
 15. trains the flagship to convergence (phase trained,
    hpcs_torch.trained_readings): `python -m hpcs_torch.train`'s main with
    the flags of hpcs_tpu's 60-epoch synthetic run
@@ -2957,6 +2974,48 @@ def _h5_read_ms(hdf5, path, reps=3):
     return float(np.median(times)), arrays
 
 
+def _read_latest_fixtures(here, hdf5, PartNetDataset):
+    """The fixtures of tools/make_hdf5_fixtures_torch.py under
+    tests/fixtures/hdf5_latest, read through hpcs_torch.utils.hdf5 (and the
+    PartNet-shaped one through PartNetDataset), each array equal to the
+    tool's recipe (partnet_arrays, dense_arrays) recomputed here; fails
+    otherwise.  Returns the files, their bytes, what they hold and the ms
+    of each read."""
+    sys.path.insert(0, os.path.join(here, "tools"))
+    import make_hdf5_fixtures_torch as fx
+
+    root = os.path.join(here, "tests", "fixtures", "hdf5_latest")
+    checks, ms = {fx.PARTNET_FILE: fx.partnet_arrays(), fx.DENSE_FILE: fx.dense_arrays()}, {}
+    for name, arrays in checks.items():
+        t = time.perf_counter()
+        with hdf5.File(os.path.join(root, name)) as f:
+            got = {key: f[key][...] for key in arrays}
+            groups = {"/": sorted(f.keys())}
+            if name == fx.DENSE_FILE:
+                groups["objects"] = sorted(f["objects"].keys())
+        ms[name] = (time.perf_counter() - t) * 1e3
+        for key, want in arrays.items():
+            if got[key].dtype != want.dtype or not np.array_equal(got[key], want):
+                fail(f"partnet: the fixture {name}'s {key} reads as {got[key].dtype} "
+                     f"{got[key].shape}, not the recipe's {want.dtype} {want.shape}")
+        tops = sorted({key.split("/")[0] for key in arrays})
+        inner = sorted(key[len("objects/"):] for key in arrays if key.startswith("objects/"))
+        if groups["/"] != tops or groups.get("objects", inner) != inner:
+            fail(f"partnet: the fixture {name}'s groups list {groups}")
+    t = time.perf_counter()
+    ds = PartNetDataset(os.path.join(root, fx.PARTNET_LIST), fx.PARTNET_POINTS)
+    ms["PartNetDataset"] = (time.perf_counter() - t) * 1e3
+    want = fx.partnet_arrays()
+    if not (np.array_equal(ds.points, want["data"]) and np.array_equal(ds.label_seg,
+                                                                      want["label_seg"])
+            and np.array_equal(ds.data_num, want["data_num"]) and len(ds) == fx.PARTNET_OBJECTS):
+        fail(f"partnet: PartNetDataset reads the fixture {fx.PARTNET_FILE} unequal to the recipe")
+    return dict(files={n: os.path.getsize(os.path.join(root, n)) for n in checks},
+                objects=fx.PARTNET_OBJECTS, dense_links={"/": fx.DENSE_ROOT + 1,
+                                                         "objects": fx.DENSE_OBJECTS + 1},
+                equal_to_recipe=True, read_ms=ms)
+
+
 def partnet_phase(card):
     """PartNet on the card, read and written without h5py: (a)
     the mini PartNet tree (Bottle, levels 1 and 3, 10,000 points an object)
@@ -2980,8 +3039,10 @@ def partnet_phase(card):
     printed beside hpcs_tpu's; (e) examples/partnet_eval_torch's code cells
     on seed 0's checkpoint, on the card and on the CPU port, compared as
     the notebooks phase compares ShapeNet's.  B1 and B2
-    counted in every run.  Prints whether h5py is installed: the port never
-    imports it."""
+    counted in every run.  Also reads the committed libver="latest" fixtures
+    (tests/fixtures/hdf5_latest: growable datasets, dense link storage)
+    equal to their recipe (_read_latest_fixtures).  Prints whether h5py is
+    installed: the port never imports it."""
     import contextlib
     import importlib.util
     import io
@@ -3045,6 +3106,12 @@ def partnet_phase(card):
             for key, want in arrays.items():
                 if got[key].dtype != want.dtype or not np.array_equal(got[key], want):
                     fail(f"partnet: the {kind} file's {key} reads back unequal")
+
+        # (a') the committed libver="latest" fixtures (growable datasets: the
+        # extensible array and v2 B-tree chunk indexes; dense link storage),
+        # read without h5py, equal to the arrays of the fixture tool's seeded
+        # recipe recomputed here
+        latest = _read_latest_fixtures(here, hdf5, PartNetDataset)
 
         # (b) the entry points at the flagship's width, on a tree of PARTNET_SPLITS
         work = os.path.join(root, "work")
@@ -3257,7 +3324,8 @@ def partnet_phase(card):
                dataset=dict(seconds_to_write=write_s, seconds_to_read=read_s, objects=objects,
                             points=10000, deflated_file=dict(
                                 objects=PARTNET_H5_OBJECTS, points=10000, level=4,
-                                write_ms=write_ms, read_ms=read_ms, mib=mib)),
+                                write_ms=write_ms, read_ms=read_ms, mib=mib),
+                            latest_fixtures=latest),
                entry=entry, train_step=dict(B=PARTNET_STEP_B, N=PARTNET_STEP_N, **step),
                recipe={k: v for k, v in c.items() if k != "seed"},
                seeds=runs, quality=quality, test_acc_nomargin=nomargin,
@@ -3279,6 +3347,105 @@ def partnet_phase(card):
                  f"hpcs_tpu's {q['hpcs_tpu']['mean']:.4f} by {-q['z']:.2f} combined standard "
                  "errors (z < -2)")
     return out
+
+
+PARITY_BUDGET_S = 90  # the torch stage: seeds trained while this much phase time lasts
+PARITY_MIN_SEEDS = 2  # whatever the budget: one seed has no spread, so its z would hold one
+#   draw against the standard error of hpcs_tpu's mean of 5 (a collapsed seed 0 fails it)
+
+
+def parity_phase(card, seeds=None):
+    """tools/parity_experiment_torch.py, the quality-parity experiment, on the
+    card: (a) its data stage (the split arrays equal to
+    benchmarks/_parity_data.npz); (b) its decode stage on hpcs_tpu's stored
+    embeddings of seeds 0-4, each seed's mean best-k score within 1e-6 of
+    hpcs_tpu's stored one and its mean purity equal; (c) its torch stage
+    (40 epochs, B = 4, N = 256, eucl = hyp = 16, k = 10) trained on the card
+    from seed 0 on while PARITY_BUDGET_S of phase time lasts, at least
+    PARITY_MIN_SEEDS seeds (all of `seeds` when given), B1 3 launches a
+    training step and an eval batch and B2 3 an eval batch; (d) its report: the port's mean purity and score held at
+    z >= -2 against hpcs_tpu's 5 seeds, tools/parity_experiment.py's
+    verdicts beside the reference's 5 seeds printed."""
+    import contextlib
+    import io
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import parity_experiment_torch as pet
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    out, launches, runs = tmp.name, {}, []
+    try:
+        # (a) the data
+        if pet.check_data(pet.make_data()) is not True:
+            fail("parity: benchmarks/_parity_data.npz is missing")
+
+        # (b) the decode on the card, all 5 stored seeds
+        _counts(reset=True)
+        t = time.perf_counter()
+        decode = pet.run_decode(range(5), device="cuda", out=out, log=lambda line: None)
+        decode_s = time.perf_counter() - t
+        launches["decode"] = _counts(reset=True)
+        print(f"parity: decode of 5 seeds' stored embeddings on the card in {decode_s:.1f} s; "
+              f"max |score delta| {decode['max_abs_score_delta']:.3e}, max |purity delta| "
+              f"{decode['max_abs_purity_delta']}", file=sys.stderr, flush=True)
+        if not decode["ok"] or sorted(decode["seeds"]) != list(range(5)):
+            fail(f"parity: the decode did not hold every seed: {json.dumps(decode['seeds'])}")
+
+        # (c) the recipe trained on the card, seed by seed
+        c, b = pet.CFG, pet.CFG["batch_size"]
+        steps = c["epochs"] * (c["n_train"] // b)
+        evals = c["epochs"] * (c["n_val"] // b) + c["n_test"] // b
+        want = _launches(knn=3 * (steps + evals), edgeconv=3 * evals)
+        t_torch = time.perf_counter()
+        for seed in (range(5) if seeds is None else seeds):
+            if seeds is None and len(runs) >= PARITY_MIN_SEEDS and \
+                    time.perf_counter() - t_torch + runs[-1]["seconds"] > PARITY_BUDGET_S:
+                break
+            _counts(reset=True)
+            t = time.perf_counter()
+            r = pet.run_torch(seed, device="cuda", out=out, log=lambda line: None)
+            seconds = time.perf_counter() - t
+            launches[f"torch_s{seed}"] = _counts(reset=True)
+            print(f"parity: seed {seed} in {seconds:.1f} s (trained {r['train_wall_s']:.1f} s); "
+                  f"test loss {r['test_loss']:.4f}, acc {r['test_acc']:.4f}, decode score "
+                  f"{r['decode_score_mean']:.4f}, purity {r['decode_purity_mean']:.4f}",
+                  file=sys.stderr, flush=True)
+            if launches[f"torch_s{seed}"] != want:
+                fail(f"parity: seed {seed} launched {launches[f'torch_s{seed}']}, expected "
+                     f"{want} (B1 3 a step and an eval batch, B2 3 an eval batch)")
+            if not all(np.isfinite(r[k]) for k in pet.RESULT_KEYS + ("train_wall_s",)):
+                fail(f"parity: seed {seed}'s results are not finite: {r}")
+            runs.append(dict(seconds=seconds,
+                             **{k: v for k, v in r.items() if "curve" not in k}))
+
+        # (d) the report beside hpcs_tpu's and the reference's 5 seeds
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = pet.report([r["seed"] for r in runs], out)
+    finally:
+        tmp.cleanup()
+    total = {k: sum(run[k] for run in launches.values()) for k in COUNTERS}
+    result = dict(recipe={k: v for k, v in pet.CFG.items() if k != "seed"},
+                  decode=dict(seconds=decode_s, **decode), seeds=runs,
+                  seconds_per_seed={r["seed"]: r["seconds"] for r in runs},
+                  summary=rep["summary"], vs_reference=rep["vs_reference"],
+                  vs_hpcs_tpu=rep["vs_hpcs_tpu"], launches_by_run=launches, launches=total,
+                  budget_s=None if seeds is not None else PARITY_BUDGET_S,
+                  seconds=time.perf_counter() - t_phase, card=card)
+    emit("parity", **result)
+    print(f"parity: {len(runs)} seeds in {result['seconds']:.1f} s of phase time; B1 "
+          f"{total['knn']} and B2 {total['edgeconv']} launches", file=sys.stderr, flush=True)
+    for key in ("decode_purity_mean", "decode_score_mean"):
+        q = rep["summary"][key]
+        if q["vs_hpcs_tpu"]["z"] < -2:
+            fail(f"parity: the card-trained {key} {q['hpcs_torch']['mean']:.4f} is below "
+                 f"hpcs_tpu's {q['hpcs_tpu']['mean']:.4f} by {-q['vs_hpcs_tpu']['z']:.2f} "
+                 "combined standard errors (z < -2)")
+    if not (total["knn"] and total["edgeconv"]):
+        fail(f"parity: B1 launched {total['knn']} and B2 {total['edgeconv']} times")
+    return result
+
 
 
 TRAINED_SCORE_GUARD = 0.98  # well under the 0.9969 of hpcs_tpu's converged run
@@ -4494,6 +4661,7 @@ def main():
     notebooks = notebooks_phase(card, flagship_ckpt)
     kept.cleanup()
     partnet = partnet_phase(card)
+    parity = parity_phase(card)
     trained = trained_phase(card)
     par = parallel_phase(card)
     obs = observe_phase(card)
@@ -4517,7 +4685,8 @@ def main():
              + train["fit_launches"]["knn"] + entry_launches["knn"]
              + backbones["launches"]["knn"] + imp["launches"]["knn"]
              + examples["launches"]["knn"] + notebooks["launches"]["knn"]
-             + partnet["launches"]["knn"] + trained["launches_fp32"]["knn"]
+             + partnet["launches"]["knn"]
+             + parity["launches"]["knn"] + trained["launches_fp32"]["knn"]
              + par["launches"]["knn"] - par["launches"]["knn_bf16"] - par["launches"]["knn_wide"]
              + obs["launches"]["knn"],
              row_launches=par_rows["knn"],
@@ -4531,6 +4700,7 @@ def main():
              + entry_launches["knn_wide"] + backbones["launches"]["knn_wide"]
              + imp["launches"]["knn_wide"] + examples["launches"]["knn_wide"]
              + notebooks["launches"]["knn_wide"] + partnet["launches"]["knn_wide"]
+             + parity["launches"]["knn_wide"]
              + trained["launches"]["knn_wide"] + long["launches"]["knn_wide"] - wide_bf16
              + par["launches"]["knn_wide"] + obs["launches"]["knn_wide"],
              row_launches=par_rows["knn_wide"],
@@ -4554,6 +4724,7 @@ def main():
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
              + imp["launches"]["edgeconv"] + examples["launches"]["edgeconv"]
              + notebooks["launches"]["edgeconv"] + partnet["launches"]["edgeconv"]
+             + parity["launches"]["edgeconv"]
              + trained["launches_fp32"]["edgeconv"]
              + par["launches"]["edgeconv"] - par["launches"]["edgeconv_bf16"]
              + long["launches"]["edgeconv"] - long["launches"]["edgeconv_bf16"]

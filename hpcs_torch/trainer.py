@@ -20,7 +20,8 @@ def _mean_logs(logs_list):
 
 
 def fit(system, train_loader, valid_loader, *, epochs, patience=50, seed=0, log_dir=None,
-        run_name="run", logger=None, ckpt_dir=None, resume=None, train_step_fn=None, log=print):
+        run_name="run", logger=None, ckpt_dir=None, resume=None, train_step_fn=None, log=print,
+        generator_device=None):
     """Train with validation, the plateau LR, temperature annealing and
     early stopping; returns (state, best_val_loss).
 
@@ -30,7 +31,9 @@ def fit(system, train_loader, valid_loader, *, epochs, patience=50, seed=0, log_
     `system.eval_step` on every validation batch, then `system.epoch_end`
     on the mean val_loss.  Training stops after `patience` epochs without a
     better val_loss.  All draws come from one torch.Generator on the
-    system's device, seeded with `seed`.
+    system's device, seeded with `seed` (on `generator_device` where given:
+    "cpu" makes a run on the card draw a CPU run's rotations, masks and
+    triplets).
 
     Each epoch appends one record to `logger` (a MetricLogger; without one,
     `fit` opens its own in `log_dir`/`run_name` when log_dir is given):
@@ -64,7 +67,7 @@ def fit(system, train_loader, valid_loader, *, epochs, patience=50, seed=0, log_
     group = train_step_fn.group if ranked else None
     lead = not ranked or train_step_fn.shard == 0  # validates, logs and writes
     step_fn = train_step_fn or system.train_step
-    generator = torch.Generator(device=system.device).manual_seed(
+    generator = torch.Generator(device=generator_device or system.device).manual_seed(
         train_step_fn.seed(seed) if ranked else seed)
     if not lead:
         logger, log = None, lambda line: None

@@ -1,34 +1,44 @@
 """HDF5 files read and written in plain Python and numpy, without h5py.
 
 Worked from the HDF5 File Format Specification, version 3.0.  What PartNet's
-`sem_seg_h5` files need, in any storage layout that h5py writes by default or
-with compression:
+`sem_seg_h5` files need, in any storage layout that h5py writes by default,
+with compression, or with libver "latest":
 
 Read (`File(path)["data"][...]`: an ndarray of the stored dtype and shape):
 - superblocks of version 0 and 1 (h5py's default, libver "earliest") and of
   version 2 and 3 (libver "latest"), a user block before them included;
 - groups as symbol tables (v1 B-tree of group nodes, local heap, symbol
-  table nodes) or as link messages in the object header (compact storage);
+  table nodes), as link messages in the object header (compact storage),
+  or in dense storage: the link info message's fractal heap (direct and
+  indirect blocks under its doubling table, managed and tiny objects) and
+  its version 2 B-tree of link names (or, where it is the only index, of
+  creation order), each heap object a link message;
 - object headers of version 1 and 2, with their continuation blocks;
-- datasets: the dataspace (scalar or simple), the datatype (fixed-point of
-  1, 2, 4 or 8 bytes, signed or unsigned; IEEE float of 2, 4 or 8 bytes;
-  either byte order), the layout (version 3 and 4: compact, contiguous,
-  chunked), the chunk indexes of version 1 B-trees, single chunks, implicit
-  and fixed arrays, edge chunks cut to the shape, chunks never
-  written filled from the fill value message, and the filters deflate
-  (`zlib`), shuffle and fletcher32 (its checksum checked);
+- datasets: the dataspace (scalar or simple, unlimited dimensions
+  included), the datatype (fixed-point of 1, 2, 4 or 8 bytes, signed or
+  unsigned; IEEE float of 2, 4 or 8 bytes; either byte order), the layout
+  (version 3 and 4: compact, contiguous, chunked), the chunk indexes of
+  version 1 B-trees, single chunks, implicit and fixed arrays, extensible
+  arrays (one unlimited dimension: header, index block, data blocks, paged
+  ones with their page bitmap, super blocks) and version 2 B-trees (more
+  than one unlimited dimension: records of type 10 and, filtered, 11, at
+  any depth), edge chunks cut to the shape, chunks never written filled
+  from the fill value message, and the filters deflate (`zlib`), shuffle
+  and fletcher32 (its checksum checked);
 - the lookup3 checksums of the version 2 formats' metadata, checked.
 
-Anything else (another datatype class, dense link storage, soft or external
-links, the extensible array or version 2 B-tree chunk indexes, another
-filter, external or virtual storage) raises a ValueError naming the feature
-and the file; a truncated or damaged structure raises one as well.
+Anything else (another datatype class, soft or external links, huge
+fractal heap objects, a filter on a fractal heap, edge chunks left
+unfiltered, another filter, external or virtual storage) raises a
+ValueError naming the feature and the file; a truncated or damaged
+structure raises one as well.
 
 Written (`write_h5(path, {name: array})`): superblock version 0, a root
 group of up to 256 datasets as a symbol table, each dataset contiguous, of
 the dtypes above: what h5py's `create_dataset(name, data=array)` writes, and
 nothing else.
 """
+import bisect
 import contextlib
 import math
 import os
@@ -184,8 +194,7 @@ class File(Group):
         start = addr if absolute else self._base + addr
         if start < 0 or n < 0 or start + n > self._size:
             self._damaged(f"{n} bytes at {addr} run past the file's {self._size}")
-        self._f.seek(start)
-        data = self._f.read(n)
+        data = os.pread(self._f.fileno(), n, start)
         if len(data) != n:
             self._damaged(f"short read at {addr}")
         return data
@@ -210,7 +219,8 @@ class File(Group):
         reported as damage (a ValueError naming the file)."""
         try:
             yield
-        except (EOFError, IndexError, struct.error, UnicodeDecodeError) as e:
+        except (EOFError, IndexError, struct.error, UnicodeDecodeError,
+                ZeroDivisionError, OverflowError) as e:
             self._damaged(f"{what}: {type(e).__name__} {e}")
 
     # -- superblock and object headers ---------------------------------------
@@ -330,7 +340,7 @@ class File(Group):
                     obj = Group(self, name, self._symbol_table(
                         [m[2] for m in messages if m[0] == SYMBOL_TABLE][0]))
                 elif LINK_INFO in types or LINK in types:
-                    obj = Group(self, name, self._links(messages, name))
+                    obj = Group(self, name, self._group_links(messages, name))
                 else:
                     self._refuse(f"an object that is neither a dataset nor a group ({name})")
             self._objects[addr] = obj
@@ -397,25 +407,184 @@ class File(Group):
             c.take(24)  # cache type, reserved, scratch pad
             yield name, header
 
-    def _links(self, messages, name):
+    def _group_links(self, messages, name):
+        """{link name: (kind, target)} of a group stored as link messages
+        (compact) or in dense storage (the link info message's heap)."""
         for mtype, _, body in messages:
             if mtype == LINK_INFO:
                 c = _Cursor(body, 2 + (8 if body[1] & 1 else 0), self._offsets, self._lengths)
-                if not self._undefined(c.addr()):
-                    self._refuse(f"dense link storage (a fractal heap) in group {name}")
+                heap, names = c.addr(), c.addr()
+                order = c.addr() if body[1] & 2 else None
+                if not self._undefined(heap):
+                    return self._dense_links(heap, names, order, name)
+        return dict(self._link(body) for mtype, _, body in messages if mtype == LINK)
+
+    def _link(self, body):
+        """(name, (kind, target address or None)) of a link message."""
+        flags = body[1]
+        c = _Cursor(body, 2, self._offsets, self._lengths)
+        kind = c.u(1) if flags & 0x08 else 0
+        c.u(8 if flags & 0x04 else 0)  # the creation order
+        c.u(1 if flags & 0x10 else 0)  # the name's character set
+        link = c.take(c.u(1 << (flags & 3))).decode("utf-8")
+        target = c.addr() if kind == 0 else None
+        return link, ("hard", target) if kind == 0 else (
+            "soft" if kind == 1 else "external" if kind == 64 else f"type {kind}", None)
+
+    def _dense_links(self, heap_addr, names, order, name):
+        """The links of a group in dense storage: each record of its v2
+        B-tree of names (type 5: hash, heap ID) or, where that is the only
+        index, of creation order (type 6: order, heap ID) points at a link
+        message in the fractal heap."""
+        heap = self._fractal_heap(heap_addr, f"group {name}")
+        index = names if not self._undefined(names) else order
+        if index is None or self._undefined(index):
+            self._damaged(f"group {name}'s dense storage without an index")
+        skip = {5: 4, 6: 8}
         links = {}
-        for mtype, _, body in messages:
-            if mtype != LINK:
-                continue
-            flags = body[1]
-            c = _Cursor(body, 2 + (8 if flags & 0x04 else 0), self._offsets, self._lengths)
-            kind = c.u(1) if flags & 0x08 else 0
-            c.u(1 if flags & 0x10 else 0)  # the name's character set
-            link = c.take(c.u(1 << (flags & 3))).decode("utf-8")
-            target = c.addr() if kind == 0 else None
-            links[link] = ("hard", target) if kind == 0 else (
-                "soft" if kind == 1 else "external" if kind == 64 else f"type {kind}", None)
+        for rtype, record in self._btree2_records(index, (5, 6), f"group {name}'s links"):
+            link, value = self._link(heap(record[skip[rtype]:]))
+            links[link] = value
         return links
+
+    def _fractal_heap(self, addr, what):
+        """The object reader of the fractal heap at `addr`: heap ID ->
+        bytes, for managed objects (in the direct blocks, found under the
+        root's doubling table) and tiny ones (inside the ID)."""
+        O, L = self._offsets, self._lengths
+        size = 4 + 1 + 2 + 2 + 1 + 4 + 12 * L + 3 * O + 2 + 2 + 2 + 2
+        c = _Cursor(self._checked(addr, size, f"the fractal heap of {what}"), 0, O, L)
+        if c.take(4) != b"FRHP" or c.u(1) != 0:
+            self._damaged(f"fractal heap header at {addr} ({what})")
+        id_len, filter_len, flags, max_managed = c.u(2), c.u(2), c.u(1), c.u(4)
+        if filter_len:
+            self._refuse(f"a filter on the fractal heap of {what}")
+        c.length(), c.addr(), c.length(), c.addr()  # huge IDs, B-tree; free space, manager
+        for _ in range(8):  # managed, allocated, iterator; managed, huge, tiny sizes and counts
+            c.length()
+        width, start, max_direct, max_bits, _, root, rows = (
+            c.u(2), c.length(), c.length(), c.u(2), c.u(2), c.addr(), c.u(2))
+        if not (width and start and max_direct) or width & (width - 1) \
+                or start & (start - 1) or max_direct & (max_direct - 1) \
+                or not start <= max_direct < 1 << 40 or not 0 < max_bits <= 64:
+            self._damaged(f"fractal heap doubling table ({what})")
+        off_size = (max_bits + 7) // 8
+        len_size = min((max_direct.bit_length() - 1 + 7) // 8, _enc_size(max_managed))
+        direct_rows = max_direct.bit_length() - start.bit_length() + 2
+        first_row_bits = start.bit_length() - 1 + width.bit_length() - 1
+        row_size = [start] + [start << r for r in range(64)]
+        blocks = {}  # heap offset -> the direct block's bytes
+
+        def direct(block, n, offset):
+            data = bytearray(self._read(block, n))
+            head = 4 + 1 + O + off_size
+            if data[:4] != b"FHDB" or (flags & 2 and len(data) < head + 4):
+                self._damaged(f"fractal heap direct block at {block} ({what})")
+            if flags & 2:  # the checksum of the whole block, its own field zeroed
+                stored = int.from_bytes(data[head:head + 4], "little")
+                data[head:head + 4] = b"\0\0\0\0"
+                if lookup3(data) != stored:
+                    self._damaged(f"the checksum of the fractal heap block at {block}")
+            blocks[offset] = bytes(data)
+
+        def indirect(block, nrows, offset, depth=0):
+            if depth > 8 or nrows > 64:
+                self._damaged(f"fractal heap indirect block at {block} ({what})")
+            n = nrows * width
+            c = _Cursor(self._checked(block, 4 + 1 + O + off_size + n * O,
+                                      f"the fractal heap of {what}"), 0, O, L)
+            if c.take(4) != b"FHIB":
+                self._damaged(f"fractal heap indirect block at {block} ({what})")
+            c.take(1 + O + off_size)
+            for r in range(nrows):
+                for _ in range(width):
+                    child = c.addr()
+                    if not self._undefined(child):
+                        if r < direct_rows:
+                            direct(child, row_size[r], offset)
+                        else:
+                            indirect(child, row_size[r].bit_length() - first_row_bits, offset,
+                                     depth + 1)
+                    offset += row_size[r]
+
+        if not self._undefined(root):
+            if rows == 0:
+                direct(root, start, 0)
+            else:
+                indirect(root, rows, 0)
+        starts = sorted(blocks)
+
+        def read(heap_id):
+            if len(heap_id) != id_len or heap_id[0] >> 6:
+                self._damaged(f"a heap ID of {len(heap_id)} bytes ({what})")
+            kind = (heap_id[0] >> 4) & 3
+            if kind == 2:  # tiny: the object inside the ID
+                if id_len - 1 <= 16:
+                    return heap_id[1:2 + (heap_id[0] & 0x0F)]
+                return heap_id[2:3 + (((heap_id[0] & 0x0F) << 8) | heap_id[1])]
+            if kind != 0:
+                self._refuse(f"a huge fractal heap object ({what})")
+            c = _Cursor(heap_id, 1, O, L)
+            offset, n = c.u(off_size), c.u(len_size)
+            i = bisect.bisect_right(starts, offset) - 1
+            data = blocks[starts[i]] if i >= 0 else b""
+            at = offset - starts[i] if i >= 0 else 0
+            if i < 0 or at + n > len(data):
+                self._damaged(f"heap object at offset {offset} of {n} bytes ({what})")
+            return data[at:at + n]
+
+        return read
+
+    def _btree2_records(self, addr, types, what):
+        """(record type, record bytes) of every record of the version 2
+        B-tree at `addr`, in key order; its type must be one of `types`."""
+        O, L = self._offsets, self._lengths
+        c = _Cursor(self._checked(addr, 4 + 1 + 1 + 4 + 2 + 2 + 1 + 1 + O + 2 + L,
+                                  f"the B-tree of {what}"), 0, O, L)
+        if c.take(4) != b"BTHD" or c.u(1) != 0:
+            self._damaged(f"v2 B-tree header at {addr} ({what})")
+        rtype, node_size, rec_size, depth = c.u(1), c.u(4), c.u(2), c.u(2)
+        c.u(2)  # split and merge percents
+        root, root_nrec = c.addr(), c.u(2)
+        if rtype not in types:
+            self._refuse(f"a v2 B-tree of record type {rtype} ({what})")
+        if self._undefined(root) or root_nrec == 0:
+            return
+        if not 10 + rec_size <= node_size < 1 << 24 or rec_size == 0 or depth > 16:
+            self._damaged(f"v2 B-tree node size {node_size}, record {rec_size} ({what})")
+        leaf_max = (node_size - 10) // rec_size
+        nrec_size = _enc_size(leaf_max)
+        cum, cum_size = [leaf_max], [0]  # records under a node of each depth, their width
+        for d in range(1, depth + 1):
+            pointer = O + nrec_size + cum_size[d - 1]
+            most = (node_size - 10 - pointer) // (rec_size + pointer)
+            cum.append((most + 1) * cum[d - 1] + most)
+            cum_size.append(_enc_size(cum[d]))
+
+        def node(at, nrec, d):
+            if d == 0:
+                data = self._checked(at, 6 + nrec * rec_size, f"the B-tree of {what}")
+                if data[:4] != b"BTLF" or data[5] != rtype:
+                    self._damaged(f"v2 B-tree leaf at {at} ({what})")
+                for i in range(nrec):
+                    yield rtype, data[6 + i * rec_size:6 + (i + 1) * rec_size]
+                return
+            pointer = O + nrec_size + cum_size[d - 1]
+            data = self._checked(at, 6 + nrec * rec_size + (nrec + 1) * pointer,
+                                 f"the B-tree of {what}")
+            if data[:4] != b"BTIN" or data[5] != rtype:
+                self._damaged(f"v2 B-tree internal node at {at} ({what})")
+            c = _Cursor(data, 6 + nrec * rec_size, O, L)
+            children = []
+            for _ in range(nrec + 1):
+                children.append((c.addr(), c.u(nrec_size)))
+                c.u(cum_size[d - 1])  # the records under the child
+            for i, (child, n) in enumerate(children):
+                yield from node(child, n, d - 1)
+                if i < nrec:
+                    yield rtype, data[6 + i * rec_size:6 + (i + 1) * rec_size]
+
+        yield from node(root, root_nrec, depth)
 
     # -- datasets --------------------------------------------------------------
 
@@ -565,19 +734,21 @@ class File(Group):
             elif kind in (2, 3):  # implicit; a fixed array (after its page bits)
                 c.u(1 if kind == 3 else 0)
                 index = ("implicit" if kind == 2 else "fixed", c.addr())
+            elif kind in (4, 5):  # an extensible array; a v2 B-tree (after their parameters)
+                c.take(5 if kind == 4 else 6)
+                index = ("earray" if kind == 4 else "btree2", c.addr())
             else:
-                self._refuse({4: "the extensible array chunk index",
-                              5: "the version 2 B-tree chunk index"}.get(
-                                  kind, f"chunk index type {kind}") + f" ({name})")
+                self._refuse(f"chunk index type {kind} ({name})")
         if len(chunk) != rank + 1 or chunk[-1] != dtype.itemsize:
             self._damaged(f"chunk dims {chunk} for shape {shape}, {dtype} ({name})")
         chunk = tuple(chunk[:-1])
         filters = self._filters(messages, name)
+        if body[0] == 4 and flags & 1 and filters:
+            self._refuse(f"partial edge chunks stored unfiltered ({name})")
         out = self._empty(ds, math.prod(shape) * dtype.itemsize)
         out[...] = self._fill(messages, dtype, name)[0]
         chunk_bytes = math.prod(chunk) * dtype.itemsize
-        grid = [-(-m // k) for m, k in zip(ds._maxshape, chunk)]
-        for offsets, size, mask, addr in self._chunks(index, rank, grid, chunk, chunk_bytes):
+        for offsets, size, mask, addr in self._chunks(index, ds._maxshape, chunk, chunk_bytes):
             if self._undefined(addr) or any(o >= s for o, s in zip(offsets, shape)):
                 continue
             raw = self._unfilter(self._read(addr, size), filters, mask, name)
@@ -588,18 +759,37 @@ class File(Group):
             out[tuple(slice(o, o + s.stop) for o, s in zip(offsets, cut))] = block[cut]
         return out
 
-    def _chunks(self, index, rank, grid, chunk, chunk_bytes):
+    def _chunks(self, index, maxshape, chunk, chunk_bytes):
         """(offsets, stored size, filter mask, address) of every chunk."""
-        kind = index[0]
+        kind, rank = index[0], len(chunk)
         if self._undefined(index[1]):  # no chunk written yet
             return
         if kind == "btree":
             for offsets, size, mask, addr in self._btree_children(index[1], 1, rank):
                 yield offsets[:rank], size, mask, addr
             return
+        if kind == "btree2":  # records: address, [stored size, filter mask,] scaled offsets
+            O = self._offsets
+            for rtype, rec in self._btree2_records(index[1], (10, 11), "a chunk index"):
+                width = len(rec) - O - 8 * rank - (4 if rtype == 11 else 0)
+                c = _Cursor(rec, 0, O, self._lengths)
+                addr = c.addr()
+                size, mask = (c.u(width), c.u(4)) if rtype == 11 else (chunk_bytes, 0)
+                yield tuple(c.u(8) * k for k in chunk), size, mask, addr
+            return
+
+        # a linear index's chunk: row-major over the grid of chunks, an
+        # extensible array's unlimited dimension the slowest
+        grid = [-(-m // k) for m, k in zip(maxshape, chunk)]
+        unlimited = [d for d, m in enumerate(maxshape) if m == (1 << (8 * self._lengths)) - 1]
+        if len(unlimited) != (kind == "earray"):
+            self._damaged(f"a {kind} chunk index over {len(unlimited)} unlimited dimensions")
+        steps, step = [0] * rank, 1
+        for d in reversed(unlimited + [d for d in range(rank) if d not in unlimited]):
+            steps[d], step = step, step * grid[d]
 
         def offsets_of(i):
-            return tuple(int(j) * k for j, k in zip(np.unravel_index(i, grid), chunk))
+            return tuple(i // steps[d] % grid[d] * chunk[d] for d in range(rank))
 
         if kind == "single":
             _, addr, size, mask = index
@@ -608,7 +798,8 @@ class File(Group):
             for i in range(math.prod(grid)):
                 yield offsets_of(i), chunk_bytes, 0, index[1] + i * chunk_bytes
         else:
-            for i, addr, size, mask in self._fixed_array(index[1]):
+            entries = self._fixed_array if kind == "fixed" else self._extensible_array
+            for i, addr, size, mask in entries(index[1]):
                 yield offsets_of(i), chunk_bytes if size is None else size, mask, addr
 
     def _fixed_array(self, addr):
@@ -644,6 +835,101 @@ class File(Group):
                 else:
                     yield first, c.addr(), c.u(entry - self._offsets - 4), c.u(4)
                 first += 1
+
+    def _extensible_array(self, addr):
+        """(index, address, stored size or None, filter mask) of each entry
+        of the extensible array at `addr`: the index block's own elements,
+        then the data blocks of each super block in turn (those of the first
+        few listed in the index block, the rest in super blocks), the pages
+        of a paged data block where its bit in the super block's bitmap is
+        set."""
+        O, L = self._offsets, self._lengths
+        c = _Cursor(self._checked(addr, 12 + 6 * L + O, "an extensible array"), 0, O, L)
+        if c.take(4) != b"EAHD" or c.u(1) != 0:
+            self._damaged(f"extensible array header at {addr} without its signature")
+        client, entry, max_bits, idx_elements, min_elements, min_pointers, page_bits = (
+            c.u(1) for _ in range(7))
+        for _ in range(4):  # super and data blocks: counts and sizes
+            c.length()
+        max_index, _, iblock = c.length(), c.length(), c.addr()
+        if self._undefined(iblock):
+            return
+        if not (0 < max_bits <= 64 and min_elements and min_pointers and page_bits < 32
+                and not min_elements & (min_elements - 1) and not min_pointers & (min_pointers - 1)
+                and entry >= O + (5 if client else 0)):
+            self._damaged(f"extensible array parameters at {addr}")
+        off_size, page = (max_bits + 7) // 8, 1 << page_bits
+        # super block u: 2^(u // 2) data blocks of 2^((u + 1) // 2) * min_elements
+        n_super = 1 + max_bits - (min_elements.bit_length() - 1)
+        blocks = [(1 << (u // 2), (1 << ((u + 1) // 2)) * min_elements) for u in range(n_super)]
+        in_index = 2 * (min_pointers.bit_length() - 1)  # super blocks listed in the index block
+        n_data = 2 * (min_pointers - 1)
+        data = self._checked(iblock, 6 + O + idx_elements * entry + (n_data + n_super - in_index)
+                             * O, "an extensible array index block")
+        if data[:4] != b"EAIB":
+            self._damaged(f"extensible array index block at {iblock} without its signature")
+        c = _Cursor(data, 6 + O, O, L)
+
+        def elements(c, first, count):
+            for i in range(first, first + count):
+                if client == 0:
+                    yield i, c.addr(), None, 0
+                else:
+                    yield i, c.addr(), c.u(entry - O - 4), c.u(4)
+
+        yield from elements(c, 0, idx_elements)
+        data_blocks = [c.addr() for _ in range(n_data)]
+        supers = [c.addr() for _ in range(n_super - in_index)]
+        first = idx_elements
+        for u, (count, n) in enumerate(blocks):
+            if first >= max_index:
+                return
+            if u < in_index:
+                addrs, bitmap = data_blocks[:count], None
+                data_blocks = data_blocks[count:]
+            else:
+                sblock = supers[u - in_index]
+                if self._undefined(sblock):
+                    first += count * n
+                    continue
+                pages = n // page if n > page else 0
+                bitmap_size = count * (-(-pages // 8)) if pages else 0
+                head = 6 + O + off_size
+                data = self._checked(sblock, head + bitmap_size + count * O,
+                                     "an extensible array super block")
+                if data[:4] != b"EASB":
+                    self._damaged(f"extensible array super block at {sblock} without its "
+                                  "signature")
+                bitmap = data[head:head + bitmap_size] if pages else None
+                c = _Cursor(data, head + bitmap_size, O, L)
+                addrs = [c.addr() for _ in range(count)]
+            for j, block in enumerate(addrs):
+                if not self._undefined(block):
+                    yield from self._ea_data_block(block, first, n, entry, off_size, page,
+                                                   bitmap, j, elements)
+                first += n
+
+    def _ea_data_block(self, block, first, n, entry, off_size, page, bitmap, j, elements):
+        """The entries of one extensible array data block of n elements,
+        the j-th of its super block (whose page bitmap, if paged, is
+        `bitmap`: a bit a page, block by block, the first the high bit)."""
+        O, L = self._offsets, self._lengths
+        head = 6 + O + off_size
+        if bitmap is None:
+            data = self._checked(block, head + n * entry, "an extensible array data block")
+            if data[:4] != b"EADB":
+                self._damaged(f"extensible array data block at {block} without its signature")
+            yield from elements(_Cursor(data, head, O, L), first, n)
+            return
+        if self._checked(block, head, "an extensible array data block")[:4] != b"EADB":
+            self._damaged(f"extensible array data block at {block} without its signature")
+        pages = n // page
+        for p in range(pages):
+            bit = j * pages + p
+            if bitmap[bit // 8] & (0x80 >> (bit % 8)):
+                data = self._checked(block + head + 4 + p * (page * entry + 4), page * entry,
+                                     "an extensible array data block page")
+                yield from elements(_Cursor(data, 0, O, L), first + p * page, page)
 
     def _unfilter(self, raw, filters, mask, name):
         for i in reversed(range(len(filters))):
@@ -706,6 +992,12 @@ def lookup3(data):
     b = ((b ^ a) - rot(a, 14)) & mask
     c = ((c ^ b) - rot(b, 24)) & mask
     return c
+
+
+def _enc_size(n):
+    """The bytes that the library's variable-width fields give a count
+    of up to n (H5VM_limit_enc_size)."""
+    return (max(n, 1).bit_length() - 1) // 8 + 1
 
 
 def _unshuffle(raw, size):

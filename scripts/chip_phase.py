@@ -15,12 +15,18 @@ evaluated through examples/shapenet_eval_torch.ipynb; the flagship's
 hpcs_tpu checkpoint written by the phase itself) or `partnet` (mini
 PartNet written and read without h5py, the entry points with the
 hierarchical CosFace, a step against the CPU port, the recipe trained on
-and evaluated through examples/partnet_eval_torch.ipynb); see each
-phase's docstring.  Prints the card, then the phase's JSON line; with a path,
-also writes that line there.
+and evaluated through examples/partnet_eval_torch.ipynb; the libver
+"latest" fixtures read) or `parity` (tools/parity_experiment_torch.py: the
+decode of hpcs_tpu's stored embeddings, the recipe trained for as many
+seeds as fit in 90 s (2 at least), or for all of --seeds, and the report
+beside hpcs_tpu's and the reference's seeds); see each phase's docstring.  Prints the card,
+then the phase's JSON line; with a path, also writes that line there.
 
     python3 scripts/chip_phase.py PHASE [out.json]    # PHASE: one of the names above
+    python3 scripts/chip_phase.py parity [out.json] --seeds 0 1 2 3 4
 """
+import argparse
+import functools
 import json
 import os
 import subprocess
@@ -34,17 +40,26 @@ from hpcs_torch.ops import _build  # noqa: E402
 PHASES = {"knn": cs.knn_phase, "knn_wide": cs.knn_wide_phase, "long_cloud": cs.long_cloud_phase,
           "observe": cs.observe_phase, "parallel": cs.parallel_phase,
           "examples": cs.examples_phase, "notebooks": cs.notebooks_phase,
-          "partnet": cs.partnet_phase}
+          "partnet": cs.partnet_phase, "parity": cs.parity_phase}
 
 if __name__ == "__main__":
-    if len(sys.argv) < 2 or sys.argv[1] not in PHASES:
-        sys.exit(f"usage: python3 scripts/chip_phase.py {'|'.join(PHASES)} [out.json]")
+    ap = argparse.ArgumentParser(usage="python3 scripts/chip_phase.py PHASE [out.json] "
+                                       "[--seeds S ...]")
+    ap.add_argument("phase", choices=list(PHASES))
+    ap.add_argument("out", nargs="?")
+    ap.add_argument("--seeds", type=int, nargs="+", help="parity: the seeds to train")
+    args = ap.parse_args()
+    phase = PHASES[args.phase]
+    if args.seeds is not None:
+        if args.phase != "parity":
+            sys.exit("--seeds is an option of the parity phase")
+        phase = functools.partial(phase, seeds=args.seeds)
     _build.build()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    out = PHASES[sys.argv[1]](card)
-    if len(sys.argv) > 2:
-        os.makedirs(os.path.dirname(os.path.abspath(sys.argv[2])), exist_ok=True)
-        with open(sys.argv[2], "w") as f:
+    out = phase(card)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -283,3 +283,43 @@ def test_infer_refuses_what_it_cannot_serve(tmp_path):
                     "cpu"])
     with pytest.raises(KeyError, match="bogus"):
         cli.configure(_parse(cli.add_train_args, ["--dataset", "bogus", "--accelerator", "cpu"]))
+
+
+def _recipe_argv(path):
+    """(the command before its flags, the flags) of a scripts/run_*.sh recipe,
+    ${1:-default} taken at its default."""
+    import re
+    import shlex
+
+    with open(path) as f:
+        text = "".join(line for line in f if not line.lstrip().startswith("#"))
+    words = shlex.split(re.sub(r"\$\{1:-([^}]*)\}", r"\1", text.replace("\\\n", " ")))
+    cut = 3 if words[:3] == ["python", "-m", "hpcs_torch.train"] else 2
+    return words[:cut], words[cut:]
+
+
+@pytest.mark.parametrize("recipe", ["train", "infer", "synthetic"])
+def test_the_torch_run_recipes_parse_as_the_jax_ones(recipe):
+    """scripts/run_{recipe}_torch.sh runs `python -m hpcs_torch.train` with
+    scripts/run_{recipe}.sh's flags, --accelerator cuda where those say tpu."""
+    command, argv = _recipe_argv(os.path.join(REPO, "scripts", f"run_{recipe}_torch.sh"))
+    jax_command, jax_argv = _recipe_argv(os.path.join(REPO, "scripts", f"run_{recipe}.sh"))
+    assert command == ["python", "-m", "hpcs_torch.train"] and jax_command == ["python", "train.py"]
+    port, ref = vars(_parse(cli.add_train_args, argv)), vars(_parse(jcli.add_train_args, jax_argv))
+    assert port.pop("accelerator") == "cuda" and ref.pop("accelerator") == "tpu"
+    assert port == ref
+    assert (port["fixed_points"], port["model"], port["k"], port["margin"], port["lr"]) == (
+        1024, "vn_dgcnn_partseg", 20, 0.35, 0.05)
+    if recipe == "synthetic":
+        assert "--accelerator" not in argv and port["dataset"] == "synthetic"
+        assert (port["eucl_embedding"], port["epochs"], port["batch"], port["patience"]) == (
+            32, 150, 8, 60)
+    else:
+        assert argv[argv.index("--accelerator") + 1] == "cuda"
+        assert (port["dataset"], port["category"], port["eucl_embedding"], port["t_per_anchor"],
+                port["temperature"], port["trade_off"]) == ("partnet", "Dishwasher", 4, 50,
+                                                            0.10, 0.10)
+        assert (port["level"], port["batch"], port["infer"]) == (
+            (1, 1, True) if recipe == "infer" else (3, 2, False))
+        if recipe == "infer":
+            assert port["resume"] == "logs/partnet_vn_dgcnn_partseg/checkpoints/best"

@@ -1209,3 +1209,25 @@ def test_an_eval_notebook_cell_on_the_card_equals_the_cpu(tmp_path):
     for got, want in zip(rows["card"], rows["cpu_held"]):
         assert (got["best_k"], got["true_parts"]) == (want["best_k"], want["true_parts"])
         assert abs(got["score"] - want["score"]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_a_step_on_the_card_with_cpu_draws_is_the_cpu_step():
+    # a CPU generator gives the card the CPU run's rotation, dropout masks
+    # and triplets: the same losses up to rounding; fit takes it whole
+    require_cuda()
+    from hpcs_torch import trainer
+
+    cfg = ModelConfig(num_class=6, num_categories=2, eucl_dim=8, hyp_dim=8, k=10)
+    pts, cat, y = SyntheticPartDataset(4, 256, 2).batch(0, 4)
+    batch = {"points": pts, "category": cat, "labels": y}
+    logs = {}
+    for device in ("cpu", "cuda"):
+        system = HypHCSystem(cfg, device=device, generator=torch.Generator().manual_seed(0))
+        logs[device] = system.train_step(batch, torch.Generator().manual_seed(3))
+    for key in ("total_loss", "loss_metric", "loss_hyp"):
+        torch.testing.assert_close(logs["cuda"][key].cpu(), logs["cpu"][key], rtol=1e-3, atol=0)
+    system = HypHCSystem(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    _, best = trainer.fit(system, [batch], [batch], epochs=1, seed=3, log=lambda line: None,
+                          generator_device="cpu")
+    assert np.isfinite(best)

@@ -4,7 +4,8 @@ The reader reads files that h5py writes (every integer and IEEE float
 dtype in both byte orders, 0-D to 3-D, compact, contiguous and chunked
 layouts with edge chunks, deflate, shuffle and fletcher32, chunks never
 written, deep chunk B-trees, a root group of several symbol table nodes,
-libver "latest") to h5py's arrays and dtypes, or refuses with a ValueError
+libver "latest": tests/test_torch_hdf5_latest.py holds its growable datasets
+and dense groups at size) to h5py's arrays and dtypes, or refuses with a ValueError
 naming the feature and the file; h5py reads what the writer (and the tests'
 deflated writer, hpcs_torch.testing.write_h5_deflated) writes; and both
 packages' PartNetDataset read a port-written mini tree to the same arrays.
@@ -163,9 +164,9 @@ LATEST = {  # what h5py writes with libver "latest", and whether the reader take
     "single_chunk": (dict(data=_data((4, 6), "<f8"), chunks=(4, 6), compression="gzip"), True),
     "unwritten_chunks": (dict(shape=(20, 20), chunks=(6, 6), fillvalue=7, dtype="i4"), True),
     "extensible_array": (dict(data=_data((20, 3), "<f4"), chunks=(2, 3), maxshape=(None, 3)),
-                         False),
-    "v2_btree": (dict(data=_data((20, 3), "<f4"), chunks=(2, 3), maxshape=(None, None)), False),
-    "dense_group_of_40": (dict(data=_data((2,), "i2")), False),
+                         True),
+    "v2_btree": (dict(data=_data((20, 3), "<f4"), chunks=(2, 3), maxshape=(None, None)), True),
+    "dense_group_of_40": (dict(data=_data((2,), "i2")), True),
 }
 
 

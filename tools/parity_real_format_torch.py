@@ -171,10 +171,11 @@ def make_config(dataset, c, hierarchy_list=()):
         train_rotation=c["train_rotation"], test_rotation=c["test_rotation"])
 
 
-def evaluate(system, test_loader, seed):
+def evaluate(system, test_loader, seed, generator_device=None):
     """The test loop of tools/parity_real_format.py on the port: test_step
     on every batch (draws from a generator seeded seed + 777 on the
-    system's device), its loss, accuracy and IoU, the raw-cosine accuracy,
+    system's device, or on `generator_device`), its loss, accuracy and
+    IoU, the raw-cosine accuracy,
     each object's best-k score and the purity of the maxclust cut of its
     linkage at its true part count.  Returns their means and the object
     count."""
@@ -183,7 +184,7 @@ def evaluate(system, test_loader, seed):
 
     from hpcs_torch.loss import cosface_logits
 
-    generator = torch.Generator(device=system.device).manual_seed(seed + 777)
+    generator = torch.Generator(device=generator_device or system.device).manual_seed(seed + 777)
     W = system.net.metric_hyp_loss["loss_cosface"].W
     scores, purities, tlosses, accs, accs_nm, ious = [], [], [], [], [], []
     for batch in test_loader:
