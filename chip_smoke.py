@@ -29,7 +29,8 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    edge kernel apart, beside ptxas's registers and spills of each; and
    launches B2 over each half of each stage's centres (its projection over
    the whole table), fp32 and bf16, each the whole launch's rows bit for
-   bit, the second half timed beside the whole launch and its bound;
+   bit, the second half timed beside the whole launch and its bound
+   (edgeconv_phase; alone: python3 scripts/chip_phase.py edgeconv);
 4. answers requests of 16 synthetic clouds of 1024 points with the flagship
    model (eucl = hyp = 32, k = 20, 16 categories, random weights and random
    BatchNorm statistics from a seed), counts the kernels' launches, compares
@@ -112,7 +113,8 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    trainer.test in memory; and --pretrained: a 50-wide VN-DGCNN backbone
    file grafted into a 32-wide model (conv11 swapped), then 1 epoch;
 10. runs VN-DGCNN in bf16 (phase bf16, ModelConfig.bf16 on the forward
-   phase's weights): 8 requests through HypHCSystem.embed and 8 through
+   phase's weights; alone: python3 scripts/chip_phase.py bf16, on the
+   flagship's): 8 requests through HypHCSystem.embed and 8 through
    test_step (B1 and B2 on bf16 features 3 times each per request, no
    fp32 or wide launch), the output against the plain bf16 forward on the
    card on B1's graphs and the CPU port's on a small input (within 3 % of
@@ -121,7 +123,11 @@ Builds the CUDA kernels from hpcs_torch/ops/csrc, then:
    input at the model's three stage inputs and on tie clouds (and
    knn_plain up to near-ties), B2's bf16 route against its plain version
    at the three stage shapes (check_edgeconv widened by one bf16 ulp),
-   each timed beside its bound (bf16 features at 2 bytes); the gap between
+   each timed beside its bound (bf16 features at 2 bytes); the two-conv
+   stages through edge_tc_kernel alone (no copy to constant memory), its
+   HMMA counted in the SASS (cuobjdump) and its bound with conv2's three
+   limb products at the tensor cores' 989 TFLOP/s beside the all-fp32
+   bound, ptxas's registers and spills of each stage's kernels; the gap between
    the bf16 and fp32 embeddings, the share of each graph they share and
    the decode's best k and score against fp32; a training step at B=2,
    N=256 against the CPU port and the flagship step (B=8, dropout 0.5,
@@ -298,6 +304,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -312,6 +319,7 @@ CATEGORIES = 16
 REQUESTS = 8  # batches of B clouds answered on the main path (2 warm-up + 6 timed)
 WARMUP = 2
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 HBM_BYTES = 3.35e12  # H100 SXM device memory
 # fp32 operations of one folded-BN gate on one channel: |p|^2 5, the norm 3,
 # a + b / norm 2, p.d 5 and its scaling 1, |d|^2 + EPS 6, the sign test 1,
@@ -394,20 +402,48 @@ def ptxas_summary(log):
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             rows[name]["registers"] = int(m[1])
+    return dict(zip(_demangled(list(rows)), rows.values()))
+
+
+def _demangled(names):
+    """Kernel names as ptxas_summary gives them (c++filt where it is installed)."""
     try:
-        plain = subprocess.run(["c++filt"], input="\n".join(rows), capture_output=True, text=True,
-                               timeout=60).stdout.splitlines()
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
     except OSError:
         plain = []
-    if len(plain) != len(rows):
-        plain = list(rows)
-    names = [p.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
-             for p in plain]
-    return dict(zip(names, rows.values()))
+    if len(plain) != len(names):
+        plain = list(names)
+    return [p.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+            for p in plain]
 
 
-def bound_ms(ops, nbytes):
-    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+def sass_mma_counts(name):
+    """{kernel: HMMA instructions in its SASS} of the built library `name`
+    (cuobjdump -sass on hpcs_torch/_build's lib<name>-*.so), every kernel,
+    names as ptxas_summary's."""
+    from hpcs_torch.ops import _build
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._library_path(name)[1])],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bHMMA\b", ln):
+            counts[fn] += 1
+    return dict(zip(_demangled(list(counts)), counts.values()))
+
+
+def bound_ms(ops, nbytes, tc_ops=0):
+    """The least time in ms for `ops` fp32 operations, `tc_ops` bf16
+    tensor-core operations and `nbytes` bytes: the largest of the three
+    times, and what it is ("operations" for either kind)."""
+    t_ops = max(ops / FP32_FLOPS, tc_ops / BF16_TC_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -425,9 +461,12 @@ def knn_work(b, n, d, k, feature_bytes=4, rows=None):
             feature_bytes * b * n * d + 4 * b * r * k)
 
 
-def edgeconv_work(b, n, c, k, n_convs, cout=21, feature_bytes=4, rows=None):
+def edgeconv_work(b, n, c, k, n_convs, cout=21, feature_bytes=4, rows=None, tensor_cores=False):
     """The least fp32 operations and the bytes of one EdgeConv launch over
-    `rows` centres of each cloud (None: all n).
+    `rows` centres of each cloud (None: all n); with tensor_cores (the bf16
+    route's two-conv stages) also the bf16 tensor-core operations, as
+    (fp32 ops, bytes, tensor-core ops): conv2's products then move to the
+    tensor cores at three limb products each.
 
     conv1 is linear in the edge feature [x_j - x_i || x_i], so W1 e =
     Wa x_j + (Wb - Wa) x_i: both products (and those of Wd1) are made once
@@ -440,12 +479,14 @@ def edgeconv_work(b, n, c, k, n_convs, cout=21, feature_bytes=4, rows=None):
     """
     r = n if rows is None else rows
     per_edge = 2 * cout * 3 + cout * GATE_OPS + cout * 3
+    conv2 = 2 * cout * cout * 3 * 2 if n_convs == 2 else 0
     if n_convs == 2:
-        per_edge += 2 * cout * cout * 3 * 2 + cout * GATE_OPS
-    ops = b * r * (k * per_edge + 4 * c * cout * 3 * 2 + cout * 3)
+        per_edge += cout * GATE_OPS
+    fp32_conv2 = 0 if tensor_cores else conv2
+    ops = b * r * (k * (per_edge + fp32_conv2) + 4 * c * cout * 3 * 2 + cout * 3)
     weights = 2 * cout * 2 * c + 2 * cout + (2 * cout * cout + 2 * cout) * (n_convs == 2)
     nbytes = feature_bytes * (b * n * c * 3 + b * r * cout * 3) + 4 * (b * r * k + weights)
-    return ops, nbytes
+    return (ops, nbytes, 3 * b * r * k * conv2) if tensor_cores else (ops, nbytes)
 
 
 def knn_check(x, got, want, ties_exact, row0=0):
@@ -666,6 +707,97 @@ def request_stages(system, points):
         f2 = x2.reshape(b, n, -1).contiguous()
         idx3 = KN.knn(f2, k)
     return pts, idx1, x0, x1, f1, idx2, x2, f2, idx3, (w12, w34, w5)
+
+
+def flagship_stages(system, points):
+    """The eval forward's three EdgeConv stages of one request (numpy points
+    [B, N, 3]) as {name: (x, idx, weights, n_convs)}, their inputs and
+    graphs made through the kernels (request_stages)."""
+    _, idx1, x0, x1, _, idx2, x2, _, idx3, (w12, w34, w5) = request_stages(system, points)
+    return {"stage1_c1": (x0, idx1, w12, 2), "stage2_c21": (x1, idx2, w34, 2),
+            "stage3_c21": (x2, idx3, w5, 1)}
+
+
+def edgeconv_phase(card, stages=None):
+    """Kernel B2 against edgeconv_infer_plain at the three stage shapes of
+    the flagship (`stages`, flagship_stages of request 0; None: made here),
+    on the planted near-EPS inputs, timed by kernel, and over each half of
+    each stage's centres in fp32 and bf16 (step 3 of the module's
+    docstring; alone: python3 scripts/chip_phase.py edgeconv)."""
+    from hpcs_torch.ops import _build
+    from hpcs_torch.ops import edgeconv as E
+    from hpcs_torch.testing import check_edgeconv, check_planted_eps
+
+    device = torch.device("cuda")
+    if stages is None:
+        system, _, batches = flagship()
+        stages = flagship_stages(system, batches[0][0])
+    with torch.no_grad():
+        ec_rows, ec_err = {}, 0.0
+        for st, (x, idx, w, nc) in stages.items():
+            got = E.edgeconv_infer(x, idx, *w, n_convs=nc)
+            want = E.edgeconv_infer_plain(x, idx, *w, n_convs=nc)
+            checked = check_edgeconv(got, want, x, idx, w, nc)
+            # planted near-EPS inputs at this stage's shape, against float64
+            planted = {v: check_planted_eps(E.edgeconv_infer, B, N, K, x.shape[2], nc, v, device)
+                       for v in (("conv1", "conv2") if nc == 2 else ("conv1",))}
+            ec_err = max(ec_err, checked["max_abs_err"], *planted.values())
+            ops, nbytes = edgeconv_work(B, N, x.shape[2], K, nc)
+            bound, by = bound_ms(ops, nbytes)
+
+            def stage():
+                return E.edgeconv_infer(x, idx, *w, n_convs=nc)
+
+            # the stage's device time by kernel: the projection (C=21), the
+            # edge kernel and conv2's weights' copies to constant memory; ms
+            # is their sum, call_ms the CUDA-event time of back-to-back calls,
+            # which includes the host's time to launch them
+            parts = kernel_ms(stage, 20)
+            ms = sum(parts.values())
+            ec_rows[st] = dict(C=x.shape[2], n_convs=nc, **checked,
+                               max_abs_err_planted_eps_vs_float64=planted, ms=ms,
+                               call_ms=cuda_ms(stage, 20),
+                               projection_ms=sum(v for k, v in parts.items() if "project" in k),
+                               edge_kernel_ms=sum(v for k, v in parts.items() if "edge" in k),
+                               by_kernel_ms=parts,
+                               plain_ms=cuda_ms(lambda: E.edgeconv_infer_plain(
+                                   x, idx, *w, n_convs=nc), 5),
+                               bound_ms=bound, bound_by=by, roofline_share=bound / ms)
+        # B2 over each half of the centres (a 2-way point-sharded rank's
+        # launch, the projection over the whole table), fp32 and bf16: the
+        # whole launch's rows bit for bit, the second half timed
+        ec_halves = {}
+        for st, (x32, idx, w, nc) in stages.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                whole = E.edgeconv_infer(x, idx, *w, n_convs=nc)
+                halves = ((0, N // 2), (N // 2, N))
+                for half in halves:
+                    part = idx[:, half[0]:half[1]].contiguous()
+                    if not torch.equal(E.edgeconv_infer(x, part, *w, n_convs=nc, rows=half),
+                                       whole[:, half[0]:half[1]]):
+                        fail(f"edgeconv: rows {half} of {st} ({dtype}) differ from the whole "
+                             "launch's")
+                part = idx[:, N // 2:].contiguous()
+                ms = cuda_ms(lambda x=x, part=part, w=w, nc=nc: E.edgeconv_infer(
+                    x, part, *w, n_convs=nc, rows=halves[1]), 20)
+                bound, by = bound_ms(*edgeconv_work(
+                    B, N, x.shape[2], K, nc, rows=N - N // 2, feature_bytes=x.element_size(),
+                    tensor_cores=dtype == torch.bfloat16 and nc == 2))
+                ec_halves[f"{st}_{str(dtype)[6:]}"] = dict(
+                    rows=list(halves[1]), equal_to_whole=True, ms=ms,
+                    whole_ms=cuda_ms(lambda x=x, idx=idx, w=w, nc=nc: E.edgeconv_infer(
+                        x, idx, *w, n_convs=nc), 20), bound_ms=bound, bound_by=by,
+                    roofline_share=bound / ms)
+    ec_ms = sum(r["ms"] for r in ec_rows.values())
+    ec_bound = sum(r["bound_ms"] for r in ec_rows.values())
+    out = dict(stages=ec_rows, half_cloud=ec_halves, ms_per_forward=ec_ms,
+               bound_ms_per_forward=ec_bound, roofline_share=ec_bound / ec_ms,
+               ptxas=ptxas_summary(_build.build_log("edgeconv")), atol=1e-5, rtol=1e-4,
+               ill_conditioned_below=1e-4, ill_conditioned_limit="1e-5 + 2^-23 max|b| / |p|",
+               max_abs_err=ec_err, card=card)
+    emit("edgeconv", **out)
+    return out
 
 
 KNN_GEOMETRY = ("grid_x", "grid_y", "threads", "smem_bytes", "resident_blocks_per_sm",
@@ -1919,6 +2051,7 @@ def bf16_phase(system, batches, card, fp32):
     from hpcs_torch.data import DataLoader, ShapeNetDataset, SyntheticPartDataset
     from hpcs_torch.models import HypHCSystem, decode_vector_for_batch
     from hpcs_torch.nn.backbones import vn_dgcnn
+    from hpcs_torch.ops import _build
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
     from hpcs_torch.testing import (check_edgeconv, check_same_test_outputs,
@@ -2062,11 +2195,18 @@ def bf16_phase(system, batches, card, fp32):
                   for d, x in (("d3", pairs[0][0]), ("d63", pairs[1][0]))}
         knn_plain_ms = {d: cuda_ms(lambda x=x: KN.knn_plain(x, K), 5)
                         for d, x in (("d3", pairs[0][0]), ("d63", pairs[1][0]))}
+        # the stages' weights as the forward takes them (prepared once:
+        # vn_dgcnn.stage_weights); the two-conv stages run edge_tc_kernel,
+        # conv2 on the tensor cores: its HMMA read from the SASS, its bound
+        # with conv2's three limb products at the tensor-core rate beside
+        # the fp32 route's bound (all at 67 TFLOP/s)
         net = sys16.net.nn_feat
-        weights = [[t.detach() for t in vn_dgcnn.stage_weights(*convs)]
+        weights = [vn_dgcnn.stage_weights(*convs)
                    for convs in ((net.conv1, net.conv2), (net.conv3, net.conv4), (net.conv5,))]
         stage_in = [pairs[0][0][:, :, None, :].contiguous(),
                     pairs[1][0].reshape(B, N, 21, 3), pairs[2][0].reshape(B, N, 21, 3)]
+        ptx = ptxas_summary(_build.build_log("edgeconv"))
+        hmma = sass_mma_counts("edgeconv")
         ec_rows, ec_err = {}, 0.0
         for st, x, idx, w, nc in zip(("stage1_c1", "stage2_c21", "stage3_c21"), stage_in, graphs,
                                      weights, (2, 2, 1)):
@@ -2079,19 +2219,32 @@ def bf16_phase(system, batches, card, fp32):
             except AssertionError as e:
                 fail(f"bf16: B2 {st}: {e}")
             ec_err = max(ec_err, checked["max_abs_err"])
-            ops, nbytes = edgeconv_work(B, N, x.shape[2], K, nc, feature_bytes=2)
-            bound, by = bound_ms(ops, nbytes)
+            work = edgeconv_work(B, N, x.shape[2], K, nc, feature_bytes=2, tensor_cores=nc == 2)
+            bound, by = bound_ms(*work[:2], *work[2:])
+            fp32_bound = bound_ms(*edgeconv_work(B, N, x.shape[2], K, nc, feature_bytes=2))[0]
 
             def stage(x=x, idx=idx, w=w, nc=nc):
                 return E.edgeconv_infer(x, idx, *w, n_convs=nc)
 
             parts = kernel_ms(stage, 20)
             ms = sum(parts.values())
+            tc = f"edge_tc_kernel<{x.shape[2]}>"
+            if nc == 2 and (not any(tc in name for name in parts)
+                            or any("memcpy" in name.lower() for name in parts)):
+                fail(f"bf16: B2 {st} ran {list(parts)}: not {tc} alone, or a copy")
+            if nc == 2 and not hmma.get(tc):
+                fail(f"bf16: no HMMA in {tc}'s SASS ({hmma})")
             ec_rows[st] = dict(C=x.shape[2], n_convs=nc, **checked, ms=ms,
                                call_ms=cuda_ms(stage, 20), by_kernel_ms=parts,
                                plain_ms=cuda_ms(lambda x=x, idx=idx, w=w, nc=nc:
                                                 E.edgeconv_infer_plain(x, idx, *w, n_convs=nc), 5),
-                               bound_ms=bound, bound_by=by)
+                               bound_ms=bound, bound_by=by, roofline_share=bound / ms,
+                               fp32_rate_bound_ms=fp32_bound,
+                               fp32_rate_roofline_share=fp32_bound / ms,
+                               ptxas={k: v for k, v in ptx.items()
+                                      if any(k in name for name in parts)},
+                               **({"hmma_in_sass": hmma[tc], "mma_per_edge": hmma[tc] / 8}
+                                  if nc == 2 else {}))
 
     # 4. readings: bf16 against fp32 on the same weights (request 0)
     with torch.no_grad(), recorded_knn() as pairs32:
@@ -2192,10 +2345,12 @@ def bf16_phase(system, batches, card, fp32):
     trn = sorted(train_s[TRAIN_WARMUP:])
     w3, w63 = knn_work(B, N, 3, K, feature_bytes=2), knn_work(B, N, 63, K, feature_bytes=2)
     knn_bound = bound_ms(w3[0] + 2 * w63[0], w3[1] + 2 * w63[1])
-    ec_ops = sum(edgeconv_work(B, N, r["C"], K, r["n_convs"], feature_bytes=2)[0]
-                 for r in ec_rows.values())
-    ec_bytes = sum(edgeconv_work(B, N, r["C"], K, r["n_convs"], feature_bytes=2)[1]
-                   for r in ec_rows.values())
+    ec_work = [edgeconv_work(B, N, r["C"], K, r["n_convs"], feature_bytes=2, tensor_cores=True)
+               for r in ec_rows.values()]
+    ec_bound = bound_ms(*(sum(w[i] for w in ec_work) for i in range(3)))
+    ec_fp32_bound = bound_ms(*(sum(edgeconv_work(B, N, r["C"], K, r["n_convs"],
+                                                 feature_bytes=2)[i] for r in ec_rows.values())
+                               for i in range(2)))[0]
     out = dict(
         B=B, N=N, k=K, eucl=EUCL, hyp=HYP, requests=REQUESTS, launches=launches,
         test_step_launches=test_launches, launches_main_path=dict(totals),
@@ -2215,8 +2370,8 @@ def bf16_phase(system, batches, card, fp32):
         knn_max_score_gap=knn_err, edgeconv_stages=ec_rows,
         edgeconv_ms_per_forward=sum(r["ms"] for r in ec_rows.values()),
         edgeconv_plain_ms_per_forward=sum(r["plain_ms"] for r in ec_rows.values()),
-        edgeconv_bound_ms_per_forward=bound_ms(ec_ops, ec_bytes)[0],
-        edgeconv_bound_by=bound_ms(ec_ops, ec_bytes)[1], edgeconv_max_abs_err=ec_err,
+        edgeconv_bound_ms_per_forward=ec_bound[0], edgeconv_bound_by=ec_bound[1],
+        edgeconv_fp32_rate_bound_ms_per_forward=ec_fp32_bound, edgeconv_max_abs_err=ec_err,
         edgeconv_rounding=BF16_ULP, embed_gap_vs_fp32=embed_gap,
         graph_agreement_vs_fp32=graph_agreement, decode_vs_fp32=decode_cmp,
         train_vs_cpu_b2_n256=vs_cpu, entry_train_launches=entry_train_launches,
@@ -2231,6 +2386,13 @@ def bf16_phase(system, batches, card, fp32):
 IMPORT_EPOCH = 4  # the epoch index the hpcs_tpu-format checkpoint stores
 DECODE_OBJECTS = 4  # flagship objects the decode API runs on
 REFERENCE_STUB = "reference_hpcs_models_stub"  # unimportable when the file is read
+
+
+def bf16_phase_alone(card):
+    """bf16_phase on the flagship model and requests (scripts/chip_phase.py
+    bf16), with no fp32 phase's readings beside it."""
+    system, _, batches = flagship()
+    return bf16_phase(system, batches, card, fp32=None)
 
 
 def import_phase(system, cfg, batches, card, keep=None):
@@ -4459,7 +4621,6 @@ def main():
     from hpcs_torch.ops import _build
     from hpcs_torch.ops import edgeconv as E
     from hpcs_torch.ops import knn as KN
-    from hpcs_torch.testing import check_edgeconv, check_planted_eps
 
     t0 = time.time()
     _build.build()
@@ -4490,70 +4651,10 @@ def main():
         w3, w63 = knn_work(B, N, 3, K), knn_work(B, N, 63, K)
 
         # 3. kernel B2 against edgeconv_infer_plain at the three stage shapes
-        stages = {"stage1_c1": (x0, idx1, w12, 2), "stage2_c21": (x1, idx2, w34, 2),
-                  "stage3_c21": (x2, idx3, w5, 1)}
-        ec_rows, ec_err = {}, 0.0
-        for st, (x, idx, w, nc) in stages.items():
-            got = E.edgeconv_infer(x, idx, *w, n_convs=nc)
-            want = E.edgeconv_infer_plain(x, idx, *w, n_convs=nc)
-            checked = check_edgeconv(got, want, x, idx, w, nc)
-            # planted near-EPS inputs at this stage's shape, against float64
-            planted = {v: check_planted_eps(E.edgeconv_infer, B, N, K, x.shape[2], nc, v, device)
-                       for v in (("conv1", "conv2") if nc == 2 else ("conv1",))}
-            ec_err = max(ec_err, checked["max_abs_err"], *planted.values())
-            ops, nbytes = edgeconv_work(B, N, x.shape[2], K, nc)
-            bound, by = bound_ms(ops, nbytes)
-
-            def stage():
-                return E.edgeconv_infer(x, idx, *w, n_convs=nc)
-
-            # the stage's device time by kernel: the projection (C=21), the
-            # edge kernel and conv2's weights' copies to constant memory; ms
-            # is their sum, call_ms the CUDA-event time of back-to-back calls,
-            # which includes the host's time to launch them
-            parts = kernel_ms(stage, 20)
-            ms = sum(parts.values())
-            ec_rows[st] = dict(C=x.shape[2], n_convs=nc, **checked,
-                               max_abs_err_planted_eps_vs_float64=planted, ms=ms,
-                               call_ms=cuda_ms(stage, 20),
-                               projection_ms=sum(v for k, v in parts.items() if "project" in k),
-                               edge_kernel_ms=sum(v for k, v in parts.items() if "edge" in k),
-                               by_kernel_ms=parts,
-                               plain_ms=cuda_ms(lambda: E.edgeconv_infer_plain(
-                                   x, idx, *w, n_convs=nc), 5),
-                               bound_ms=bound, bound_by=by, roofline_share=bound / ms)
-        # B2 over each half of the centres (a 2-way point-sharded rank's
-        # launch, the projection over the whole table), fp32 and bf16: the
-        # whole launch's rows bit for bit, the second half timed
-        ec_halves = {}
-        for st, (x32, idx, w, nc) in stages.items():
-            for dtype in (torch.float32, torch.bfloat16):
-                x = x32.to(dtype)
-                whole = E.edgeconv_infer(x, idx, *w, n_convs=nc)
-                halves = ((0, N // 2), (N // 2, N))
-                for half in halves:
-                    part = idx[:, half[0]:half[1]].contiguous()
-                    if not torch.equal(E.edgeconv_infer(x, part, *w, n_convs=nc, rows=half),
-                                       whole[:, half[0]:half[1]]):
-                        fail(f"edgeconv: rows {half} of {st} ({dtype}) differ from the whole "
-                             "launch's")
-                part = idx[:, N // 2:].contiguous()
-                ms = cuda_ms(lambda x=x, part=part, w=w, nc=nc: E.edgeconv_infer(
-                    x, part, *w, n_convs=nc, rows=halves[1]), 20)
-                bound, by = bound_ms(*edgeconv_work(B, N, x.shape[2], K, nc, rows=N - N // 2,
-                                                    feature_bytes=x.element_size()))
-                ec_halves[f"{st}_{str(dtype)[6:]}"] = dict(
-                    rows=list(halves[1]), equal_to_whole=True, ms=ms,
-                    whole_ms=cuda_ms(lambda x=x, idx=idx, w=w, nc=nc: E.edgeconv_infer(
-                        x, idx, *w, n_convs=nc), 20), bound_ms=bound, bound_by=by,
-                    roofline_share=bound / ms)
-        ec_ms = sum(r["ms"] for r in ec_rows.values())
-        ec_bound = sum(r["bound_ms"] for r in ec_rows.values())
-        emit("edgeconv", stages=ec_rows, half_cloud=ec_halves, ms_per_forward=ec_ms,
-             bound_ms_per_forward=ec_bound,
-             roofline_share=ec_bound / ec_ms, ptxas=ptxas["edgeconv"], atol=1e-5, rtol=1e-4,
-             ill_conditioned_below=1e-4, ill_conditioned_limit="1e-5 + 2^-23 max|b| / |p|",
-             card=card)
+        ec = edgeconv_phase(card, {"stage1_c1": (x0, idx1, w12, 2),
+                                   "stage2_c21": (x1, idx2, w34, 2),
+                                   "stage3_c21": (x2, idx3, w5, 1)})
+        ec_rows, ec_err = ec["stages"], ec["max_abs_err"]
 
         # 4. the main path: requests through HypHCSystem.embed
         dvs = [decode_vector_for_batch(cfg, {"points": p, "category": cat})
@@ -4719,6 +4820,8 @@ def main():
              bound_by=wide["radix"]["bound_by"], library_ms=None),
         dict(name="edgeconv", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
+             kernel_functions=["edge_kernel<float, 1, 2>", "project_kernel<float>",
+                               "edge_kernel<float, 21, 2>", "edge_mean_kernel<float>"],
              launches=launches["edgeconv"] + decode["launches"]["edgeconv"]
              + train["launches"]["edgeconv"] + train["fit_launches"]["edgeconv"]
              + entry_launches["edgeconv"] + backbones["launches"]["edgeconv"]
@@ -4744,6 +4847,8 @@ def main():
              bound_by=bf16["knn_bound_by"], library_ms=None),
         dict(name="edgeconv_bf16", route="cuda", source="hpcs_torch/ops/csrc/edgeconv.cu",
              replaces="hpcs_tpu/ops/pallas/edgeconv_pallas.py:67",
+             kernel_functions=["edge_tc_kernel<1>", "project_kernel<__nv_bfloat16>",
+                               "edge_tc_kernel<21>", "edge_mean_kernel<__nv_bfloat16>"],
              launches=bf16["launches_main_path"]["edgeconv_bf16"]
              + trained["launches"]["edgeconv_bf16"] + obs["launches"]["edgeconv_bf16"]
              + par["launches"]["edgeconv_bf16"] + long["launches"]["edgeconv_bf16"],

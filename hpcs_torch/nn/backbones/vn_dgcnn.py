@@ -72,13 +72,35 @@ def _head_block(in_features, out_features, relu=True):
 
 
 def stage_weights(*convs):
-    """(W, Wd, folded BN) of each VNLinearLeakyReLU of one EdgeConv stage."""
+    """(W, Wd, folded BN) of each VNLinearLeakyReLU of one EdgeConv stage,
+    as kernel B2 and its plain version take them on both routes (on bf16
+    features they round the mixes themselves).
+
+    In eval mode with gradients off (the eval forward) each conv's folded
+    BatchNorm is made once for a set of values and kept on the conv, keyed
+    by the identity, data_ptr and _version of its BatchNorm's weight, bias
+    and running statistics and by its eps: load_state_dict, an optimizer
+    step, an in-place edit or a move to another device makes it anew.  In
+    train mode or with gradients on it is folded afresh and not kept."""
     out = []
     for conv in convs:
-        bn = conv.batchnorm.bn
-        out += [conv.map_to_feat.weight, conv.map_to_dir.weight,
-                fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)]
+        out += [conv.map_to_feat.weight, conv.map_to_dir.weight, _folded_bn(conv)]
     return out
+
+
+def _folded_bn(conv):
+    bn = conv.batchnorm.bn
+    stats = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    if conv.training or torch.is_grad_enabled():
+        return fold_bn(*stats, bn.eps)
+    # the key holds the tensors, so no other tensor can take their addresses
+    key = [bn.eps] + [(t, t.data_ptr(), t._version) for t in stats]
+    cached = conv.__dict__.get("_folded_bn")
+    if cached is None or cached[0][0] != key[0] or any(
+            a is not b or pa != pb or va != vb
+            for (a, pa, va), (b, pb, vb) in zip(cached[0][1:], key[1:])):
+        cached = conv.__dict__["_folded_bn"] = (key, fold_bn(*stats, bn.eps))
+    return cached[1]
 
 
 def knn_graph(metric, k, idx_override=None, i=0, rows=None):

@@ -50,18 +50,62 @@
 // whole launch's, so the range's output is the whole launch's rows bit for
 // bit.
 //
-// bf16 features (VN-DGCNN's bf16 configuration): the kernels are templates
-// on the element type T of x and of the output.  They convert x to fp32 as
-// they load it, compute in fp32 as the TPU kernel does (it upcasts bf16 at
-// its entry), keep the C = 21 workspace in fp32, and round each pooled
-// output to T once, as they store it.  The wrapper gives them the
-// bf16-rounded W1, Wd1, W2, Wd2 (the JAX package's channel mixes cast their
-// weights to bf16) in fp32; the folded BatchNorm stays fp32.
+// bf16 features (VN-DGCNN's bf16 configuration): x and the output are bf16;
+// inside, the stage is fp32 as in the TPU kernel (it upcasts bf16 at its
+// entry): x converted as it is loaded, the C = 21 workspace fp32, each
+// pooled output rounded to bf16 once as it is stored.  The channel mixes
+// W1, Wd1, W2, Wd2 are rounded to bf16 (the JAX package's mixes cast their
+// weights to bf16) by the kernels as they load them, from the same fp32
+// tensors the fp32 route takes, so no launch casts them; the folded
+// BatchNorm stays fp32.  The one-conv stages run the fp32 route's kernels
+// on T = bf16.  The two-conv stages (C = 1 and C = 21) run edge_tc_kernel:
+//
+// - conv2 on the bf16 tensor cores, exactly.  On this route W2 and Wd2 are
+//   bf16, so each product W2[o][c] h[c] is exact in fp32 when h is bf16 too.
+//   The edge splits conv1's fp32 output h into three bf16 limbs,
+//   h0 = bf16(h), h1 = bf16(h - h0), h2 = bf16(h - h0 - h1): each
+//   difference is exact in fp32, and h0 + h1 + h2 == h for every finite h
+//   of magnitude 2^-110 or more (24 significand bits in three pieces of 8;
+//   below that a limb falls under bf16's smallest subnormal, 2^-133, and
+//   the split loses less than 2^-133).  conv2 is then the product
+//   [48 rows x 32] [32 x 24] per 8 edges and limb: A holds W2 and Wd2
+//   (rows 16 i .. 16 i + 7: p's channels 8 i .. 8 i + 7; rows 16 i + 8 ..:
+//   d's same channels; zero past channel 20 and input 20), B the limb of
+//   the 8 edges' three components (one n8 tile each), accumulated in fp32
+//   by mma.sync.m16n8k16: 3 M-tiles x 3 N-tiles x 2 K-steps x 3 limbs = 54
+//   HMMA per 8 edges, limb 2 first.  With that layout each lane's
+//   accumulators hold p and d of the same channel (8 i + its group), for
+//   the same two edges, in all three components: the gate runs in the
+//   lane's registers, with no shuffle and no pass through shared memory.
+//   wgmma (m64, B from shared memory) was the alternative: its accumulator
+//   puts rows 0-15 and 32-47 in different warps, so p and d would meet
+//   only through shared memory, and at 54 HMMA against ~450 other
+//   instructions a lane per 8 edges the MMA pipe is not what bounds the
+//   kernel, so wgmma's higher peak would buy nothing.  The first warp packs
+//   the lanes' A fragments into shared memory once a block, rounding the
+//   fp32 weights as it packs them; there is no __constant__ copy and no
+//   cross-stream event on this route.
+// - conv1 runs one thread per (point, channel) for both C: for C = 21 the
+//   fp32 projection as on the fp32 route, for C = 1 the 4 FMAs a channel
+//   from the neighbour's 3 coordinates, into the edge's row of shared
+//   memory ([component][24 channels], 21..23 zero, rows of 72 floats so a
+//   warp's 8-byte loads of 8 edges' rows hit distinct banks).
+// - The gates use the SFU's reciprocal square root and reciprocal
+//   (rsqrtf, __fdividef) in place of IEEE sqrt and division: a few fp32
+//   ulps, under the output's one bf16 rounding.  The fp32 route keeps IEEE.
+// - The mean over K is the fp32 route's: a sum in edge order through
+//   shared memory, carried across rounds of 32 edges.
+// - What bounds it: conv2's products at the tensor cores' rate (989
+//   TFLOP/s dense bf16, three limb products each) take less time than the
+//   adds, the gates and the mean at 67 TFLOP/s; as built, instruction issue
+//   (the limb split, the gates, conv1's gather).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -82,6 +126,11 @@ template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+// A channel mix's weight as the route computes with it: as it is on the
+// fp32 route, rounded to bf16 on the bf16 route.
+template <typename T> __device__ __forceinline__ float mix_weight(float w) {
+  return std::is_same<T, float>::value ? w : __bfloat162float(__float2bfloat16_rn(w));
 }
 
 // Shared parameters of an edge block: ab1, ab2 [2][21] and, for C = 1,
@@ -121,6 +170,31 @@ __device__ __forceinline__ void gate(float p[3], const float d[3], float a, floa
     h[v] = fmaf(p[v], SLOPE, __fmul_rn(1.f - SLOPE, fmaf(d[v], -coeff, p[v])));
 }
 
+// The same gate with the SFU's reciprocal square root and reciprocal (the
+// bf16 route's two-conv kernel): sqrt(s) = s rsqrt(s), x / y = x rcp(y).
+__device__ __forceinline__ void gate_fast(float p[3], const float d[3], float a, float b,
+                                          float h[3]) {
+  const float s = __fadd_rn(dot3(p, p), EPS * EPS);
+  const float norm = __fadd_rn(__fmul_rn(s, rsqrtf(s)), EPS);
+  const float aff = __fdividef(fmaf(a, norm, b), norm);
+#pragma unroll
+  for (int v = 0; v < 3; ++v) p[v] = __fmul_rn(p[v], aff);
+  const float dot = dot3(p, d);
+  const float coeff = dot < 0.f ? __fdividef(dot, __fadd_rn(dot3(d, d), EPS)) : 0.f;
+#pragma unroll
+  for (int v = 0; v < 3; ++v)
+    h[v] = fmaf(p[v], SLOPE, __fmul_rn(1.f - SLOPE, fmaf(d[v], -coeff, p[v])));
+}
+
+template <bool FAST>
+__device__ __forceinline__ void gate_of(float p[3], const float d[3], float a, float b,
+                                        float h[3]) {
+  if constexpr (FAST)
+    gate_fast(p, d, a, b, h);
+  else
+    gate(p, d, a, b, h);
+}
+
 // conv1's per-point products for C = 21: gath[point][6 o ..] = (U[o], Ud[o])
 // and cen[point][6 o ..] = (Pc[o], Dc[o]), each a 3-vector, rows of ROW
 // floats.  Thread (point, o) of the block; the block stages its points'
@@ -140,8 +214,8 @@ project_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   const int first = blockIdx.x * PROJECT_POINTS;
   for (int f = tid; f < COUT * 2 * C; f += THREADS) {
     const int o = f / (2 * C), c = f - o * 2 * C;
-    s_w[0][o * WROW + c] = w1[f];
-    s_w[1][o * WROW + c] = wd1[f];
+    s_w[0][o * WROW + c] = mix_weight<T>(w1[f]);
+    s_w[1][o * WROW + c] = mix_weight<T>(wd1[f]);
   }
   const int rows = min(PROJECT_POINTS, points - first);
   for (int f = tid; f < rows * C * 3; f += THREADS)
@@ -235,13 +309,15 @@ struct Conv1Channel {
   float ui[3], udi[3], pc[3], dc[3], a, b;
   const float* gath;
   int o;
+  // ab1: the folded BatchNorm [2][21] (the block's parameters or the tensor)
   __device__ __forceinline__ Conv1Channel(const float* gath_, const float* cen, size_t point,
-                                          int o_, const float* par)
-      : a(par[PAR_AB1 + o_]), b(par[PAR_AB1 + COUT + o_]), gath(gath_), o(o_) {
+                                          int o_, const float* ab1)
+      : a(ab1[o_]), b(ab1[COUT + o_]), gath(gath_), o(o_) {
     load6(gath + point * ROW + o * 6, ui, udi);
     load6(cen + point * ROW + o * 6, pc, dc);
   }
   // the gated channel of the edge to point j (its index in the workspace)
+  template <bool FAST = false>
   __device__ __forceinline__ void edge(size_t j, float h[3]) const {
     float uj[3], udj[3], p[3], d[3];
     load6(gath + j * ROW + o * 6, uj, udj);
@@ -250,7 +326,7 @@ struct Conv1Channel {
       p[v] = (uj[v] - ui[v]) + pc[v];
       d[v] = (udj[v] - udi[v]) + dc[v];
     }
-    gate(p, d, a, b, h);
+    gate_of<FAST>(p, d, a, b, h);
   }
 };
 
@@ -268,7 +344,7 @@ edge_mean_kernel(const int* __restrict__ idx, const float* __restrict__ gath,
   const long long t = (long long)blockIdx.x * MEAN_THREADS + threadIdx.x;
   if (t >= (long long)points * COUT) return;
   const int point = (int)(t / COUT), o = (int)(t % COUT);
-  const Conv1Channel ch(gath, cen, centre_of(point, n, rows, row_begin), o, par);
+  const Conv1Channel ch(gath, cen, centre_of(point, n, rows, row_begin), o, par + PAR_AB1);
   const int* nbr = idx + (size_t)point * k;
   const size_t cloud = cloud_of(point, n, rows);
   float acc[3] = {0.f, 0.f, 0.f};
@@ -353,8 +429,8 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     par[PAR_AB1 + f] = ab1[f];
     if (NCONV == 2) par[PAR_AB2 + f] = ab2[f];
     if (C == 1) {
-      par[PAR_W1 + f] = w1[f];
-      par[PAR_WD1 + f] = wd1[f];
+      par[PAR_W1 + f] = mix_weight<T>(w1[f]);
+      par[PAR_WD1 + f] = mix_weight<T>(wd1[f]);
     }
   }
   __syncthreads();
@@ -364,7 +440,7 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     if constexpr (C == 21) {
       const int pp = tid / COUT, o = tid - pp * COUT, pt = first + pp;
       if (pp < per_block && pt < points) {
-        const Conv1Channel ch(gath, cen, centre_of(pt, n, rows, row_begin), o, par);
+        const Conv1Channel ch(gath, cen, centre_of(pt, n, rows, row_begin), o, par + PAR_AB1);
         const int* nbr = idx + (size_t)pt * k + r * kc;
         const size_t cloud = cloud_of(pt, n, rows);
 #pragma unroll 4
@@ -426,6 +502,240 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     }
     if (!last) __syncthreads();
   }
+}
+
+// ---- the bf16 route's two-conv stages: conv2 on the tensor cores ----
+
+constexpr int TC_CH = 24;            // floats of one component's channels in an edge's row
+constexpr int TC_ROW = 3 * TC_CH;    // floats of an edge's row (72: 8-byte loads of 8 rows hit
+                                     // distinct banks)
+constexpr int TC_GROUP = 8;          // edges of one MMA column tile
+constexpr int TC_THREADS = 192;      // threads of an edge_tc_kernel block at most (9 points)
+constexpr int TC_BLOCKS = 4;         // its blocks resident on an SM: <= 80 registers a thread
+
+// conv1 of one channel o of a point's edges for C = 1 on bf16 features:
+// Wa (x_j - x_i) + Wb x_i from the centre's and the neighbour's 3
+// coordinates, the weights rounded to bf16 (conv1_c1's arithmetic).
+struct Conv1ChannelC1 {
+  float xi[3], wa, wb, wda, wdb, a, b;
+  const __nv_bfloat16* x;
+  __device__ __forceinline__ Conv1ChannelC1(const __nv_bfloat16* x_, size_t point, int o,
+                                            const float* w1, const float* wd1, const float* ab1)
+      : a(ab1[o]), b(ab1[COUT + o]), x(x_) {
+#pragma unroll
+    for (int v = 0; v < 3; ++v) xi[v] = to_float(x[point * 3 + v]);
+    wa = mix_weight<__nv_bfloat16>(w1[o * 2]);
+    wb = mix_weight<__nv_bfloat16>(w1[o * 2 + 1]);
+    wda = mix_weight<__nv_bfloat16>(wd1[o * 2]);
+    wdb = mix_weight<__nv_bfloat16>(wd1[o * 2 + 1]);
+  }
+  template <bool FAST>
+  __device__ __forceinline__ void edge(size_t j, float h[3]) const {
+    float p[3], d[3];
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const float diff = to_float(x[j * 3 + v]) - xi[v];
+      p[v] = fmaf(wa, diff, __fmul_rn(wb, xi[v]));
+      d[v] = fmaf(wda, diff, __fmul_rn(wdb, xi[v]));
+    }
+    gate_of<FAST>(p, d, a, b, h);
+  }
+};
+
+// Two fp32 values, rounded to bf16, packed as mma.sync takes a pair: the
+// first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The three bf16 limbs of a pair of fp32 values h: limb[l] packs
+// bf16(h - limb[0] - ... - limb[l-1]) of both; every difference is exact.
+__device__ __forceinline__ void split3(float2 h, uint32_t limb[3]) {
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    limb[l] = pack_bf16(h.x, h.y);
+    h.x = __fsub_rn(h.x, __uint_as_float(limb[l] << 16));
+    h.y = __fsub_rn(h.y, __uint_as_float(limb[l] & 0xffff0000u));
+  }
+}
+
+// c += a b over one 16 x 8 x 16 tile, bf16 in, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One bf16 stage with two convs.  Block: P points; conv1 thread (point,
+// channel o) for tid < 21 P, writing each of the round's KC edges' gated
+// channel o into the edge's row of s_h; then each warp takes groups of 8
+// edge rows: lane (g, t) = (lane / 4, lane % 4) loads row g's channels
+// 2t, 2t+1, 2t+8, 2t+9, 16+2t, 17+2t of each component (its B fragments),
+// splits them into limbs, and after the 54 HMMA holds p and d of channels
+// g, 8 + g and (g < 5) 16 + g for the edges 2t and 2t+1 of the group: it
+// gates them and writes them back over conv1's channels.  Then the mean as
+// in edge_kernel.  Dynamic shared memory: the A fragments s_a[3][2][32]
+// (uint4: M-tile, K-step, lane), then in floats s_h[groups 8][72] and, when
+// K takes more than one round, s_acc[P][63].  Each lane reloads its A
+// fragments from s_a per M-tile, and conv1's per-thread state is made anew
+// each round, so neither is live across the whole kernel: 80 registers
+// hold 4 blocks of 6 warps on an SM.
+template <int C>
+__global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS)
+edge_tc_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ idx,
+               const float* __restrict__ gath, const float* __restrict__ cen,
+               const float* __restrict__ w1, const float* __restrict__ wd1,
+               const float* __restrict__ ab1, const float* __restrict__ w2,
+               const float* __restrict__ wd2, const float* __restrict__ ab2,
+               __nv_bfloat16* __restrict__ out, int points, int n, int k, int kc, int per_block,
+               int rows, int row_begin) {
+  extern __shared__ float4 smem4[];
+  uint4* s_a = reinterpret_cast<uint4*>(smem4);
+  float* s_h = reinterpret_cast<float*>(s_a + 3 * 2 * 32);
+  const int slots = per_block * kc;
+  const int groups = (slots + TC_GROUP - 1) / TC_GROUP;
+  float* s_acc = s_h + groups * TC_GROUP * TC_ROW;
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = threads >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int first = blockIdx.x * per_block;
+  const int rounds = (k + kc - 1) / kc;
+
+  // the rows' channels 21..23: zero for good (B's rows past input 20)
+  for (int f = tid; f < groups * TC_GROUP * 3; f += threads) {
+    float* r = s_h + (f / 3) * TC_ROW + (f % 3) * TC_CH + COUT;
+    r[0] = r[1] = r[2] = 0.f;
+  }
+  // the lanes' A fragments (M-tile i, K-step s: inputs 16 s ..), made by
+  // the first warp; the first barrier below publishes them
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int ch = 8 * i + g;
+      auto w = [&](const float* m, int c) {
+        return ch < COUT && c < COUT ? m[ch * COUT + c] : 0.f;
+      };
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        const int c = 16 * s2 + 2 * t;
+        s_a[(i * 2 + s2) * 32 + lane] =
+            make_uint4(pack_bf16(w(w2, c), w(w2, c + 1)), pack_bf16(w(wd2, c), w(wd2, c + 1)),
+                       pack_bf16(w(w2, c + 8), w(w2, c + 9)),
+                       pack_bf16(w(wd2, c + 8), w(wd2, c + 9)));
+      }
+    }
+  }
+  float ga[3], gb[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int ch = 8 * i + g;
+    ga[i] = ch < COUT ? ab2[ch] : 0.f;
+    gb[i] = ch < COUT ? ab2[COUT + ch] : 0.f;
+  }
+
+  const int pp = tid / COUT, o = tid - pp * COUT, pt = first + pp;
+  const bool conv1_thread = pp < per_block && pt < points;
+  using Conv1 = std::conditional_t<C == 1, Conv1ChannelC1, Conv1Channel>;
+
+  for (int r = 0; r < rounds; ++r) {
+    const int nk = min(kc, k - r * kc);
+    if (conv1_thread) {
+      const size_t cloud = cloud_of(pt, n, rows);
+      const Conv1 ch1 = [&] {
+        const size_t centre = centre_of(pt, n, rows, row_begin);
+        if constexpr (C == 1)
+          return Conv1ChannelC1(x, centre, o, w1, wd1, ab1);
+        else
+          return Conv1Channel(gath, cen, centre, o, ab1);
+      }();
+      const int* nbr = idx + (size_t)pt * k + r * kc;
+#pragma unroll 4
+      for (int q = 0; q < nk; ++q) {
+        const int j = nbr[q];
+        const bool valid = j >= 0 && j < n;  // else the point's output is NaN
+        float h[3];
+        ch1.template edge<true>(cloud + (valid ? j : 0), h);
+        float* row = s_h + (pp * kc + q) * TC_ROW + o;
+#pragma unroll
+        for (int v = 0; v < 3; ++v) row[v * TC_CH] = valid ? h[v] : NAN;
+      }
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int grp = warp; grp < groups; grp += warps) {
+      const float* row = s_h + (grp * TC_GROUP + g) * TC_ROW + 2 * t;
+      float acc[3][3][4] = {};
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        uint32_t lo[3], hi[3], up[3];  // inputs 2t.., 2t+8.., 16+2t.. of component v
+        split3(*reinterpret_cast<const float2*>(row + v * TC_CH), lo);
+        split3(*reinterpret_cast<const float2*>(row + v * TC_CH + 8), hi);
+        split3(*reinterpret_cast<const float2*>(row + v * TC_CH + 16), up);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const uint4 a0 = s_a[(i * 2) * 32 + lane], a1 = s_a[(i * 2 + 1) * 32 + lane];
+          const uint32_t k0[4] = {a0.x, a0.y, a0.z, a0.w}, k1[4] = {a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+          for (int l = 2; l >= 0; --l) {
+            mma_bf16(acc[i][v], k0, lo[l], hi[l]);
+            mma_bf16(acc[i][v], k1, up[l], 0u);
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const int ch = 8 * i + g;
+        if (ch >= COUT) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float p[3] = {acc[i][0][c], acc[i][1][c], acc[i][2][c]};
+          const float d[3] = {acc[i][0][2 + c], acc[i][1][2 + c], acc[i][2][2 + c]};
+          float h[3];
+          gate_fast(p, d, ga[i], gb[i], h);
+          float* dst = s_h + (grp * TC_GROUP + 2 * t + c) * TC_ROW + ch;
+#pragma unroll
+          for (int v = 0; v < 3; ++v) dst[v * TC_CH] = h[v];
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    // segmented sum: output (point, f) adds its point's edges in order
+    const bool last = r == rounds - 1;
+    for (int f = tid; f < per_block * CV; f += threads) {
+      const int p = f / CV, cv = f - p * CV, oc = cv / 3, v = cv - oc * 3;
+      if (first + p >= points) continue;
+      float acc = r > 0 ? s_acc[f] : 0.f;
+      const float* e = s_h + p * kc * TC_ROW + v * TC_CH + oc;
+#pragma unroll 4
+      for (int q = 0; q < nk; ++q) acc += e[q * TC_ROW];
+      if (last)
+        out[(size_t)(first + p) * CV + cv] = from_float<__nv_bfloat16>(acc * (1.f / k));
+      else
+        s_acc[f] = acc;
+    }
+    if (!last) __syncthreads();
+  }
+}
+
+// edge_tc_kernel's block: the most points (up to 9: 21 threads each, at
+// most 192) whose A fragments and rows fit 48 KB of shared memory; threads
+// rounded up to whole warps.
+int tc_points_per_block(int kc, int rounds, int* threads, size_t* smem) {
+  auto bytes = [&](int p) {
+    const int rows = (p * kc + TC_GROUP - 1) / TC_GROUP * TC_GROUP;
+    return 3 * 2 * 32 * sizeof(uint4) +
+           sizeof(float) * ((size_t)rows * TC_ROW + (rounds > 1 ? p * CV : 0));
+  };
+  int p = TC_THREADS / COUT;
+  while (p > 1 && bytes(p) > SMEM_LIMIT) --p;
+  *threads = (p * COUT + 31) / 32 * 32;
+  *smem = bytes(p);
+  return p;
 }
 
 int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
@@ -495,6 +805,38 @@ cudaError_t launch(const T* x, const int* idx, const float* w1, const float* wd1
   return cudaGetLastError();
 }
 
+// The bf16 route's two-conv stage: the projection (C = 21), then
+// edge_tc_kernel, which reads conv2's weights from w2 and wd2 themselves.
+template <int C>
+cudaError_t launch_tc(const __nv_bfloat16* x, const int* idx, const float* w1, const float* wd1,
+                      const float* ab1, const float* w2, const float* wd2, const float* ab2,
+                      __nv_bfloat16* out, float* workspace, int b, int n, int k, int row_begin,
+                      int rows, cudaStream_t s) {
+  const int table = b * n, points = b * rows;
+  float* gath = workspace;
+  float* cen = workspace + (size_t)table * ROW;
+  if (C == 21) {
+    project_kernel<__nv_bfloat16><<<(table + PROJECT_POINTS - 1) / PROJECT_POINTS,
+                                    PROJECT_POINTS * COUT, 0, s>>>(x, w1, wd1, gath, cen, table);
+    if (cudaError_t err = cudaGetLastError()) return err;
+  }
+  const int kc = k < MAX_EDGES ? k : MAX_EDGES;
+  const int rounds = (k + kc - 1) / kc;
+  int threads = 0;
+  size_t smem = 0;
+  const int per_block = tc_points_per_block(kc, rounds, &threads, &smem);
+  const int blocks = (points + per_block - 1) / per_block;
+  // shared memory for TC_BLOCKS blocks an SM (the default split may hold fewer)
+  cudaError_t err = cudaFuncSetAttribute(edge_tc_kernel<C>,
+                                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxShared);
+  if (err) return err;
+  edge_tc_kernel<C><<<blocks, threads, smem, s>>>(x, idx, gath, cen, w1, wd1, ab1, w2, wd2, ab2,
+                                                  out, points, n, k, kc, per_block, rows,
+                                                  row_begin);
+  return cudaGetLastError();
+}
+
 // The stage on features of element type T (see hpcs_edgeconv below).
 template <typename T>
 int edgeconv_entry(const T* x, const int* idx, const float* w1, const float* wd1,
@@ -511,22 +853,29 @@ int edgeconv_entry(const T* x, const int* idx, const float* w1, const float* wd1
                                           b, n, k, row_begin, rows, s)
                         : launch<T, 21, 1>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace,
                                            b, n, k, row_begin, rows, s));
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(g_order_mutex);
-  if (g_done[dev] == nullptr) {
-    if ((err = cudaEventCreateWithFlags(&g_done[dev], cudaEventDisableTiming))) return (int)err;
-  } else if ((err = cudaStreamWaitEvent(s, g_done[dev], 0))) {
-    return (int)err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return (int)(c == 1 ? launch_tc<1>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n,
+                                       k, row_begin, rows, s)
+                        : launch_tc<21>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b,
+                                        n, k, row_begin, rows, s));
+  } else {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err) return (int)err;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(g_order_mutex);
+    if (g_done[dev] == nullptr) {
+      if ((err = cudaEventCreateWithFlags(&g_done[dev], cudaEventDisableTiming))) return (int)err;
+    } else if ((err = cudaStreamWaitEvent(s, g_done[dev], 0))) {
+      return (int)err;
+    }
+    err = c == 1 ? launch<T, 1, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, k,
+                                   row_begin, rows, s)
+                 : launch<T, 21, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n,
+                                    k, row_begin, rows, s);
+    if (err) return (int)err;
+    return (int)cudaEventRecord(g_done[dev], s);
   }
-  err = c == 1 ? launch<T, 1, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, k,
-                                 row_begin, rows, s)
-               : launch<T, 21, 2>(x, idx, w1, wd1, ab1, w2, wd2, ab2, out, workspace, b, n, k,
-                                  row_begin, rows, s);
-  if (err) return (int)err;
-  return (int)cudaEventRecord(g_done[dev], s);
 }
 
 }  // namespace
@@ -548,7 +897,7 @@ extern "C" int hpcs_edgeconv(const float* x, const int* idx, const float* w1, co
 }
 
 // The same with x and out bf16 (the weights, folded BatchNorm and workspace
-// fp32).
+// fp32; the kernels round the channel mixes to bf16).
 extern "C" int hpcs_edgeconv_bf16(const __nv_bfloat16* x, const int* idx, const float* w1,
                                   const float* wd1, const float* ab1, const float* w2,
                                   const float* wd2, const float* ab2, __nv_bfloat16* out,

@@ -11,7 +11,10 @@ fp32 stage on x.float() with the channel mixes' weights rounded to bf16
 (the folded BatchNorm stays fp32), its output rounded to bf16 once: the
 TPU kernel computes in fp32 inside too.  The JAX package's XLA stage in
 bf16 rounds at other points (the edge features, each mix), which the
-kernel's conv1, split by linearity, has no place for.
+kernel's conv1, split by linearity, has no place for.  Both routes take the
+same fp32 weights: on bf16 the kernels round the mixes as they load them
+(the two-conv stages' conv2 runs on the bf16 tensor cores, exactly, on
+three bf16 limbs of its input), so the wrapper launches no cast.
 """
 import ctypes
 
@@ -141,8 +144,6 @@ def _edgeconv_cuda(x, idx, W1, Wd1, ab1, W2, Wd2, ab2, n_convs, rows=None):
     _check(x, "x", (B, N, C, 3), x.dtype)
     _check(idx, "idx", (B, r1 - r0, K), torch.int32)
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        W1, Wd1, W2, Wd2 = _bf16_rounded(W1, Wd1, W2, Wd2)
     for t, name, shape in ((W1, "W1", (KERNEL_C_OUT, 2 * C)), (Wd1, "Wd1", (KERNEL_C_OUT, 2 * C)),
                            (ab1, "ab1", (2, KERNEL_C_OUT))):
         _check(t, name, shape)

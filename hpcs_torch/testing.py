@@ -135,21 +135,29 @@ def planted_eps_stage(b, n, k, c, n_convs, variant, seed=0):
     return torch.from_numpy(x.astype(np.float32)), torch.from_numpy(idx), f32
 
 
-def check_planted_eps(fn, b, n, k, c, n_convs, variant, device, seed=0):
+def check_planted_eps(fn, b, n, k, c, n_convs, variant, device, seed=0, dtype=torch.float32):
     """Run the EdgeConv stage `fn` (edgeconv_infer or a twin) on `device` on
     planted_eps_stage's inputs and hold every output to the plain twin in
-    float64: atol 1e-5 / rtol 1e-4.  Raises AssertionError; returns the
-    largest abs err."""
+    float64: atol 1e-5 / rtol 1e-4.  With dtype bf16 the features are bf16
+    (the planted x is exact in bf16), the twin takes the channel mixes
+    rounded to bf16 as the bf16 route does, and rtol widens by one bf16 ulp,
+    2^-7, for the output's one rounding (as check_edgeconv's `rounding`).
+    Raises AssertionError; returns the largest abs err."""
     x, idx, w = planted_eps_stage(b, n, k, c, n_convs, variant, seed)
-    x, idx, w = x.to(device), idx.to(device), [t.to(device) for t in w]
+    x, idx, w = x.to(device, dtype), idx.to(device), [t.to(device) for t in w]
+    bf16 = dtype == torch.bfloat16
+    rtol = RTOL + (2.0 ** -7 if bf16 else 0.0)
     got = fn(x, idx, *w, n_convs=n_convs)
-    want = edgeconv_infer_plain(x.double(), idx, *[t.double() for t in w], n_convs=n_convs)
+    w64 = [t.to(torch.bfloat16).double() if bf16 and i % 3 < 2 else t.double()
+           for i, t in enumerate(w)]
+    want = edgeconv_infer_plain(x.double(), idx, *w64, n_convs=n_convs)
+    assert got.dtype == dtype, f"edgeconv planted {variant} C={c}: {got.dtype} output"
     assert torch.isfinite(got).all(), f"edgeconv planted {variant} C={c}: non-finite output"
     err = (got.double() - want).abs()
-    bad = err > ATOL + RTOL * want.abs()
+    bad = err > ATOL + rtol * want.abs()
     assert not bad.any(), (
         f"edgeconv planted {variant} C={c}: {int(bad.sum())} outputs beyond atol {ATOL} / "
-        f"rtol {RTOL} of the float64 twin, max abs err {float(err.max()):.3e}")
+        f"rtol {rtol} of the float64 twin, max abs err {float(err.max()):.3e}")
     return float(err.max())
 
 
@@ -183,6 +191,38 @@ def _kernel_gate(p, d, ab):
     return NEGATIVE_SLOPE * p + (1 - NEGATIVE_SLOPE) * (p - coeff * d)
 
 
+def bf16_limbs(h):
+    """The three bf16 limbs of fp32 h, as kernel B2's bf16 route splits
+    conv2's input: h0 = bf16(h), h1 = bf16(h - h0), h2 = bf16(h - h0 - h1),
+    each as fp32 values.  Every difference is exact in fp32, and
+    h0 + h1 + h2 == h for every finite h of magnitude 2^-110 or more, and 0."""
+    limbs = []
+    for _ in range(3):
+        limbs.append(h.to(torch.bfloat16).float())
+        h = h - limbs[-1]
+    return limbs
+
+
+TC_K_STEPS = (slice(0, 16), slice(16, 21))  # edge_tc_kernel's K-steps over conv2's 21 inputs
+
+
+def limb_conv2(h, W):
+    """conv2's W h [..., C_out, 3] as kernel B2's bf16 route makes it from
+    h [..., 21, 3] (fp32): W rounded to bf16, h in its three bf16 limbs
+    (bf16_limbs), each product exact; one MMA a limb and K-step, limb 2
+    first, each adding its 16 products (exactly, in float64) to the fp32
+    accumulator with one rounding.  The tensor cores align and truncate
+    where this rounds: the two differ by a few fp32 ulps of the largest
+    product."""
+    Wb = W.to(torch.bfloat16).double()
+    acc = h.new_zeros(h.shape[:-2] + (W.shape[0], 3))
+    for limb in reversed(bf16_limbs(h)):
+        for ks in TC_K_STEPS:
+            acc = (acc.double() + torch.einsum("oc,...cv->...ov", Wb[:, ks],
+                                               limb[..., ks, :].double())).float()
+    return acc
+
+
 def edgeconv_split_model(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_convs=2):
     """A plain model of kernel B2's order of operations (not on any forward
     path; `csrc/edgeconv.cu` and this function change together).
@@ -190,14 +230,22 @@ def edgeconv_split_model(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_co
     conv1 as split_conv1; the gate per edge; conv2 accumulated one conv1
     channel at a time into all its outputs; the mean over K as a sum in edge
     order times 1/K.  An index outside [0, N) makes its point's output NaN.
-    Same arguments and result as edgeconv_infer_plain.
+    On bf16 x, the bf16 route: x.float(), the mixes rounded to bf16, conv2
+    (two convs: edge_tc_kernel) as limb_conv2, the output rounded to bf16
+    (its gates' SFU reciprocals are modelled by the IEEE gate: a few fp32
+    ulps apart).  Same arguments and result as edgeconv_infer_plain.
     """
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, W1, Wd1 = x.float(), W1.to(torch.bfloat16).float(), Wd1.to(torch.bfloat16).float()
     B, N, K = idx.shape
     bad = ((idx < 0) | (idx >= N)).any(-1)
     idx = idx.clamp(0, N - 1)
     p, d = split_conv1(x, idx, W1, Wd1)
     h = _kernel_gate(p, d, ab1)
-    if n_convs == 2:
+    if n_convs == 2 and bf16:
+        h = _kernel_gate(limb_conv2(h, W2), limb_conv2(h, Wd2), ab2)
+    elif n_convs == 2:
         p2 = h.new_zeros(h.shape[:-2] + (W2.shape[0], 3))
         d2 = torch.zeros_like(p2)
         for o in range(h.shape[-2]):
@@ -209,7 +257,7 @@ def edgeconv_split_model(x, idx, W1, Wd1, ab1, W2=None, Wd2=None, ab2=None, n_co
         acc = acc + h[:, :, kk]
     out = acc * (1.0 / K)
     out[bad] = float("nan")
-    return out
+    return out.to(torch.bfloat16) if bf16 else out
 
 
 def knn_candidates(x, k, row_step=1):

@@ -1,6 +1,12 @@
 """Run one phase of chip_smoke.py alone on one GPU, after building the
 kernels: `knn` (kernel B1 against knn_plain at the flagship: exactness,
-times, selection work, launch geometry, half clouds), `knn_wide` (B1's
+times, selection work, launch geometry, half clouds), `edgeconv` (kernel
+B2 at the flagship's three stages: against its plain version and the
+float64 twin on planted near-EPS inputs, times by kernel, ptxas, half
+clouds in fp32 and bf16), `bf16` (VN-DGCNN in bf16 on the flagship's
+weights: requests, B1 and B2's bf16 routes against their plain versions,
+B2's tensor-core HMMA from the SASS and both bounds, a training step, the
+entry points with --bf16), `knn_wide` (B1's
 wide route at the shapes B1 refuses, N = 65,536 included: exactness,
 bf16, times beside the bound, launch geometry, the 4096 / 4097 edge; its
 radix route for k > 256 and the 256 / 257 edge), `long_cloud` (the
@@ -37,7 +43,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from hpcs_torch.ops import _build  # noqa: E402
 
-PHASES = {"knn": cs.knn_phase, "knn_wide": cs.knn_wide_phase, "long_cloud": cs.long_cloud_phase,
+PHASES = {"knn": cs.knn_phase, "edgeconv": cs.edgeconv_phase, "bf16": cs.bf16_phase_alone,
+          "knn_wide": cs.knn_wide_phase, "long_cloud": cs.long_cloud_phase,
           "observe": cs.observe_phase, "parallel": cs.parallel_phase,
           "examples": cs.examples_phase, "notebooks": cs.notebooks_phase,
           "partnet": cs.partnet_phase, "parity": cs.parity_phase}

@@ -123,6 +123,21 @@ def test_edgeconv_kernel_gate_eps_on_planted_inputs(C, n_convs, variant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,n_convs,variant", [(1, 2, "conv1"), (1, 2, "conv2"), (21, 2, "conv1"),
+                                               (21, 2, "conv2"), (21, 1, "conv1")])
+def test_edgeconv_kernel_bf16_gate_eps_on_planted_inputs(C, n_convs, variant):
+    """The bf16 route (the two-conv stages on the tensor cores, their gates
+    on the SFU's reciprocals) on the planted inputs: every output within
+    atol 1e-5 / rtol 1e-4 + one bf16 ulp of the float64 twin on the
+    bf16-rounded mixes."""
+    require_cuda()
+    before = E.edgeconv_infer.bf16_launches
+    check_planted_eps(E.edgeconv_infer, 4, 1024, 20, C, n_convs, variant, "cuda",
+                      dtype=torch.bfloat16)
+    assert E.edgeconv_infer.bf16_launches == before + 1
+
+
+@pytest.mark.cuda
 def test_embed_on_gpu_goes_through_both_kernels():
     require_cuda()
     cfg = ModelConfig(num_class=10, num_categories=4, eucl_dim=8, hyp_dim=8, k=8)
@@ -241,18 +256,26 @@ def test_knn_kernel_line_at_the_flagship(dtype):
     torch.testing.assert_close(K.knn(x, 20), K.knn_plain(x, 20), rtol=0, atol=0)
 
 
+def _rounding(dtype):
+    """check_edgeconv's widening for the route of `dtype`: one bf16 ulp on bf16."""
+    return {"rounding": 2.0 ** -7} if dtype == torch.bfloat16 else {}
+
+
 @pytest.mark.cuda
-def test_edgeconv_kernel_ragged_point_count():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edgeconv_kernel_ragged_point_count(dtype):
     """B*N not a multiple of the warps per block, K other than 20."""
     require_cuda()
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.standard_normal((3, 1001, 21, 3)).astype(np.float32)).cuda()
+    x = x.to(dtype)
     idx = torch.from_numpy(rng.integers(0, 1001, (3, 1001, 7)).astype(np.int32)).cuda()
     w = [torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).cuda()
          for s in ((21, 42), (21, 42), (2, 21), (21, 21), (21, 21), (2, 21))]
     w[2][0] += 1
     w[5][0] += 1
-    check_edgeconv(E.edgeconv_infer(x, idx, *w), E.edgeconv_infer_plain(x, idx, *w), x, idx, w, 2)
+    check_edgeconv(E.edgeconv_infer(x, idx, *w), E.edgeconv_infer_plain(x, idx, *w), x, idx, w, 2,
+                   **_rounding(dtype))
 
 
 def _edgeconv_case(rng, B, N, K, C):
@@ -267,31 +290,60 @@ def _edgeconv_case(rng, B, N, K, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K", [4, 7, 20, 32, 40])
 @pytest.mark.parametrize("C,n_convs", [(1, 2), (21, 2), (21, 1), (1, 1)])
-def test_edgeconv_kernel_any_k_on_ragged_blocks(C, n_convs, K):
+def test_edgeconv_kernel_any_k_on_ragged_blocks(C, n_convs, K, dtype):
     """Every kernel instance at K in {4, 7, 20, 32}, and K=40 (two rounds of
     32 and 8 edges), on B*N = 3003 points, which no block's point count
-    divides."""
+    divides; on both routes."""
     require_cuda()
     x, idx, w = _edgeconv_case(np.random.default_rng(100 + K), 3, 1001, K, C)
+    x = x.to(dtype)
     before = E.edgeconv_infer.launches
     got = E.edgeconv_infer(x, idx, *w, n_convs=n_convs)
     torch.cuda.synchronize()
     assert E.edgeconv_infer.launches == before + 1
-    check_edgeconv(got, E.edgeconv_infer_plain(x, idx, *w, n_convs=n_convs), x, idx, w, n_convs)
+    check_edgeconv(got, E.edgeconv_infer_plain(x, idx, *w, n_convs=n_convs), x, idx, w, n_convs,
+                   **_rounding(dtype))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,n_convs", [(1, 2), (21, 2), (21, 1)])
-def test_edgeconv_kernel_out_of_cloud_index_gives_nan_for_its_point_only(C, n_convs):
+def test_edgeconv_kernel_out_of_cloud_index_gives_nan_for_its_point_only(C, n_convs, dtype):
     require_cuda()
     x, idx, w = _edgeconv_case(np.random.default_rng(7), 2, 256, 20, C)
+    x = x.to(dtype)
     idx[0, 5, 3], idx[1, 9, 19] = 256, -1
     got = E.edgeconv_infer(x, idx, *w, n_convs=n_convs)
     nan = torch.isnan(got).all(-1).all(-1)
     assert nan[0, 5] and nan[1, 9] and int(nan.sum()) == 2
     assert int(torch.isfinite(got).sum()) == got.numel() - 2 * 63
+
+
+@pytest.mark.cuda
+def test_edgeconv_bf16_two_conv_launch_leaves_the_fp32_route_constant_slots_alone():
+    """The bf16 two-conv stage reads conv2's weights from its tensors: fp32
+    launches on one stream interleaved with bf16 launches of other weights
+    on another give the fp32 launch's bits, and the bf16 ones their own."""
+    require_cuda()
+    x, idx, w = _edgeconv_case(np.random.default_rng(11), 4, 1024, 20, 21)
+    _, _, w16 = _edgeconv_case(np.random.default_rng(12), 4, 1024, 20, 21)
+    x16 = x.to(torch.bfloat16)
+    want32 = E.edgeconv_infer(x, idx, *w)
+    want16 = E.edgeconv_infer(x16, idx, *w16)
+    torch.cuda.synchronize()
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    got32, got16 = [], []
+    for _ in range(8):
+        with torch.cuda.stream(streams[0]):
+            got32.append(E.edgeconv_infer(x, idx, *w))
+        with torch.cuda.stream(streams[1]):
+            got16.append(E.edgeconv_infer(x16, idx, *w16))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want32) for g in got32)
+    assert all(torch.equal(g, want16) for g in got16)
 
 
 @pytest.mark.cuda
@@ -355,7 +407,8 @@ def test_knn_row_ranges_equal_the_whole_launch(route, D, k, dtype, rows):
 @pytest.mark.parametrize("rows", [(0, 500), (500, 1001), (333, 334), (17, 990)])
 @pytest.mark.parametrize("C,n_convs,dtype", [(1, 2, torch.float32), (1, 1, torch.float32),
                                              (21, 2, torch.float32), (21, 1, torch.float32),
-                                             (1, 2, torch.bfloat16), (21, 1, torch.bfloat16)])
+                                             (1, 2, torch.bfloat16), (21, 1, torch.bfloat16),
+                                             (21, 2, torch.bfloat16)])
 def test_edgeconv_row_ranges_equal_the_whole_launch(C, n_convs, dtype, rows):
     """B2 over the centres r0..r1-1 of a table of 3 x 1001 points (its
     projection over the whole table): the whole launch's rows bit for bit,
